@@ -1,0 +1,43 @@
+"""Carry parameters, data and solver state from numpy into the port.
+
+The JAX package's pytrees, turned into numpy arrays by the caller (for
+example ``jax.tree_util.tree_map(np.asarray, tree)``), become the port's
+tensors here with their structure kept: a backbone ``[(W0, b0), (W1,
+b1)]`` stays a list of tuples in the same leaf order.  The parity tests
+feed both packages the same x0, y0, data and mid-run states this way.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.core.bilevel import AgentData
+from repro_torch.core.interact import InteractState
+
+__all__ = ["agent_data_from_numpy", "state_from_numpy", "tree_from_numpy"]
+
+
+def tree_from_numpy(tree, device: torch.device | str):
+    """Every numpy leaf of ``tree`` as a tensor on ``device`` (a copy)."""
+    return pytree.tree_map(
+        lambda a: torch.tensor(np.asarray(a), device=device), tree)
+
+
+def agent_data_from_numpy(data, device: torch.device | str) -> AgentData:
+    """``AgentData`` from any object with ``inner_x``/``inner_y``/
+    ``outer_x``/``outer_y`` arrays; labels become int64."""
+    to = lambda a, dtype: torch.tensor(np.asarray(a), dtype=dtype,
+                                       device=device)
+    return AgentData(inner_x=to(data.inner_x, torch.float32),
+                     inner_y=to(data.inner_y, torch.int64),
+                     outer_x=to(data.outer_x, torch.float32),
+                     outer_y=to(data.outer_y, torch.int64))
+
+
+def state_from_numpy(state, device: torch.device | str) -> InteractState:
+    """``InteractState`` from any object with the fields ``x``, ``y``,
+    ``u``, ``v``, ``p_prev`` (numpy pytrees) and ``t``."""
+    tree = lambda field: tree_from_numpy(getattr(state, field), device)
+    return InteractState(x=tree("x"), y=tree("y"), u=tree("u"), v=tree("v"),
+                         p_prev=tree("p_prev"), t=int(np.asarray(state.t)))

@@ -1,0 +1,144 @@
+"""The `HypergradEngine` API: one pluggable backend behind eq. (5).
+
+Counterpart of ``repro.hypergrad.engine``.  Every algorithm's outer
+gradient is the approximate hypergradient
+
+    grad_bar f(x, y) = grad_x f(x, y)
+        - H_xy(g)(x, y) [H_yy(g)(x, y)]^{-1} grad_y f(x, y).
+
+A ``HypergradEngine`` owns the inverse application (``solve``); the
+shared ``hypergradient`` surface owns the joint grad of f, the single
+H_xy cross term and the subtraction.  Gradients and HVPs are
+``torch.func`` transforms, so the whole estimator runs under
+``torch.func.vmap`` over agents.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+from torch.func import grad, jvp
+
+from repro_torch.hypergrad.config import HypergradConfig
+from repro_torch.hypergrad.operator import HypergradStats, flat_dot, tree_sub
+
+__all__ = [
+    "HypergradEngine",
+    "available_backends",
+    "get_backend",
+    "hvp_xy",
+    "hvp_yy",
+    "hypergradient",
+    "hypergradient_with_stats",
+    "measure_counts",
+    "measure_problem_counts",
+    "register_backend",
+]
+
+
+def hvp_yy(g: Callable, x, y, v, *args):
+    """H_yy(g)(x, y) @ v via forward-over-reverse."""
+    grad_y = lambda yy: grad(g, argnums=1)(x, yy, *args)
+    return jvp(grad_y, (y,), (v,))[1]
+
+
+def hvp_xy(g: Callable, x, y, v, *args):
+    """H_xy(g)(x, y) @ v  =  grad_x <grad_y g(x, y), v>."""
+    def inner(xx):
+        return flat_dot(grad(g, argnums=1)(xx, y, *args), v)
+
+    return grad(inner)(x)
+
+
+class HypergradEngine:
+    """Base class: apply the inner-Hessian inverse, counting evaluations.
+
+    ``solve`` returns ``(z, stats)`` with ``z ~= [H_yy g]^{-1} b``; the
+    stats count only the solve's own evaluations.
+    """
+
+    name = "base"
+
+    def solve(self, g: Callable, x, y, b, cfg: HypergradConfig,
+              g_args: tuple):
+        raise NotImplementedError
+
+
+_REGISTRY: dict[str, HypergradEngine] = {}
+
+
+def register_backend(name: str) -> Callable[[type], type]:
+    """Class decorator: register a (stateless) engine under ``name``."""
+
+    def deco(cls: type) -> type:
+        existing = _REGISTRY.get(name)
+        if existing is not None and type(existing) is not cls:
+            raise ValueError(f"hypergradient backend {name!r} already "
+                             f"registered ({type(existing).__name__})")
+        cls.name = name
+        _REGISTRY[name] = cls()
+        return cls
+
+    return deco
+
+
+def _populate() -> None:
+    # Engines live in sibling modules; importing them registers them.
+    from repro_torch.hypergrad import cg as _cg  # noqa: F401
+
+
+def available_backends() -> tuple[str, ...]:
+    """Registered backend names, sorted."""
+    _populate()
+    return tuple(sorted(_REGISTRY))
+
+
+def get_backend(name: str) -> HypergradEngine:
+    """Look a backend up by registry name."""
+    _populate()
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown hypergradient backend {name!r}; "
+            f"choose from {tuple(sorted(_REGISTRY))}") from None
+
+
+def hypergradient_with_stats(f: Callable, g: Callable, x, y,
+                             cfg: HypergradConfig, f_args: tuple = (),
+                             g_args: tuple = ()):
+    """grad_bar f(x, y) of eq. (5) plus its evaluation counts.
+
+    ``f(x, y, *f_args)`` is the outer loss, ``g(x, y, *g_args)`` the
+    inner.  Returns ``(p, HypergradStats)`` with ``p`` shaped like x.
+    """
+    engine = get_backend(cfg.resolve_backend())
+    gx, gy = grad(f, argnums=(0, 1))(x, y, *f_args)
+    z, stats = engine.solve(g, x, y, gy, cfg, g_args)
+    p = tree_sub(gx, hvp_xy(g, x, y, z, *g_args))
+    return p, stats._replace(hvp_count=stats.hvp_count + 1,    # H_xy term
+                             grad_count=stats.grad_count + 1)  # grad f
+
+
+def hypergradient(f: Callable, g: Callable, x, y, cfg: HypergradConfig,
+                  f_args: tuple = (), g_args: tuple = ()):
+    """The approximate hypergradient grad_bar f(x, y) of eq. (5)."""
+    p, _ = hypergradient_with_stats(f, g, x, y, cfg, f_args=f_args,
+                                    g_args=g_args)
+    return p
+
+
+def measure_counts(f: Callable, g: Callable, x, y, cfg: HypergradConfig,
+                   f_args: tuple = (), g_args: tuple = ()) -> HypergradStats:
+    """Run one hypergradient call and return its counts."""
+    _, stats = hypergradient_with_stats(f, g, x, y, cfg, f_args=f_args,
+                                        g_args=g_args)
+    return stats
+
+
+def measure_problem_counts(problem, cfg: HypergradConfig, x0, y0, data,
+                           agent: int = 0) -> HypergradStats:
+    """``measure_counts`` on one agent's slice of stacked ``AgentData``."""
+    return measure_counts(
+        problem.outer, problem.inner, x0, y0, cfg,
+        f_args=((data.outer_x[agent], data.outer_y[agent]),),
+        g_args=((data.inner_x[agent], data.inner_y[agent]),))

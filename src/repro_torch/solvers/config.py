@@ -1,0 +1,92 @@
+"""`SolverConfig`: the configuration object behind every solver.
+
+Counterpart of ``repro.solvers.config`` with the fields this slice of the
+port honours.  Compression, topology processes, Byzantine rules and
+guards are later slices and have no field here yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.consensus import (MixingSpec, erdos_renyi_adjacency,
+                                        laplacian_mixing, ring_mixing,
+                                        torus_mixing)
+from repro_torch.hypergrad import HypergradConfig
+
+__all__ = ["SolverConfig", "TopologyConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """Declarative communication graph, realised per agent count m.
+
+    kind:       "ring" | "erdos-renyi" | "torus".
+    p_connect:  ER edge probability.
+    seed:       ER graph sample seed.
+    self_weight: ring mixing w0.
+    """
+
+    kind: str = "erdos-renyi"
+    p_connect: float = 0.5
+    seed: int = 0
+    self_weight: float = 1.0 / 3.0
+
+    def mixing_spec(self, m: int) -> MixingSpec:
+        """The configured topology's mixing matrix for ``m`` agents."""
+        if self.kind == "ring":
+            return ring_mixing(m, self_weight=self.self_weight)
+        if self.kind == "erdos-renyi":
+            return laplacian_mixing(
+                erdos_renyi_adjacency(m, self.p_connect, self.seed))
+        if self.kind == "torus":
+            rows = int(m ** 0.5)
+            while rows > 1 and m % rows:
+                rows -= 1
+            return torus_mixing(rows, m // rows)
+        raise ValueError(f"unknown topology {self.kind!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Configuration of a registry solver.
+
+    Attributes:
+      algo: registry name ("interact"; see ``available_solvers()``).
+      alpha / beta: outer / inner step sizes (Theorem-1 bounds apply).
+      num_agents: network size m; when set it wins over the m of the data.
+      mixing: explicit ``MixingSpec``; overrides ``topology`` when set.
+      topology: declarative graph, realised once m is known.
+      backend: consensus backend, "dense" or "cuda".
+      hypergrad: how the inner-Hessian inverse is applied (eq. 5).
+      seed: seed of the default Section-6 instance ``solve`` builds.
+    """
+
+    algo: str = "interact"
+    alpha: float = 0.3
+    beta: float = 0.3
+    num_agents: int | None = None
+    mixing: MixingSpec | None = None
+    topology: TopologyConfig = TopologyConfig()
+    backend: str = "dense"
+    hypergrad: HypergradConfig = HypergradConfig()
+    seed: int = 0
+
+    def mixing_spec(self, m: int | None = None) -> MixingSpec:
+        """The mixing matrix: explicit ``mixing`` if set, else topology(m)."""
+        if self.mixing is not None:
+            return self.mixing
+        m = self.num_agents if self.num_agents is not None else m
+        if m is None:
+            raise ValueError(
+                "SolverConfig has no explicit mixing; the agent count m is "
+                "required to realise the declarative topology (set "
+                "num_agents or pass m)")
+        return self.topology.mixing_spec(m)
+
+    def resolve_num_agents(self, m: int | None = None) -> int | None:
+        """``num_agents``, else the explicit mixing's size, else ``m``."""
+        if self.num_agents is not None:
+            return self.num_agents
+        if self.mixing is not None:
+            return self.mixing.num_agents
+        return m

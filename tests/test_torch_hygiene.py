@@ -1,0 +1,111 @@
+"""Package hygiene of the port: imports, devices, registries, the build.
+
+The port imports neither JAX nor the JAX package; its entry points run
+on the CUDA card unless told otherwise and raise where there is none; a
+missing CUDA compiler is an error, never a fallback.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.solvers import (SolverConfig, available_solvers,  # noqa: E402
+                                 default_setup, make_solver, solve)
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_WALK = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(n for n in sys.modules
+             if n in ("jax", "repro") or n.startswith(("jax.", "repro.")))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _WALK], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert int(out[0]) >= 20          # every module was imported
+    assert out[1] == "[]", out
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a CUDA card")
+
+
+def test_default_setup_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_setup(n_per_agent=20)
+
+
+def test_solve_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve(SolverConfig(backend="cuda"), 1, n_per_agent=20)
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        pytest.skip("a CUDA toolkit is installed at its default path")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_library_path_is_keyed_on_source(tmp_path):
+    source = tmp_path / "k.cu"
+    source.write_text("// one")
+    first = build.library_path(source)
+    assert build.library_path(source) == first
+    assert first.parent == build.BUILD_DIR
+    source.write_text("// two")
+    assert build.library_path(source) != first
+
+
+def test_registries():
+    assert available_solvers() == ("interact",)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        make_solver(SolverConfig(algo="svr-interact"))
+    from repro_torch.consensus import BACKENDS, make_engine
+    assert sorted(BACKENDS) == ["cuda", "dense"]
+    with pytest.raises(ValueError, match="unknown consensus backend"):
+        make_engine("pallas", np.eye(3), "cpu")
+
+
+def test_solver_rejects_network_data_mismatch():
+    problem, x0, y0, data = default_setup(num_agents=4, n_per_agent=20,
+                                          device="cpu")
+    solver = make_solver(SolverConfig(num_agents=5))
+    with pytest.raises(ValueError, match="5-agent network"):
+        solver.init(problem, None, x0, y0, data)
+
+
+def test_default_setup_shapes_and_seeding():
+    problem, x0, y0, data = default_setup(seed=3, device="cpu")
+    assert [tuple(w.shape) for layer in x0 for w in layer] == [
+        (16, 20), (20,), (20, 20), (20,)]
+    assert sum(w.numel() for layer in x0 for w in layer) == 760
+    assert [tuple(w.shape) for w in y0] == [(20, 5), (5,)]
+    assert tuple(data.inner_x.shape) == (5, 420, 16)
+    assert tuple(data.outer_x.shape) == (5, 180, 16)
+    assert data.inner_y.dtype == torch.int64
+    assert int(data.inner_y.max()) < 5
+    again = default_setup(seed=3, device="cpu")
+    torch.testing.assert_close(again[1][0][0], x0[0][0], atol=0, rtol=0)
+    torch.testing.assert_close(again[3].inner_x, data.inner_x, atol=0, rtol=0)
