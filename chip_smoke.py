@@ -1,44 +1,65 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 1. Environment: full float32 matmuls (no TF32), versions, the card's
    name and power limit.  Exits non-zero at once without a CUDA device.
-2. Build: compiles the consensus kernels from the repository's CUDA
-   source with nvcc (first use) and prints the build time.
-3. Kernels: each kernel against its plain PyTorch version on the card,
-   over the test shapes, the main-path shape and one large shape, each
-   with a symmetric and a random non-symmetric mixing matrix; times
-   (median of warmed CUDA-event timings; at the main-path shape of CUDA
-   graph replays, which leave out Python's issue cost, and also eager),
-   bounds and library yardsticks.
-4. Main path: ``solve`` of INTERACT on the Section-6 instance at full
-   size, 40 steps, with the ``cuda`` backend and then ``dense``; checks
-   that both eq.-11 traces fall and agree and that the ``cuda`` run went
-   through both kernels (launch counts set to 0 just before it).  Then
-   profiles 3 ``cuda`` steps: device time and kernel launches per step.
-5. Prints a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-   script exits non-zero and prints no result.
+2. Build: compiles every kernel source of the port with nvcc, one
+   process per source, all started together, and prints each build log
+   (registers, shared memory, spills).
+3. Kernels: each kernel against its plain PyTorch version on the card.
+   Consensus: the test shapes, the main-path shape and one large shape,
+   each with a symmetric and a random non-symmetric mixing matrix.  Flash
+   attention: the JAX package's test cases, q_offset cases, the two
+   cases where its wrapper's padding shows, and the gemma2-2b serving
+   shapes (the local one in float32 too).  WKV6: the JAX package's test cases and the rwkv6-3b serving
+   shape, with and without an incoming state.  Times (median of warmed
+   CUDA-event timings), bounds and library yardsticks at the main-path
+   shapes.
+4. INTERACT path: ``solve`` on the Section-6 instance at full size, 40
+   steps, with the ``cuda`` backend and then ``dense``; checks that both
+   eq.-11 traces fall and agree and that the ``cuda`` run went through
+   both consensus kernels (counts set to 0 just before it).  Then
+   profiles 3 ``cuda`` steps.
+5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
+   random weights from a seed), batch 4, prompts of 4608 and 1024 random
+   tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
+   and the plain cached prefill (b) agree, the last decode step's logits
+   (c) agree with a kernel prefill of the prompt plus the fed tokens
+   (d), and each kernel prefill launched the kernel once per layer
+   (counts set to 0 just before each model's run).  Then the same flow
+   in bfloat16, the configs' published dtype, gated on finite logits
+   only, with a profile of one prefill and one decode step.  In both
+   dtypes the gated calls are the warm-up of the timing that follows
+   them: three kernel prefills, three plain cached prefills and three
+   runs of 16 decode steps, each time reported as the median and the
+   three runs.
+6. Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+   then the last line ``{"ok": true, "device": {...}}``.  Any failed
+   check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
-# outside the tensor cores.  Both assume the full 700 W power limit.
+# outside the tensor cores, dense bf16 tensor-core FLOP/s.  All assume
+# the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 ALPHA = 0.3
 F32_TOL, BF16_TOL = 1e-5, 3e-2
@@ -53,10 +74,67 @@ NUM_STEPS, RECORD_EVERY = 40, 5
 TRACE_RTOL = NUM_STEPS * 2e-6
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+WKV_SOURCE = "src/repro_torch/kernels/rwkv6/csrc/wkv6.cu"
 REPLACES = {
     "consensus_step": "src/repro/kernels/consensus_step/kernel.py:83",
     "consensus_mix": "src/repro/kernels/consensus_step/kernel.py:52",
 }
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:100"
+WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:89"
+
+# Flash attention cases: (b, sq, skv, nh, nkv, hd, causal, window, softcap,
+# q_offset, dtype).  The first nine are tests/test_kernels.py's FLASH_CASES
+# (sq = skv, q_offset 0).
+FLASH_CASES = [
+    (2, 256, 256, 4, 2, 64, True, None, None, 0, "float32"),
+    (1, 256, 256, 8, 1, 128, True, None, None, 0, "float32"),   # MQA
+    (1, 256, 256, 4, 4, 64, True, 128, None, 0, "float32"),     # SWA
+    (1, 192, 192, 4, 2, 64, True, None, 50.0, 0, "float32"),    # softcap
+    (1, 256, 256, 4, 2, 64, True, 64, 30.0, 0, "float32"),      # SWA+softcap
+    (2, 128, 128, 4, 2, 64, False, None, None, 0, "float32"),   # bidirectional
+    (1, 200, 200, 4, 2, 64, True, None, None, 0, "float32"),    # ragged
+    (1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),  # bf16 hd=256
+    (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
+    (1, 1, 256, 4, 2, 64, True, None, None, 255, "float32"),    # decode
+    (2, 7, 300, 8, 4, 256, True, 64, 50.0, 293, "float32"),     # suffix, SWA
+    (1, 100, 100, 4, 2, 64, False, None, None, 0, "float32"),   # non-causal ragged
+    (1, 100, 100, 4, 2, 64, True, None, None, 110, "float32"),  # offset past keys
+    (1, 8, 16, 2, 1, 32, True, 6, None, 16, "float32"),   # rows that see no key
+    (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0, "float32"),  # gemma2 global
+    (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0, "float32"),  # gemma2 local
+]
+# The serving shapes of gemma2-2b's two layer kinds, bf16: timed.
+FLASH_MAIN = {
+    "global": (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0, "bfloat16"),
+    "local": (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0, "bfloat16"),
+}
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# WKV6 cases: (b, s, h, N, with_state, dtype), tests/test_kernels.py's
+# WKV_CASES (without their TPU chunk sizes), then rwkv6-3b's serving shape.
+WKV_CASES = [
+    (2, 128, 2, 16, False, "float32"),
+    (1, 96, 4, 32, False, "float32"),
+    (2, 64, 2, 16, True, "float32"),
+    (1, 100, 2, 16, False, "float32"),
+    (1, 1, 2, 16, True, "float32"),
+    (1, 128, 2, 64, False, "float32"),
+    (1, 64, 2, 16, False, "bfloat16"),
+    (4, 1024, 40, 64, True, "float32"),
+    (4, 1024, 40, 64, True, "bfloat16"),
+]
+WKV_MAIN = (4, 1024, 40, 64, False, "bfloat16")
+WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+
+# Serving runs: batch, prompt tokens, greedy decode steps.
+SERVE_RUNS = {"gemma2-2b": (4, 4608, 16), "rwkv6-3b": (4, 1024, 16)}
+# Timed repetitions after the gated runs, which serve as the warm-up:
+# prefills, and runs of the same number of decode steps.
+SERVE_REPS = 3
+# Float32 gate on the logits, relative to their max-abs scale: the
+# tolerance of the JAX package's tests/test_prefill_cache.py.
+SERVE_RTOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -115,18 +193,25 @@ def time_ms(torch, fn, inner: int, reps: int = 7, graph: bool = False
     return statistics.median(samples)
 
 
+def roofline_ms(nbytes: float, flops: float, peak_flops: float
+                ) -> tuple[float, str]:
+    """The least time for the work: the larger of the bytes over the HBM
+    rate and the flops over ``peak_flops``, and which one it is."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / peak_flops
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound_ms(kernel: str, m: int, d: int, itemsize: int) -> tuple[float, str]:
-    """Least time for the work: each input read once, each output written
-    once, over HBM bandwidth; the flops over the float32 peak."""
+    """Consensus kernels: each input read once, each output written once;
+    the flops at the float32 peak."""
     if kernel == "consensus_step":
         nbytes = 6 * m * d * itemsize + m * m * 4
         flops = 4 * m * m * d + 4 * m * d
     else:
         nbytes = 2 * m * d * itemsize + m * m * 4
         flops = 2 * m * m * d
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOP_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline_ms(nbytes, flops, FP32_FLOP_PER_S)
 
 
 def check_kernels(torch, ops, ref, main_matrix):
@@ -214,25 +299,335 @@ def check_kernels(torch, ops, ref, main_matrix):
     return err, timings
 
 
-def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
-    """Device time and kernel launches per main-path step under
-    ``torch.profiler`` (kernel events only: their durations summed)."""
-    solver.warmup(state, data)
+def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int
+                  ) -> int:
+    """(query, key) pairs the mask leaves visible, per batch row and head."""
+    total = 0
+    for i in range(sq):
+        pos = i + q_offset
+        hi = min(skv - 1, pos) if causal else skv - 1
+        lo = max(0, pos - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bound_ms(b, sq, skv, nh, nkv, hd, causal, window, q_offset,
+                   itemsize) -> tuple[float, str]:
+    """4 hd flops per visible pair and head, at the bf16 tensor-core peak
+    (float32 inputs: the float32 peak); q, k, v read once, out written
+    once."""
+    flops = 4 * hd * visible_pairs(sq, skv, causal, window, q_offset) * b * nh
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    nbytes = itemsize * hd * b * (2 * sq * nh + 2 * skv * nkv)
+    return roofline_ms(nbytes, flops, peak)
+
+
+def wkv_bound_ms(b, s, h, n, with_state, itemsize) -> tuple[float, str]:
+    """5 N^2 float32 flops per token and head (o_t: N^2 FMAs; the state
+    update: N^2 products and N^2 FMAs); r, k, v, w, u and the incoming
+    state read once, out and the final state written once."""
+    flops = 5 * n * n * b * s * h
+    nbytes = (5 * b * s * h * n * itemsize + h * n * 4
+              + (2 if with_state else 1) * b * h * n * n * 4)
+    return roofline_ms(nbytes, flops, FP32_FLOP_PER_S)
+
+
+def check_flash(torch) -> dict:
+    """The flash kernel against its plain version on every case; times,
+    bounds and SDPA (no softcap: it has none) at the serving shapes."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    timings = {}
+    cases = [(c, None) for c in FLASH_CASES] + [
+        (c, name) for name, c in FLASH_MAIN.items()]
+    for case, main_name in cases:
+        b, sq, skv, nh, nkv, hd, causal, window, cap, q_off, dt = case
+        dtype = getattr(torch, dt)
+        q = torch.randn(b, sq, nh, hd, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, skv, nkv, hd, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, skv, nkv, hd, generator=gen, device=dev).to(dtype)
+        kw = dict(causal=causal, window=window, logit_softcap=cap,
+                  q_offset=q_off)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == want.shape,
+              f"flash {case}: dtype/shape")
+        e = float((got.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dt]
+        print(f"flash case {case}: max abs err {e:.3e} (tol {tol})",
+              flush=True)
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+              f"flash {case} disagrees with its plain version beyond {tol}")
+        err[dt] = max(err[dt], e)
+        if main_name is None:
+            continue
+        bound, by = flash_bound_ms(b, sq, skv, nh, nkv, hd, causal, window,
+                                   q_off, q.element_size())
+        # SDPA in its own (b, h, s, hd) layout, made beforehand
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window is None:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(sq, device=dev)
+            mask = ((pos[:, None] >= pos[None, :])
+                    & (pos[:, None] - pos[None, :] < window))
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        try:
+            library_ms = time_ms(torch, lib, 3, reps=3)
+        except RuntimeError as exc:   # no SDPA kernel for these inputs
+            print(f"SDPA {main_name}: {exc}", flush=True)
+            library_ms = None
+        timings[main_name] = dict(
+            shape=[b, sq, skv, nh, nkv, hd], window=window, softcap=cap,
+            dtype=dt,
+            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 3,
+                       reps=3),
+            plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
+                             1, reps=3),
+            bound_ms=bound, bound_by=by, library_ms=library_ms)
+        print(f"flash {main_name}: {json.dumps(timings[main_name])}",
+              flush=True)
+        del q, k, v, qt, kt, vt, got, want
+        torch.cuda.empty_cache()
+    # strided views: every other query head, keys and values cut from
+    # wider rows (the kernel reads the strides it is given)
+    q = torch.randn(2, 130, 8, 64, generator=gen, device=dev)[:, :, ::2]
+    k, v = (torch.randn(2, 130, 2, 128, generator=gen, device=dev)[..., :64]
+            for _ in range(2))
+    kw = dict(causal=True, window=50, logit_softcap=30.0)
+    e = float((ops.flash_attention(q, k, v, **kw)
+               - ref.attention_ref(q, k, v, **kw)).abs().max())
+    print(f"flash case strided views: max abs err {e:.3e} (tol 2e-5)",
+          flush=True)
+    check(e <= FLASH_TOL["float32"], "flash on strided views disagrees")
+    err["float32"] = max(err["float32"], e)
+    return dict(err=err, timings=timings)
+
+
+def check_wkv6(torch) -> dict:
+    """The WKV6 kernel against its plain version on every case; time and
+    bound at the serving shape (no library call computes WKV6)."""
+    from repro_torch.kernels.rwkv6 import ops, ref
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    timing = None
+    for case in WKV_CASES + [WKV_MAIN]:
+        b, s, h, n, with_state, dt = case
+        dtype = getattr(torch, dt)
+        randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+        r, k, v = (randn(b, s, h, n).to(dtype) for _ in range(3))
+        w = (torch.sigmoid(randn(b, s, h, n) * 2.0 - 1.0) * 0.6
+             + 0.35).to(dtype)
+        u = (0.3 * randn(h, n)).to(dtype)
+        state = 0.5 * randn(b, h, n, n) if with_state else None
+        got, got_state = ops.wkv6(r, k, v, w, u, state)
+        want, want_state = ref.wkv6_ref(r, k, v, w, u, state)
+        torch.cuda.synchronize()
+        tol = WKV_TOL[dt]
+        check(got.dtype == dtype and got.shape == want.shape
+              and got_state.shape == want_state.shape,
+              f"wkv6 {case}: dtype/shape")
+        e = max(float((got.float() - want.float()).abs().max()),
+                float((got_state - want_state).abs().max()))
+        print(f"wkv6 case {case}: max abs err {e:.3e} (tol {tol})",
+              flush=True)
+        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+              and torch.allclose(got_state, want_state, atol=tol, rtol=tol),
+              f"wkv6 {case} disagrees with its plain version beyond {tol}")
+        err[dt] = max(err[dt], e)
+        if case is WKV_MAIN:
+            bound, by = wkv_bound_ms(b, s, h, n, with_state, r.element_size())
+            timing = dict(
+                shape=[b, s, h, n], dtype=dt,
+                ms=time_ms(torch, lambda: ops.wkv6(r, k, v, w, u, state), 10,
+                           reps=5),
+                plain_ms=time_ms(torch,
+                                 lambda: ref.wkv6_ref(r, k, v, w, u, state),
+                                 1, reps=3),
+                bound_ms=bound, bound_by=by, library_ms=None)
+            print(f"wkv6 main: {json.dumps(timing)}", flush=True)
+    return dict(err=err, timing=timing)
+
+
+def serve_model(torch, arch: str, dtype: str) -> dict:
+    """One model's serving flow at full size (see the module docstring).
+
+    Returns the kernel launches of the run, the two logit gaps, and the
+    prefill and decode times."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.launch.serving import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    batch, prompt_len, steps = SERVE_RUNS[arch]
+    specs = cfg.layer_pattern() * cfg.num_periods()
+    per_prefill = {
+        "flash_attention": sum(s.mixer == "attn" for s in specs),
+        "wkv6": sum(s.mixer == "rwkv" for s in specs)}
+    counters = {"flash_attention": fa_ops.LAUNCHES, "wkv6": wkv_ops.LAUNCHES}
+
+    def launches():
+        return {name: c[name] for name, c in counters.items()}
+
+    def gap(x, y):
+        return float((x.float() - y.float()).abs().max()
+                     / y.float().abs().max())
+
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = M.init_params(cfg, seed=0, with_head=True, device=dev)
+        torch.cuda.synchronize()
+        print(f"serve {arch} {dtype}: {M.param_count(params):,} parameters "
+              f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, prompt_len), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        prefill = make_prefill_step(cfg, attn_impl="cuda", device=dev)
+        serve = make_serve_step(cfg, device=dev)
+
+        for c in counters.values():
+            for name in c:
+                c[name] = 0
+        # (a) the kernel prefill
+        logits_a = prefill(params, tokens)
+        torch.cuda.synchronize()
+        check(launches() == per_prefill,
+              f"{arch}: a prefill launched {launches()}, expected "
+              f"{per_prefill}")
+        # (b) the plain prefill into a fresh cache, with room for the
+        # gated decode steps, SERVE_REPS timed runs of them and the
+        # profiled step
+        cache = M.init_cache(cfg, batch,
+                             prompt_len + steps * (1 + SERVE_REPS) + 1,
+                             device=dev)
+        logits_b, cache = M.prefill(cfg, params, None, tokens, cache)
+        torch.cuda.synchronize()
+        check(launches() == per_prefill, f"{arch}: the plain prefill "
+              "launched a kernel")
+        # (c) greedy decode, one token per request a step
+        fed = []
+        tok = torch.argmax(logits_b, dim=-1, keepdim=True)
+        position = prompt_len
+        for _ in range(steps):
+            fed.append(tok)
+            logits_c, cache = serve(params, tok, cache, position)
+            tok = torch.argmax(logits_c, dim=-1, keepdim=True)
+            position += 1
+        # (d) the kernel prefill of the prompt and every fed token
+        logits_d = prefill(params, torch.cat([tokens] + fed, dim=1))
+        torch.cuda.synchronize()
+        counts = launches()
+        check(counts == {k: 2 * n for k, n in per_prefill.items()},
+              f"{arch}: launches {counts}, expected two prefills' worth")
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (logits_a, logits_b, logits_c, logits_d))
+        gaps = dict(gap_a_b=gap(logits_a, logits_b),
+                    gap_c_d=gap(logits_c, logits_d))
+
+        # -- timing, after the counts were read; (a)-(d) were the warm-up
+        prefill_runs = wall_ms(torch, lambda: prefill(params, tokens),
+                               SERVE_REPS)
+        plain_prefill_runs = wall_ms(
+            torch, lambda: M.prefill(
+                cfg, params, None, tokens,
+                M.init_cache(cfg, batch, prompt_len, device=dev)),
+            SERVE_REPS)
+        decode_runs = []
+        for _ in range(SERVE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = serve(params, tok, cache, position)
+                tok = torch.argmax(logits, dim=-1, keepdim=True)
+                position += 1
+            torch.cuda.synchronize()
+            decode_runs.append(1e3 * (time.perf_counter() - t0) / steps)
+        profiles = {}
+        if dtype == "bfloat16":   # where a served token's time goes
+            profiles["prefill"] = device_profile(
+                torch, lambda: prefill(params, tokens), 1)
+            profiles["decode_step"] = device_profile(
+                torch, lambda: serve(params, tok, cache, position), 1)
+        decode_ms = statistics.median(decode_runs)
+        result = dict(
+            arch=arch, dtype=dtype, batch=batch, prompt_len=prompt_len,
+            decode_steps=steps, launches=counts, **gaps,
+            logits_scale=float(logits_b.float().abs().max()),
+            prefill_ms=statistics.median(prefill_runs),
+            prefill_ms_runs=prefill_runs,
+            plain_prefill_ms=statistics.median(plain_prefill_runs),
+            plain_prefill_ms_runs=plain_prefill_runs,
+            decode_ms_per_step=decode_ms,
+            decode_ms_per_step_runs=decode_runs,
+            decode_tokens_per_s=1e3 * batch / decode_ms,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            profiles=profiles)
+    del params, cache, logits, logits_a, logits_b, logits_c, logits_d
+    torch.cuda.empty_cache()
+    print(f"serve: {json.dumps(result)}", flush=True)
+    check(finite, f"{arch} {dtype}: non-finite logits")
+    if dtype == "float32":
+        check(result["gap_a_b"] <= SERVE_RTOL,
+              f"{arch}: kernel prefill vs plain cached prefill gap "
+              f"{result['gap_a_b']:.3e} > {SERVE_RTOL}")
+        check(result["gap_c_d"] <= SERVE_RTOL,
+              f"{arch}: last decode step vs kernel prefill gap "
+              f"{result['gap_c_d']:.3e} > {SERVE_RTOL}")
+    return result
+
+
+def wall_ms(torch, fn, reps: int) -> list[float]:
+    """Host-clock ms of each of ``reps`` calls of ``fn``, each ending in a
+    synchronise: the time a caller waits for the result."""
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return runs
+
+
+def device_profile(torch, run, units: int) -> dict:
+    """Device time, kernel launches and the top kernels per unit of work
+    under ``torch.profiler``, where ``run()`` does ``units`` units (kernel
+    events only: their durations summed).  ``wall_us`` is the host clock
+    around the profiled run, profiler overhead included."""
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with torch.profiler.profile(activities=activities) as prof:
-        solver.run(state, data, steps)
+        run()
         torch.cuda.synchronize()
+    wall_us = 1e6 * (time.perf_counter() - t0) / units
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    device_us = sum(e.self_device_time_total for e in kernels) / units
     return dict(
-        steps=steps,
-        device_us_per_step=sum(e.self_device_time_total
-                               for e in kernels) / steps,
-        device_kernels_per_step=sum(e.count for e in kernels) / steps,
-        top=[dict(name=e.key[:80], us_per_step=e.self_device_time_total
-                  / steps, count_per_step=e.count / steps) for e in top])
+        units=units, device_us=device_us, wall_us=wall_us,
+        kernels=sum(e.count for e in kernels) / units,
+        top=[dict(name=e.key[:80], us=e.self_device_time_total / units,
+                  count=e.count / units) for e in top])
+
+
+def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
+    """``device_profile`` of INTERACT steps, after a warm-up."""
+    solver.warmup(state, data)
+    return device_profile(torch, lambda: solver.run(state, data, steps),
+                          steps)
 
 
 def main() -> int:
@@ -253,19 +648,25 @@ def main() -> int:
                                      make_solver, solve)
     from repro_torch.solvers.config import TopologyConfig
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    ops.load()
-    lib = build.library_path(ops.SOURCE)
-    print(f"built {lib.relative_to(ROOT)} from {SOURCE} for sm_90a in "
+    sources = [ROOT / src for src in (SOURCE, FLASH_SOURCE, WKV_SOURCE)]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(build.build, sources))
+    print(f"built {len(libs)} kernel sources for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    for src, lib in zip(sources, libs):
+        print(f"{src.relative_to(ROOT)} -> {lib.relative_to(ROOT)}:\n"
+              + lib.with_suffix(".log").read_text().strip(), flush=True)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     main_matrix = torch.tensor(TopologyConfig().mixing_spec(5).matrix,
                                dtype=torch.float32, device=dev)
     err, timings = check_kernels(torch, ops, ref, main_matrix)
+    flash = check_flash(torch)
+    wkv = check_wkv6(torch)
 
-    # -- the main path: counts to 0 just before, read just after ----------
+    # -- the INTERACT path: counts to 0 just before, read just after -------
     cfg = dict(algo="interact", alpha=0.3, beta=0.3)
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
@@ -301,8 +702,8 @@ def main() -> int:
     solver = make_solver(SolverConfig(backend="cuda", **cfg))
     profile = profile_steps(torch, solver,
                             solver.init(problem, None, x0, y0, data), data)
-    if profile["device_us_per_step"] > 0:
-        profile["device_busy_share"] = (profile["device_us_per_step"]
+    if profile["device_us"] > 0:
+        profile["device_busy_share"] = (profile["device_us"]
                                         / res_cuda.us_per_step)
     else:
         profile["device_busy_share"] = "not measured: no device events"
@@ -316,6 +717,11 @@ def main() -> int:
     check(launches["consensus_step"] >= NUM_STEPS,
           f"consensus_step launched {launches['consensus_step']} times")
     check(launches["consensus_mix"] >= 1, "consensus_mix never launched")
+
+    # -- the serving path: counts to 0 just before each model's run --------
+    serving = {(arch, dtype): serve_model(torch, arch, dtype)
+               for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
+    print(json.dumps({"serving": list(serving.values())}), flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -334,6 +740,31 @@ def main() -> int:
                           "M, u)" if name == "consensus_step"
                           else "matmul(M, x)"),
             shape=main["shape"], large=timings[name]["large"]))
+    main = flash["timings"]["global"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES,
+        launches=serving[("gemma2-2b", "float32")]["launches"][
+            "flash_attention"],
+        max_abs_err=flash["err"]["float32"],
+        max_abs_err_bf16=flash["err"]["bfloat16"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        library_call=("scaled_dot_product_attention(is_causal=True, "
+                      "enable_gqa=True) without the softcap, which it "
+                      "cannot apply"),
+        shape=main["shape"], dtype=main["dtype"], softcap=main["softcap"],
+        local=flash["timings"]["local"]))
+    main = wkv["timing"]
+    kernels.append(dict(
+        name="wkv6", route="cuda", source=WKV_SOURCE, replaces=WKV_REPLACES,
+        launches=serving[("rwkv6-3b", "float32")]["launches"]["wkv6"],
+        max_abs_err=wkv["err"]["float32"],
+        max_abs_err_bf16=wkv["err"]["bfloat16"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        library_call="none: no PyTorch call computes WKV6",
+        shape=main["shape"], dtype=main["dtype"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.bilevel import AgentData
 from repro_torch.core.interact import InteractState
 
-__all__ = ["agent_data_from_numpy", "state_from_numpy", "tree_from_numpy"]
+__all__ = ["agent_data_from_numpy", "lm_params_from_numpy",
+           "state_from_numpy", "tree_from_numpy"]
 
 
 def tree_from_numpy(tree, device: torch.device | str):
@@ -41,3 +42,27 @@ def state_from_numpy(state, device: torch.device | str) -> InteractState:
     tree = lambda field: tree_from_numpy(getattr(state, field), device)
     return InteractState(x=tree("x"), y=tree("y"), u=tree("u"), v=tree("v"),
                          p_prev=tree("p_prev"), t=int(np.asarray(state.t)))
+
+
+def lm_params_from_numpy(tree, cfg, device: torch.device | str) -> dict:
+    """The JAX package's ``init_params`` pytree (numpy leaves) as the
+    port's LM parameters.
+
+    ``tree["layers"]`` is a list over the period's pattern of dicts whose
+    leaves carry a leading period axis; the port's ``params["layers"]``
+    holds one dict per layer, layer ``period * len(pattern) + i`` taken
+    from ``tree["layers"][i]`` at index ``period``.  ``embed``,
+    ``final_norm`` and ``head`` (when present) carry over as they are.
+    """
+    pattern_len = len(cfg.layer_pattern())
+    if len(tree["layers"]) != pattern_len:
+        raise ValueError(f"{len(tree['layers'])} period entries, but "
+                         f"{cfg.name}'s pattern has {pattern_len}")
+    layers = [
+        pytree.tree_map(lambda a, period=period: torch.tensor(
+            np.asarray(a)[period], device=device), tree["layers"][i])
+        for period in range(cfg.num_periods()) for i in range(pattern_len)]
+    params = {key: tree_from_numpy(value, device)
+              for key, value in tree.items() if key != "layers"}
+    params["layers"] = layers
+    return params

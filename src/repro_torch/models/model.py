@@ -1,0 +1,289 @@
+"""The LM: ArchConfig -> init / features / logits / decode.
+
+Counterpart of ``repro.models.model`` for the mixers and ffns the port
+has: attention and rwkv mixers, the dense ffn.  The JAX package stacks
+layer parameters per period and scans over them; the port keeps one
+parameter dict per layer in ``params["layers"]`` and loops over it in
+Python, layer ``period * len(pattern) + i`` holding pattern entry ``i``.
+
+Bilevel split, as in the JAX package: ``features`` returns the final
+hidden states of the backbone (the outer variable x); the LM head is a
+separate (d_model, vocab) parameter (the inner variable y).
+``init_params(..., with_head=True)`` includes one, and ``forward`` goes
+end to end.
+
+Configurations with a ``mamba`` mixer, a ``moe`` ffn or a frontend with
+prefix tokens raise ``NotImplementedError``: they wait for ROADMAP
+Queue A item 12.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv as Rk
+from repro_torch.models.base import ArchConfig, LayerSpec
+
+__all__ = [
+    "check_supported", "decode_step", "features", "forward", "head_logits",
+    "init_cache", "init_head", "init_params", "lm_head", "param_count",
+    "prefill",
+]
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot run yet."""
+    for spec in cfg.layer_pattern():
+        if spec.mixer == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: the mamba mixer is not ported yet (ROADMAP "
+                "Queue A item 12, models/mamba.py)")
+        if spec.ffn == "moe":
+            raise NotImplementedError(
+                f"{cfg.name}: the moe ffn is not ported yet (ROADMAP Queue A "
+                "item 12, models/moe.py)")
+    if cfg.frontend != "none" and cfg.num_prefix_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend's prefix tokens are "
+            "not ported yet (ROADMAP Queue A item 12)")
+
+
+def _window(cfg: ArchConfig, spec: LayerSpec) -> int | None:
+    if cfg.long_context_mode == "window" and spec.sliding_window is None:
+        return cfg.local_window
+    return spec.sliding_window
+
+
+def _layer_specs(cfg: ArchConfig) -> list[LayerSpec]:
+    pattern = cfg.layer_pattern()
+    return [pattern[i % len(pattern)]
+            for i in range(cfg.num_periods() * len(pattern))]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
+                device: torch.device) -> dict:
+    dt = _dtype(cfg)
+    p: dict[str, Any] = {"pre_norm": L.init_rms_norm(cfg.d_model, dt, device),
+                         "post_norm": L.init_rms_norm(cfg.d_model, dt,
+                                                      device)}
+    if spec.mixer == "attn":
+        p["attn"] = L.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.qk_norm, dt, device)
+    else:
+        p["rwkv"] = Rk.init_rwkv_block(gen, cfg.d_model, cfg.rwkv_head_size,
+                                       dt, device, cfg.d_ff)
+    if spec.ffn == "dense" and spec.mixer != "rwkv":
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    return p
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, with_head: bool = False,
+                device: str | torch.device | None = None) -> dict:
+    """Backbone parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (the JAX package's distributions, other
+    numbers): {"embed", "final_norm", "layers": [one dict per layer]}
+    and, with ``with_head``, "head"."""
+    device = resolve_device(device)
+    cfg.validate()
+    check_supported(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = _dtype(cfg)
+    params: dict[str, Any] = {
+        "embed": L.init_normal(gen, (cfg.vocab_size, cfg.d_model),
+                               1.0 / math.sqrt(cfg.d_model), dt, device),
+        "final_norm": L.init_rms_norm(cfg.d_model, dt, device),
+        "layers": [_init_layer(cfg, spec, gen, device)
+                   for spec in _layer_specs(cfg)],
+    }
+    if with_head:
+        params["head"] = init_head(cfg, gen, device)
+    return params
+
+
+def init_head(cfg: ArchConfig, gen: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    """The inner-variable readout head y (d_model, vocab)."""
+    return L.init_normal(gen, (cfg.d_model, cfg.vocab_size),
+                         1.0 / math.sqrt(cfg.d_model), _dtype(cfg), device)
+
+
+def param_count(params) -> int:
+    def count(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.numel()
+        if isinstance(tree, dict):
+            return sum(count(t) for t in tree.values())
+        return sum(count(t) for t in tree)
+    return count(params)
+
+
+# ---------------------------------------------------------------------------
+# Forward (training / prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
+                 positions: torch.Tensor, impl: str = "reference",
+                 cache: dict | None = None
+                 ) -> tuple[torch.Tensor, dict | None]:
+    """Pre-norm residual layer.  Returns (x, new_cache).  ``impl`` picks
+    the no-cache attention and WKV6 route; the cached branches are plain,
+    as in the JAX package."""
+    h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
+    new_cache = cache
+    if spec.mixer == "attn":
+        out, new_attn = L.attention(
+            p["attn"], h, positions,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+            window=_window(cfg, spec), logit_softcap=cfg.attn_logit_softcap,
+            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            cache=None if cache is None else cache["attn"], impl=impl)
+        if cache is not None:
+            new_cache = {**cache, "attn": new_attn}
+    else:
+        if cache is None:
+            out, _, _ = Rk.rwkv_time_mix(p["rwkv"], h, cfg.rwkv_head_size,
+                                         impl=impl)
+        else:
+            out, st = Rk.rwkv_time_mix_decode(p["rwkv"], h,
+                                              cfg.rwkv_head_size,
+                                              cache["rwkv"])
+            new_cache = {**cache, "rwkv": st}
+    x = x + out
+
+    h = L.rms_norm(p["post_norm"], x, cfg.norm_eps)
+    if spec.mixer == "rwkv":
+        # RWKV uses its own token-shifted channel mix as the FFN.
+        if cache is None:
+            out, _ = Rk.rwkv_channel_mix(p["rwkv"], h)
+        else:
+            out, cm_last = Rk.rwkv_channel_mix(
+                p["rwkv"], h,
+                x_last=new_cache["rwkv"]["cm_last"].to(h.dtype))
+            new_cache = {**new_cache,
+                         "rwkv": {**new_cache["rwkv"],
+                                  "cm_last": cm_last.float()}}
+        return x + out, new_cache
+    if spec.ffn == "dense":
+        return x + L.gated_mlp(p["mlp"], h), new_cache
+    return x, new_cache   # ffn "none": the JAX package adds zeros
+
+
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    embed = params["embed"]
+    scale = torch.tensor(math.sqrt(cfg.d_model), dtype=embed.dtype,
+                         device=embed.device)
+    return embed[tokens] * scale
+
+
+def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+             impl: str = "reference") -> tuple[torch.Tensor, torch.Tensor]:
+    """Backbone features (batch, seq, d_model), and the MoE aux loss
+    (zero: no moe ffn is ported yet).  ``impl`` routes attention and
+    WKV6: ``"reference"`` or ``"cuda"``."""
+    check_supported(cfg)
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for spec, p in zip(_layer_specs(cfg), params["layers"]):
+        x, _ = _apply_layer(cfg, spec, p, x, positions, impl)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def head_logits(cfg: ArchConfig, head: torch.Tensor,
+                feats: torch.Tensor) -> torch.Tensor:
+    return L.softcap(feats @ head, cfg.final_logit_softcap)
+
+
+def lm_head(params: dict) -> torch.Tensor:
+    """The (d_model, vocab) readout: the head, else the tied embedding."""
+    return params["head"] if "head" in params else params["embed"].T
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            impl: str = "reference") -> tuple[torch.Tensor, torch.Tensor]:
+    feats, aux = features(cfg, params, tokens, impl)
+    return head_logits(cfg, lm_head(params), feats), aux
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                      max_len: int, device: torch.device) -> dict:
+    if spec.mixer == "rwkv":
+        return {"rwkv": Rk.init_rwkv_state(batch, cfg.d_model,
+                                           cfg.rwkv_head_size, device)}
+    window = _window(cfg, spec)
+    # SWA layers only ever need `window` slots; full layers the sequence.
+    size = max_len if window is None else min(max_len, window)
+    shape = (batch, size, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"attn": {
+        "k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "v": torch.zeros(shape, dtype=_dtype(cfg), device=device),
+        "len": 0,
+    }}
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: str | torch.device | None = None) -> list[dict]:
+    """One decode cache per layer: KV ring buffers for attention layers,
+    (wkv, token-shift) states for rwkv layers."""
+    device = resolve_device(device)
+    check_supported(cfg)
+    return [_init_layer_cache(cfg, spec, batch, max_len, device)
+            for spec in _layer_specs(cfg)]
+
+
+def _decode_features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                     cache: list[dict], positions: torch.Tensor
+                     ) -> tuple[torch.Tensor, list[dict]]:
+    x = _embed(cfg, params, tokens)
+    new_cache = []
+    for spec, p, c in zip(_layer_specs(cfg), params["layers"], cache):
+        x, nc = _apply_layer(cfg, spec, p, x, positions, cache=c)
+        new_cache.append(nc)
+    return L.rms_norm(params["final_norm"], x, cfg.norm_eps), new_cache
+
+
+def prefill(cfg: ArchConfig, params: dict, head: torch.Tensor | None,
+            tokens: torch.Tensor, cache: list[dict]
+            ) -> tuple[torch.Tensor, list[dict]]:
+    """Full-sequence forward that populates a fresh decode cache.
+
+    Returns (last-token logits (batch, vocab), cache).  The head is
+    applied to the last position only; the JAX package computes every
+    position's logits and keeps the last, which gives the same result.
+    """
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, new_cache = _decode_features(cfg, params, tokens, cache, positions)
+    head = lm_head(params) if head is None else head
+    return head_logits(cfg, head, x[:, -1, :]), new_cache
+
+
+def decode_step(cfg: ArchConfig, params: dict, head: torch.Tensor | None,
+                token: torch.Tensor, cache: list[dict],
+                position: int | torch.Tensor
+                ) -> tuple[torch.Tensor, list[dict]]:
+    """One-token decode.  token (batch, 1) int64; position an int (or an
+    (s,) position vector).  Returns (logits (batch, s, vocab), cache).
+    Attention caches are written in place."""
+    positions = torch.as_tensor(position, device=token.device).reshape(-1)
+    x, new_cache = _decode_features(cfg, params, token, cache, positions)
+    head = lm_head(params) if head is None else head
+    return head_logits(cfg, head, x), new_cache

@@ -1,8 +1,9 @@
 """Package hygiene of the port: imports, devices, registries, the build.
 
-The port imports neither JAX nor the JAX package; its entry points run
-on the CUDA card unless told otherwise and raise where there is none; a
-missing CUDA compiler is an error, never a fallback.
+The port imports neither JAX nor the JAX package; its entry points (the
+INTERACT solver's and the LM serving path's) run on the CUDA card unless
+told otherwise and raise where there is none; a missing CUDA compiler is
+an error, never a fallback.
 """
 import os
 import subprocess
@@ -15,7 +16,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.serving import (make_prefill_step,  # noqa: E402
+                                        make_serve_step)
+from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.solvers import (SolverConfig, available_solvers,  # noqa: E402
                                  default_setup, make_solver, solve)
 
@@ -39,7 +45,7 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _WALK], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 20          # every module was imported
+    assert int(out[0]) >= 52          # every module was imported
     assert out[1] == "[]", out
 
 
@@ -57,6 +63,26 @@ def test_default_setup_without_device_raises_without_cuda(no_cuda):
 def test_solve_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve(SolverConfig(backend="cuda"), 1, n_per_agent=20)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: make_prefill_step(cfg, attn_impl="cuda"),
+    lambda cfg: make_serve_step(cfg),
+    lambda cfg: lm.init_params(cfg),
+    lambda cfg: lm.init_cache(cfg, batch=1, max_len=8),
+], ids=["make_prefill_step", "make_serve_step", "init_params", "init_cache"])
+def test_serving_entry_points_without_device_raise_without_cuda(no_cuda,
+                                                                 entry):
+    cfg = get_config("gemma2-2b").reduced(num_prefix_tokens=0,
+                                          frontend="none")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(cfg)
+
+
+def test_serve_cli_without_device_raises_without_cuda(no_cuda):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "rwkv6-3b", "--prompt-len", "4",
+                    "--new-tokens", "2"])
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
