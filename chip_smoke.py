@@ -12,9 +12,13 @@
    Consensus: the test shapes, the main-path shape and one large shape,
    each with a symmetric and a random non-symmetric mixing matrix.  Flash
    attention: the JAX package's test cases, q_offset cases, the two
-   cases where its wrapper's padding shows, and the gemma2-2b serving
-   shapes (the local one in float32 too).  WKV6: the JAX package's test cases and the rwkv6-3b serving
-   shape, with and without an incoming state.  Times (median of warmed
+   cases where its wrapper's padding shows, rows that see no key and
+   strided views, each in float32 (the exact FMA kernel, 2e-5) and in
+   bfloat16 (the tensor-core kernel, a per-row relative gate), and the
+   gemma2-2b serving shapes: global in both dtypes, local in both; each
+   call must add one launch to the count of the kernel its dtype takes.
+   WKV6: the JAX package's test cases and the rwkv6-3b serving shape,
+   with and without an incoming state.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes.
 4. INTERACT path: ``solve`` on the Section-6 instance at full size, 40
@@ -28,9 +32,12 @@
    and the plain cached prefill (b) agree, the last decode step's logits
    (c) agree with a kernel prefill of the prompt plus the fed tokens
    (d), and each kernel prefill launched the kernel once per layer
-   (counts set to 0 just before each model's run).  Then the same flow
+   (counts set to 0 just before each model's run; for gemma2-2b the
+   float32 flash kernel, never the tensor-core one).  Then the same flow
    in bfloat16, the configs' published dtype, gated on finite logits
-   only, with a profile of one prefill and one decode step.  In both
+   only (each gemma2-2b prefill makes its 26 flash launches on the
+   tensor-core kernel), with a profile of one prefill and one decode
+   step.  In both
    dtypes the gated calls are the warm-up of the timing that follows
    them: three kernel prefills, three plain cached prefills and three
    runs of 16 decode steps, each time reported as the median and the
@@ -83,33 +90,47 @@ REPLACES = {
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:100"
 WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:89"
 
-# Flash attention cases: (b, sq, skv, nh, nkv, hd, causal, window, softcap,
-# q_offset, dtype).  The first nine are tests/test_kernels.py's FLASH_CASES
-# (sq = skv, q_offset 0).
-FLASH_CASES = [
-    (2, 256, 256, 4, 2, 64, True, None, None, 0, "float32"),
-    (1, 256, 256, 8, 1, 128, True, None, None, 0, "float32"),   # MQA
-    (1, 256, 256, 4, 4, 64, True, 128, None, 0, "float32"),     # SWA
-    (1, 192, 192, 4, 2, 64, True, None, 50.0, 0, "float32"),    # softcap
-    (1, 256, 256, 4, 2, 64, True, 64, 30.0, 0, "float32"),      # SWA+softcap
-    (2, 128, 128, 4, 2, 64, False, None, None, 0, "float32"),   # bidirectional
-    (1, 200, 200, 4, 2, 64, True, None, None, 0, "float32"),    # ragged
-    (1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),  # bf16 hd=256
-    (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
-    (1, 1, 256, 4, 2, 64, True, None, None, 255, "float32"),    # decode
-    (2, 7, 300, 8, 4, 256, True, 64, 50.0, 293, "float32"),     # suffix, SWA
-    (1, 100, 100, 4, 2, 64, False, None, None, 0, "float32"),   # non-causal ragged
-    (1, 100, 100, 4, 2, 64, True, None, None, 110, "float32"),  # offset past keys
-    (1, 8, 16, 2, 1, 32, True, 6, None, 16, "float32"),   # rows that see no key
-    (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0, "float32"),  # gemma2 global
-    (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0, "float32"),  # gemma2 local
+# Flash attention shapes: (b, sq, skv, nh, nkv, hd, causal, window, softcap,
+# q_offset).  The first seven are tests/test_kernels.py's FLASH_CASES
+# (sq = skv, q_offset 0); each runs in float32 (the FMA kernel) and in
+# bfloat16 (the tensor-core kernel).
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, True, None, None, 0),
+    (1, 256, 256, 8, 1, 128, True, None, None, 0),   # MQA
+    (1, 256, 256, 4, 4, 64, True, 128, None, 0),     # SWA
+    (1, 192, 192, 4, 2, 64, True, None, 50.0, 0),    # softcap
+    (1, 256, 256, 4, 2, 64, True, 64, 30.0, 0),      # SWA+softcap
+    (2, 128, 128, 4, 2, 64, False, None, None, 0),   # bidirectional
+    (1, 200, 200, 4, 2, 64, True, None, None, 0),    # ragged
+    (1, 1, 256, 4, 2, 64, True, None, None, 255),    # decode
+    (2, 7, 300, 8, 4, 256, True, 64, 50.0, 293),     # suffix, SWA
+    (1, 100, 100, 4, 2, 64, False, None, None, 0),   # non-causal ragged
+    (1, 100, 100, 4, 2, 64, True, None, None, 110),  # offset past keys
+    (1, 8, 16, 2, 1, 32, True, 6, None, 16),         # rows that see no key
 ]
-# The serving shapes of gemma2-2b's two layer kinds, bf16: timed.
+# gemma2-2b's two layer kinds at the serving shape
+GEMMA_GLOBAL = (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0)
+GEMMA_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0)
+FLASH_CASES = (
+    [c + ("float32",) for c in FLASH_SHAPES]
+    + [c + ("bfloat16",) for c in FLASH_SHAPES]
+    + [(1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),
+       (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
+       GEMMA_LOCAL + ("float32",)])
+# Checked and timed: both kernels at the gemma2 global shape, the
+# tensor-core one at the local shape too (the serving dtype).
 FLASH_MAIN = {
-    "global": (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0, "bfloat16"),
-    "local": (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0, "bfloat16"),
+    "global": GEMMA_GLOBAL + ("bfloat16",),
+    "local": GEMMA_LOCAL + ("bfloat16",),
+    "global_f32": GEMMA_GLOBAL + ("float32",),
 }
-FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# float32, the exact FMA kernel: as tests/test_kernels.py.  bfloat16, the
+# tensor-core kernel: the wrapper module's per-row gate, ops.row_errors
+# at most ops.TC_ROW_RTOL (1e-2) against the plain version in float32 on
+# the same bf16 inputs, rows that see no key exactly 0 (the emulation in
+# tests/test_torch_flash_attention.py puts the largest row error at
+# 2.4e-3, the bf16 output's own rounding).
+FLASH_TOL = 2e-5
 
 # WKV6 cases: (b, s, h, N, with_state, dtype), tests/test_kernels.py's
 # WKV_CASES (without their TPU chunk sizes), then rwkv6-3b's serving shape.
@@ -332,13 +353,47 @@ def wkv_bound_ms(b, s, h, n, with_state, itemsize) -> tuple[float, str]:
     return roofline_ms(nbytes, flops, FP32_FLOP_PER_S)
 
 
+def check_flash_case(torch, ops, ref, q, k, v, kw, what: str
+                     ) -> tuple[float, float | None]:
+    """One call of the wrapper against the plain version in float32 on the
+    same inputs; returns the max abs error and, for bf16, the largest row
+    error."""
+    tc = q.dtype == torch.bfloat16
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES == {
+        "flash_attention": before["flash_attention"] + 1,
+        "flash_attention_tc": before["flash_attention_tc"] + int(tc)},
+        f"flash {what}: launches {ops.LAUNCHES} after {before}")
+    check(got.dtype == q.dtype and got.shape == want.shape,
+          f"flash {what}: dtype/shape")
+    e = float((got.float() - want).abs().max())
+    if not tc:
+        print(f"flash case {what}: max abs err {e:.3e} (tol {FLASH_TOL})",
+              flush=True)
+        check(torch.allclose(got, want, atol=FLASH_TOL, rtol=FLASH_TOL),
+              f"flash {what} disagrees with its plain version beyond "
+              f"{FLASH_TOL}")
+        return e, None
+    row = float(ops.row_errors(got, want).max())
+    print(f"flash case {what}: largest row error {row:.3e} (gate "
+          f"{ops.TC_ROW_RTOL}), max abs err {e:.3e}", flush=True)
+    check(row <= ops.TC_ROW_RTOL,
+          f"flash {what}: row error {row:.3e} > {ops.TC_ROW_RTOL} (inf: a "
+          "row that sees no key is not 0)")
+    return e, row
+
+
 def check_flash(torch) -> dict:
-    """The flash kernel against its plain version on every case; times,
-    bounds and SDPA (no softcap: it has none) at the serving shapes."""
+    """Both flash kernels against their plain version on every case;
+    times, bounds and SDPA (no softcap: it has none) at the serving
+    shapes."""
     from repro_torch.kernels.flash_attention import ops, ref
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(1)
-    err = {"float32": 0.0, "bfloat16": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_row": 0.0}
     timings = {}
     cases = [(c, None) for c in FLASH_CASES] + [
         (c, name) for name, c in FLASH_MAIN.items()]
@@ -350,18 +405,10 @@ def check_flash(torch) -> dict:
         v = torch.randn(b, skv, nkv, hd, generator=gen, device=dev).to(dtype)
         kw = dict(causal=causal, window=window, logit_softcap=cap,
                   q_offset=q_off)
-        got = ops.flash_attention(q, k, v, **kw)
-        want = ref.attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        check(got.dtype == dtype and got.shape == want.shape,
-              f"flash {case}: dtype/shape")
-        e = float((got.float() - want.float()).abs().max())
-        tol = FLASH_TOL[dt]
-        print(f"flash case {case}: max abs err {e:.3e} (tol {tol})",
-              flush=True)
-        check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
-              f"flash {case} disagrees with its plain version beyond {tol}")
+        e, row = check_flash_case(torch, ops, ref, q, k, v, kw, str(case))
         err[dt] = max(err[dt], e)
+        if row is not None:
+            err["bfloat16_row"] = max(err["bfloat16_row"], row)
         if main_name is None:
             continue
         bound, by = flash_bound_ms(b, sq, skv, nh, nkv, hd, causal, window,
@@ -382,30 +429,44 @@ def check_flash(torch) -> dict:
         except RuntimeError as exc:   # no SDPA kernel for these inputs
             print(f"SDPA {main_name}: {exc}", flush=True)
             library_ms = None
+        # the tensor-core kernel takes about a millisecond, the FMA one 40
+        inner, reps = (10, 5) if dt == "bfloat16" else (3, 3)
         timings[main_name] = dict(
             shape=[b, sq, skv, nh, nkv, hd], window=window, softcap=cap,
             dtype=dt,
-            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 3,
-                       reps=3),
+            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                       inner, reps=reps),
             plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
                              1, reps=3),
             bound_ms=bound, bound_by=by, library_ms=library_ms)
         print(f"flash {main_name}: {json.dumps(timings[main_name])}",
               flush=True)
-        del q, k, v, qt, kt, vt, got, want
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     # strided views: every other query head, keys and values cut from
-    # wider rows (the kernel reads the strides it is given)
-    q = torch.randn(2, 130, 8, 64, generator=gen, device=dev)[:, :, ::2]
-    k, v = (torch.randn(2, 130, 2, 128, generator=gen, device=dev)[..., :64]
-            for _ in range(2))
-    kw = dict(causal=True, window=50, logit_softcap=30.0)
-    e = float((ops.flash_attention(q, k, v, **kw)
-               - ref.attention_ref(q, k, v, **kw)).abs().max())
-    print(f"flash case strided views: max abs err {e:.3e} (tol 2e-5)",
-          flush=True)
-    check(e <= FLASH_TOL["float32"], "flash on strided views disagrees")
-    err["float32"] = max(err["float32"], e)
+    # wider rows (the kernels read the strides they are given)
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q = torch.randn(2, 130, 8, 64, generator=gen, device=dev)[:, :, ::2]
+        k, v = (torch.randn(2, 130, 2, 128, generator=gen,
+                            device=dev)[..., :64] for _ in range(2))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        kw = dict(causal=True, window=50, logit_softcap=30.0)
+        e, row = check_flash_case(torch, ops, ref, q, k, v, kw,
+                                  f"strided views {dt}")
+        err[dt] = max(err[dt], e)
+        if row is not None:
+            err["bfloat16_row"] = max(err["bfloat16_row"], row)
+    # the tensor-core kernel refuses a view it cannot load 16 bytes at a time
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16, device=dev)[..., 4:68]
+    before = dict(ops.LAUNCHES)
+    try:
+        ops.flash_attention(q, k, k)
+        raise SmokeFailure("flash: a misaligned bf16 view was not refused")
+    except ValueError as exc:
+        print(f"flash case misaligned bf16 view: refused ({exc})", flush=True)
+    check(ops.LAUNCHES == before, "flash: a refused call launched")
     return dict(err=err, timings=timings)
 
 
@@ -470,10 +531,17 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     batch, prompt_len, steps = SERVE_RUNS[arch]
     specs = cfg.layer_pattern() * cfg.num_periods()
+    n_attn = sum(s.mixer == "attn" for s in specs)
+    # flash_attention counts both flash kernels, flash_attention_tc the
+    # tensor-core one, which every bf16 prefill layer and no float32 one
+    # launches
     per_prefill = {
-        "flash_attention": sum(s.mixer == "attn" for s in specs),
+        "flash_attention": n_attn,
+        "flash_attention_tc": n_attn if dtype == "bfloat16" else 0,
         "wkv6": sum(s.mixer == "rwkv" for s in specs)}
-    counters = {"flash_attention": fa_ops.LAUNCHES, "wkv6": wkv_ops.LAUNCHES}
+    counters = {"flash_attention": fa_ops.LAUNCHES,
+                "flash_attention_tc": fa_ops.LAUNCHES,
+                "wkv6": wkv_ops.LAUNCHES}
 
     def launches():
         return {name: c[name] for name, c in counters.items()}
@@ -740,20 +808,29 @@ def main() -> int:
                           "M, u)" if name == "consensus_step"
                           else "matmul(M, x)"),
             shape=main["shape"], large=timings[name]["large"]))
-    main = flash["timings"]["global"]
+    sdpa = ("scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
+            "without the softcap, which it cannot apply")
+    f32_run = serving[("gemma2-2b", "float32")]["launches"]
+    main = flash["timings"]["global_f32"]
     kernels.append(dict(
         name="flash_attention", route="cuda", source=FLASH_SOURCE,
-        replaces=FLASH_REPLACES,
-        launches=serving[("gemma2-2b", "float32")]["launches"][
-            "flash_attention"],
+        replaces=FLASH_REPLACES, dtype="float32",
+        launches=f32_run["flash_attention"] - f32_run["flash_attention_tc"],
         max_abs_err=flash["err"]["float32"],
-        max_abs_err_bf16=flash["err"]["bfloat16"],
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        library_call=("scaled_dot_product_attention(is_causal=True, "
-                      "enable_gqa=True) without the softcap, which it "
-                      "cannot apply"),
-        shape=main["shape"], dtype=main["dtype"], softcap=main["softcap"],
+        library_call=sdpa, shape=main["shape"], softcap=main["softcap"]))
+    main = flash["timings"]["global"]
+    kernels.append(dict(
+        name="flash_attention_tc", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES, dtype="bfloat16",
+        launches=serving[("gemma2-2b", "bfloat16")]["launches"][
+            "flash_attention_tc"],
+        max_abs_err=flash["err"]["bfloat16"],
+        max_row_rel_err=flash["err"]["bfloat16_row"],
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        library_call=sdpa, shape=main["shape"], softcap=main["softcap"],
         local=flash["timings"]["local"]))
     main = wkv["timing"]
     kernels.append(dict(

@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
     "AgentData",
     "BilevelProblem",
@@ -122,13 +124,15 @@ def MLPMetaProblem(mu_g: float = 0.1, lipschitz_g: float = 4.0) -> BilevelProble
 
 def init_mlp_backbone(generator: torch.Generator, d_in: int, hidden: int = 20,
                       depth: int = 2, scale: float = 0.5,
-                      device: torch.device | str = "cpu"):
+                      device: torch.device | str | None = None):
     """``[(W, b)] * depth`` with W ~ scale * N(0, 1/fan_in), b = 0.
 
-    Draws from ``generator`` on the CPU, then moves to ``device``, so a
-    seed gives the same weights on every device.  The distribution is the
-    JAX package's; the numbers are not (a different generator).
+    Draws from ``generator`` on the CPU, then moves to ``device`` (the
+    CUDA card when ``None``), so a seed gives the same weights on every
+    device.  The distribution is the JAX package's; the numbers are not
+    (a different generator).
     """
+    device = resolve_device(device)
     params = []
     dims = [d_in] + [hidden] * depth
     for i in range(depth):
@@ -139,8 +143,10 @@ def init_mlp_backbone(generator: torch.Generator, d_in: int, hidden: int = 20,
 
 
 def init_head(generator: torch.Generator, hidden: int, num_classes: int,
-              scale: float = 0.1, device: torch.device | str = "cpu"):
-    """``(W_head, b_head)`` with W ~ scale * N(0, 1/hidden), b = 0."""
+              scale: float = 0.1, device: torch.device | str | None = None):
+    """``(W_head, b_head)`` with W ~ scale * N(0, 1/hidden), b = 0, on
+    ``device`` (the CUDA card when ``None``)."""
+    device = resolve_device(device)
     w = scale * torch.randn(hidden, num_classes,
                             generator=generator) / np.sqrt(hidden)
     return (w.to(device), torch.zeros(num_classes, device=device))
@@ -154,7 +160,7 @@ def make_synthetic_agents(
     num_classes: int = 10,
     heterogeneity: float = 0.5,
     outer_frac: float = 0.3,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> AgentData:
     """Synthetic heterogeneous classification tasks (MNIST stand-in).
 
@@ -162,8 +168,10 @@ def make_synthetic_agents(
     distribution (Dirichlet with concentration 1/heterogeneity) plus an
     agent-specific mean shift.  Draws with ``numpy.random.default_rng
     (seed)``: the same distributions as the JAX package's ``jax.random``
-    draws, but not the same numbers.
+    draws, but not the same numbers.  The tensors go to ``device`` (the
+    CUDA card when ``None``).
     """
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     means = 2.0 * rng.standard_normal((num_classes, d_in))
     shifts = heterogeneity * rng.standard_normal((num_agents, 1, d_in))

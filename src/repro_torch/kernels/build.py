@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` exports plain ``extern "C"`` launchers, so it compiles
 in seconds without PyTorch's headers.  The shared library goes to
 ``build/repro_torch/`` at the repository root (git-ignored), named after a
-hash of the source and the flags: a changed source builds anew, an
-unchanged one is loaded as it is.  No CUDA compiler means an error, never
-a fallback.
+hash of the source, the flags and any preprocessor defines: a changed
+source builds anew, an unchanged one is loaded as it is.  No CUDA
+compiler means an error, never a fallback.
 """
 from __future__ import annotations
 
@@ -45,26 +45,31 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
-def library_path(source: Path) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(source: Path, defines: tuple[str, ...] = ()) -> Path:
     """Where ``source`` builds to: keyed on its bytes and the flags."""
     digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
 
 
-def build(source: Path) -> Path:
+def build(source: Path, defines: tuple[str, ...] = ()) -> Path:
     """Compile ``source`` unless its library exists; returns the library.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``<name>.log``.
+    ``defines`` (``NAME=VALUE``) go to nvcc as ``-D``.  The compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) is kept
+    beside the library as ``<name>.log``.
     """
-    out = library_path(source)
+    out = library_path(source, defines)
     if out.is_file():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     out.with_suffix(".log").write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -76,9 +81,10 @@ def build(source: Path) -> Path:
     return out
 
 
-def load_library(source: Path) -> ctypes.CDLL:
+def load_library(source: Path,
+                 defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build ``source`` if needed and load it (once per process)."""
-    path = build(source)
+    path = build(source, defines)
     lib = _LOADED.get(path)
     if lib is None:
         lib = _LOADED[path] = ctypes.CDLL(str(path))

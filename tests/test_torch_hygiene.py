@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch import core  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -79,6 +80,28 @@ def test_serving_entry_points_without_device_raise_without_cuda(no_cuda,
         entry(cfg)
 
 
+@pytest.mark.parametrize("entry", [
+    lambda: core.init_mlp_backbone(torch.Generator().manual_seed(0), 4),
+    lambda: core.init_head(torch.Generator().manual_seed(0), 4, 3),
+    lambda: core.make_synthetic_agents(0, 2, n_per_agent=10, d_in=4),
+], ids=["init_mlp_backbone", "init_head", "make_synthetic_agents"])
+def test_problem_builders_without_device_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: core.init_mlp_backbone(torch.Generator().manual_seed(0), 4,
+                                   device="cpu")[0][0],
+    lambda: core.init_head(torch.Generator().manual_seed(0), 4, 3,
+                           device="cpu")[0],
+    lambda: core.make_synthetic_agents(0, 2, n_per_agent=10, d_in=4,
+                                       device="cpu").inner_x,
+], ids=["init_mlp_backbone", "init_head", "make_synthetic_agents"])
+def test_problem_builders_run_on_the_cpu_when_asked(entry):
+    assert entry().device == torch.device("cpu")
+
+
 def test_serve_cli_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "rwkv6-3b", "--prompt-len", "4",
@@ -102,6 +125,17 @@ def test_library_path_is_keyed_on_source(tmp_path):
     assert first.parent == build.BUILD_DIR
     source.write_text("// two")
     assert build.library_path(source) != first
+
+
+def test_library_path_is_keyed_on_defines(tmp_path):
+    source = tmp_path / "k.cu"
+    source.write_text("// one")
+    plain = build.library_path(source)
+    assert build.library_path(source, ()) == plain
+    one = build.library_path(source, ("REPRO_FLASH_P_TERMS=1",))
+    assert one != plain
+    assert one == build.library_path(source, ("REPRO_FLASH_P_TERMS=1",))
+    assert one != build.library_path(source, ("REPRO_FLASH_P_TERMS=2",))
 
 
 def test_registries():

@@ -9,9 +9,16 @@ with the card and PyTorch alone:
         tests/test_torch_kernels_cuda.py
 
 (``--noconftest``: tests/conftest.py imports JAX).  The cases are the JAX
-package's kernel test cases (tests/test_kernels.py), with the same
-tolerances: flash attention float32 2e-5, bfloat16 2e-2; WKV6 float32
-2e-3, bfloat16 5e-2.  chip_smoke.py runs these and the serving shapes.
+package's kernel test cases (tests/test_kernels.py) and the port's own
+edge cases.  Flash attention: float32 goes to the exact FMA kernel, held
+to the plain version at 2e-5 as in tests/test_kernels.py; every float32
+case has a bfloat16 twin, which goes to the tensor-core kernel and is
+held row by row to the wrapper module's gate, ``ops.row_errors`` at most
+``ops.TC_ROW_RTOL`` (||got - want||_2 <= 1e-2 ||want||_2) against the
+plain version in float32 on the same bf16 inputs, with rows that see no
+key exactly 0 (tests/test_torch_flash_attention.py sizes that gate).
+WKV6: float32 2e-3, bfloat16 5e-2, as in tests/test_kernels.py.
+chip_smoke.py runs these and the serving shapes.
 """
 import pytest
 
@@ -22,21 +29,31 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 
-FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_TOL = 2e-5             # float32, the FMA kernel
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 
-# (batch, seq, heads, kv_heads, head_dim, causal, window, softcap, dtype)
-FLASH_CASES = [
-    (2, 256, 4, 2, 64, True, None, None, torch.float32),
-    (1, 256, 8, 1, 128, True, None, None, torch.float32),     # MQA
-    (1, 256, 4, 4, 64, True, 128, None, torch.float32),       # SWA
-    (1, 192, 4, 2, 64, True, None, 50.0, torch.float32),      # softcap
-    (1, 256, 4, 2, 64, True, 64, 30.0, torch.float32),        # SWA+softcap
-    (2, 128, 4, 2, 64, False, None, None, torch.float32),     # bidirectional
-    (1, 200, 4, 2, 64, True, None, None, torch.float32),      # ragged
-    (1, 256, 2, 2, 256, True, None, None, torch.bfloat16),    # bf16, hd=256
-    (1, 128, 4, 2, 32, True, None, None, torch.bfloat16),
+# (batch, sq, skv, heads, kv_heads, head_dim, causal, window, softcap,
+# q_offset): the first seven are tests/test_kernels.py's float32 cases.
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, True, None, None, 0),
+    (1, 256, 256, 8, 1, 128, True, None, None, 0),     # MQA
+    (1, 256, 256, 4, 4, 64, True, 128, None, 0),       # SWA
+    (1, 192, 192, 4, 2, 64, True, None, 50.0, 0),      # softcap
+    (1, 256, 256, 4, 2, 64, True, 64, 30.0, 0),        # SWA+softcap
+    (2, 128, 128, 4, 2, 64, False, None, None, 0),     # bidirectional
+    (1, 200, 200, 4, 2, 64, True, None, None, 0),      # ragged
+    (1, 1, 256, 4, 2, 64, True, None, None, 255),      # decode
+    (2, 7, 300, 8, 4, 256, True, 64, 50.0, 293),       # suffix, SWA
+    (1, 100, 100, 4, 2, 64, False, None, None, 0),     # non-causal ragged
+    (1, 100, 100, 4, 2, 64, True, None, None, 110),    # offset past keys
+    (1, 8, 16, 2, 1, 32, True, 6, None, 16),           # rows that see no key
 ]
+FLASH_CASES = (
+    [c + (torch.float32,) for c in FLASH_SHAPES]
+    + [c + (torch.bfloat16,) for c in FLASH_SHAPES]
+    + [(1, 256, 256, 2, 2, 256, True, None, None, 0, torch.bfloat16),
+       (1, 128, 128, 4, 2, 32, True, None, None, 0, torch.bfloat16)])
+
 
 # (batch, seq, heads, N, with_state, dtype)
 WKV_CASES = [
@@ -61,21 +78,58 @@ def hopper():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,nh,nkv,hd,causal,win,cap,dtype", FLASH_CASES)
-def test_flash_kernel_matches_plain_version(hopper, b, s, nh, nkv, hd,
-                                            causal, win, cap, dtype):
+@pytest.mark.parametrize("b,sq,skv,nh,nkv,hd,causal,win,cap,q_off,dtype",
+                         FLASH_CASES)
+def test_flash_kernel_matches_plain_version(hopper, b, sq, skv, nh, nkv, hd,
+                                            causal, win, cap, q_off, dtype):
     gen = torch.Generator(device=hopper).manual_seed(0)
-    q = torch.randn(b, s, nh, hd, generator=gen, device=hopper).to(dtype)
-    k = torch.randn(b, s, nkv, hd, generator=gen, device=hopper).to(dtype)
-    v = torch.randn(b, s, nkv, hd, generator=gen, device=hopper).to(dtype)
-    kw = dict(causal=causal, window=win, logit_softcap=cap)
-    before = fa_ops.LAUNCHES["flash_attention"]
+    q = torch.randn(b, sq, nh, hd, generator=gen, device=hopper).to(dtype)
+    k = torch.randn(b, skv, nkv, hd, generator=gen, device=hopper).to(dtype)
+    v = torch.randn(b, skv, nkv, hd, generator=gen, device=hopper).to(dtype)
+    kw = dict(causal=causal, window=win, logit_softcap=cap, q_offset=q_off)
+    before = dict(fa_ops.LAUNCHES)
     got = fa_ops.flash_attention(q, k, v, **kw)
-    assert fa_ops.LAUNCHES["flash_attention"] == before + 1
+    tc = dtype == torch.bfloat16
+    assert fa_ops.LAUNCHES == {
+        "flash_attention": before["flash_attention"] + 1,
+        "flash_attention_tc": before["flash_attention_tc"] + int(tc)}
     assert got.dtype == dtype
-    torch.testing.assert_close(
-        got.float(), fa_ref.attention_ref(q, k, v, **kw).float(),
-        atol=FLASH_TOL[dtype], rtol=FLASH_TOL[dtype])
+    want = fa_ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    if tc:
+        assert float(fa_ops.row_errors(got, want).max()) <= fa_ops.TC_ROW_RTOL
+    else:
+        torch.testing.assert_close(got, want, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_views(hopper, dtype):
+    # every other query head; keys and values cut from wider rows
+    gen = torch.Generator(device=hopper).manual_seed(1)
+    q = torch.randn(2, 130, 8, 64, generator=gen, device=hopper)[:, :, ::2]
+    k, v = (torch.randn(2, 130, 2, 128, generator=gen,
+                        device=hopper)[..., :64] for _ in range(2))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    kw = dict(causal=True, window=50, logit_softcap=30.0)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ref.attention_ref(q.float(), k.float(), v.float(), **kw)
+    if dtype == torch.bfloat16:
+        assert float(fa_ops.row_errors(got, want).max()) <= fa_ops.TC_ROW_RTOL
+    else:
+        torch.testing.assert_close(got, want, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_tc_kernel_rejects_misaligned_views(hopper):
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=hopper)
+    wide = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16, device=hopper)
+    odd = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16, device=hopper)
+    before = dict(fa_ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):    # pointer + 8 bytes
+        fa_ops.flash_attention(q, wide[..., 4:68], wide[..., :64])
+    with pytest.raises(ValueError, match="16 bytes"):   # head stride 136 B
+        fa_ops.flash_attention(q, odd[..., :64], odd[..., :64])
+    assert fa_ops.LAUNCHES == before
 
 
 @pytest.mark.cuda
