@@ -10,14 +10,19 @@
    (registers, shared memory, spills).
 3. Kernels: each kernel against its plain PyTorch version on the card.
    Consensus: the test shapes, the main-path shape and one large shape,
-   each with a symmetric and a random non-symmetric mixing matrix.  Flash
+   each with a symmetric and a random non-symmetric mixing matrix; then
+   consensus_mix alone on its edges (1 to 17 agents, rows of 1 to 4096
+   values in both dtypes, each also one element into its storage: the
+   16-byte path and the element path, one and two passes).  Flash
    attention: the JAX package's test cases, q_offset cases, the two
    cases where its wrapper's padding shows, rows that see no key and
    strided views, each in float32 (the exact FMA kernel, 2e-5) and in
    bfloat16 (the tensor-core kernel, a per-row relative gate), and the
    gemma2-2b serving shapes: global in both dtypes, local in both; each
    call must add one launch to the count of the kernel its dtype takes.
-   WKV6: the JAX package's test cases and the rwkv6-3b serving shape,
+   WKV6: the JAX package's test cases, every head size at a length that
+   is not a multiple of its 16-token chunk, a strong-decay draw (w
+   exactly 0, below 1e-4, above 0.999) and the rwkv6-3b serving shape,
    with and without an incoming state.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes.
@@ -42,7 +47,9 @@
    them: three kernel prefills, three plain cached prefills and three
    runs of 16 decode steps, each time reported as the median and the
    three runs.
-6. Prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+6. Prints a ``{"kernels": [...]}`` line (with the registers and spills
+   nvcc reports for each instantiation of the redesigned kernels), the
+   card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
 """
@@ -72,6 +79,12 @@ ALPHA = 0.3
 F32_TOL, BF16_TOL = 1e-5, 3e-2
 MAIN_SHAPE = (5, 760)          # m agents x D = 760 backbone parameters
 LARGE_SHAPE = (16, 4194304)    # large enough that the kernel, not the launch, sets the time
+# consensus_mix's edges: agents (17 takes two passes of 16 rows) and row
+# lengths (760 and 4096 take the 16-byte path in both dtypes, 1, 3, 123
+# and 761 in neither), each aligned and one element into its storage (a
+# misaligned base: the element path)
+MIX_EDGE_M = (1, 3, 5, 16, 17)
+MIX_EDGE_D = (1, 3, 123, 760, 761, 4096)
 NUM_STEPS, RECORD_EVERY = 40, 5
 # The cuda and dense runs differ only in how the mix is summed (the
 # kernel's sequential FMAs vs cuBLAS), a float32 rounding difference.
@@ -144,7 +157,16 @@ WKV_CASES = [
     (1, 64, 2, 16, False, "bfloat16"),
     (4, 1024, 40, 64, True, "float32"),
     (4, 1024, 40, 64, True, "bfloat16"),
-]
+] + [(2, 37, 3, n, st, dt) for n in (8, 16, 32, 64) for st in (False, True)
+     for dt in ("float32", "bfloat16")]
+# the strong-decay draw: a quarter of w each exactly 0, in (0, 1e-4) and
+# in (0.999, 1); the rest as above
+WKV_STRONG = [(2, 37, 3, n, st, dt) for n in (8, 16, 32, 64)
+              for st in (False, True) for dt in ("float32", "bfloat16")] + [
+    (4, 1024, 40, 64, True, "float32"),
+    (4, 1024, 40, 64, True, "bfloat16")]
+# kernels whose nvcc report (registers, spills) the kernels line carries
+PTXAS_KERNELS = ("consensus_mix_kernel", "wkv6_kernel")
 WKV_MAIN = (4, 1024, 40, 64, False, "bfloat16")
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 
@@ -317,7 +339,68 @@ def check_kernels(torch, ops, ref, main_matrix):
                     plain_ms=time_ms(torch, plain, 5),
                     library_ms=time_ms(torch, lib, 5),
                     bound_ms=b, bound_by=by)
+    for m in MIX_EDGE_M:
+        for d in MIX_EDGE_D:
+            for dtype in (f32, bf16):
+                sym = torch.full((m, m), 1.0 / m, device=dev)
+                skew = torch.rand(m, m, generator=gen, device=dev) + 0.05
+                skew = (skew / skew.sum(dim=1, keepdim=True)).contiguous()
+                tol = F32_TOL if dtype == f32 else BF16_TOL
+                kind = "float32" if dtype == f32 else "bfloat16"
+                paths, case_err = [], 0.0
+                for offset in (0, 1):
+                    buf = torch.randn(m * d + offset, generator=gen,
+                                      device=dev).to(dtype)
+                    X = buf[offset:].view(m, d)
+                    paths.append("16-byte" if ops.mix_takes_16_byte_path(
+                        X, torch.empty_like(X)) else "element")
+                    for M in (sym, skew):
+                        g = ops.consensus_mix_kernel(M, X)
+                        w = ref.consensus_mix_ref(M, X)
+                        torch.cuda.synchronize()
+                        check(g.dtype == dtype and g.shape == w.shape,
+                              f"consensus_mix {m}x{d}: dtype/shape")
+                        check(torch.allclose(g.float(), w.float(), atol=tol,
+                                             rtol=tol),
+                              f"consensus_mix {m}x{d} {kind} offset "
+                              f"{offset} disagrees with its plain version "
+                              f"beyond {tol}")
+                        case_err = max(case_err, float(
+                            (g.float() - w.float()).abs().max()))
+                err["consensus_mix"][kind] = max(err["consensus_mix"][kind],
+                                                 case_err)
+                print(f"mix edge m={m} D={d} {kind} (storage offset 0: "
+                      f"{paths[0]} path, 1: {paths[1]} path; symmetric and "
+                      f"random M): max abs err {case_err:.3e} (tol {tol})",
+                      flush=True)
     return err, timings
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel instantiation: registers and spill bytes} of the kernels
+    in ``PTXAS_KERNELS`` from an ``nvcc -Xptxas -v`` log."""
+    report, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and name:
+            nums = [int(t) for t in line.replace(",", " ").split()
+                    if t.isdigit()]
+            report.setdefault(name, {}).update(
+                spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif "Used" in line and "registers" in line and name:
+            words = line.split()
+            report.setdefault(name, {})["registers"] = int(
+                words[words.index("Used") + 1])
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(report),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.split("\n")
+    except (OSError, subprocess.SubprocessError):
+        names = list(report)
+    return {readable.replace("(anonymous namespace)::", "").split("(")[0]:
+            info for readable, info in zip(names, report.values())
+            if any(k in readable for k in PTXAS_KERNELS)}
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int
@@ -478,13 +561,21 @@ def check_wkv6(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     err = {"float32": 0.0, "bfloat16": 0.0}
     timing = None
-    for case in WKV_CASES + [WKV_MAIN]:
+    cases = ([(c, False) for c in WKV_CASES] + [(c, True) for c in WKV_STRONG]
+             + [(WKV_MAIN, False)])
+    for case, strong in cases:
         b, s, h, n, with_state, dt = case
         dtype = getattr(torch, dt)
         randn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+        rand = lambda *shape: torch.rand(*shape, generator=gen, device=dev)
         r, k, v = (randn(b, s, h, n).to(dtype) for _ in range(3))
-        w = (torch.sigmoid(randn(b, s, h, n) * 2.0 - 1.0) * 0.6
-             + 0.35).to(dtype)
+        w = torch.sigmoid(randn(b, s, h, n) * 2.0 - 1.0) * 0.6 + 0.35
+        if strong:
+            pick = torch.randint(0, 4, w.shape, generator=gen, device=dev)
+            w = torch.where(pick == 0, 0.0, w)
+            w = torch.where(pick == 1, 1e-4 * rand(*w.shape), w)
+            w = torch.where(pick == 2, 0.999 + 1e-3 * rand(*w.shape), w)
+        w = w.to(dtype)
         u = (0.3 * randn(h, n)).to(dtype)
         state = 0.5 * randn(b, h, n, n) if with_state else None
         got, got_state = ops.wkv6(r, k, v, w, u, state)
@@ -496,13 +587,13 @@ def check_wkv6(torch) -> dict:
               f"wkv6 {case}: dtype/shape")
         e = max(float((got.float() - want.float()).abs().max()),
                 float((got_state - want_state).abs().max()))
-        print(f"wkv6 case {case}: max abs err {e:.3e} (tol {tol})",
-              flush=True)
+        print(f"wkv6 case {case}{' strong decay' if strong else ''}: max "
+              f"abs err {e:.3e} (tol {tol})", flush=True)
         check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
               and torch.allclose(got_state, want_state, atol=tol, rtol=tol),
               f"wkv6 {case} disagrees with its plain version beyond {tol}")
         err[dt] = max(err[dt], e)
-        if case is WKV_MAIN:
+        if case is WKV_MAIN and not strong:
             bound, by = wkv_bound_ms(b, s, h, n, with_state, r.element_size())
             timing = dict(
                 shape=[b, s, h, n], dtype=dt,
@@ -723,9 +814,13 @@ def main() -> int:
         libs = list(pool.map(build.build, sources))
     print(f"built {len(libs)} kernel sources for sm_90a in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = {}
     for src, lib in zip(sources, libs):
+        log = lib.with_suffix(".log").read_text()
         print(f"{src.relative_to(ROOT)} -> {lib.relative_to(ROOT)}:\n"
-              + lib.with_suffix(".log").read_text().strip(), flush=True)
+              + log.strip(), flush=True)
+        ptxas.update(ptxas_report(log))
+    print(f"ptxas: {json.dumps(ptxas)}", flush=True)
 
     dev = torch.device("cuda", torch.cuda.current_device())
     main_matrix = torch.tensor(TopologyConfig().mixing_spec(5).matrix,
@@ -807,7 +902,9 @@ def main() -> int:
             library_call=("addmm(u, M, x, beta=-alpha) + addmm(p - p_prev, "
                           "M, u)" if name == "consensus_step"
                           else "matmul(M, x)"),
-            shape=main["shape"], large=timings[name]["large"]))
+            shape=main["shape"], large=timings[name]["large"],
+            **({"ptxas": {k: v for k, v in ptxas.items() if name in k}}
+               if name == "consensus_mix" else {})))
     sdpa = ("scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
             "without the softcap, which it cannot apply")
     f32_run = serving[("gemma2-2b", "float32")]["launches"]
@@ -841,7 +938,8 @@ def main() -> int:
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=None,
         library_call="none: no PyTorch call computes WKV6",
-        shape=main["shape"], dtype=main["dtype"]))
+        shape=main["shape"], dtype=main["dtype"],
+        ptxas={k: v for k, v in ptxas.items() if "wkv6_kernel" in k}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

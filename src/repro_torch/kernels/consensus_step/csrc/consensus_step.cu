@@ -15,23 +15,50 @@
 //   src/repro/kernels/consensus_step/kernel.py  consensus_mix_kernel
 //                                               (body _mix_kernel)
 //
-// What bounds it on an H100: memory.  For m <= 16 agents the step does
+// What bounds them on an H100: memory.  For m <= 16 agents the step does
 // 4 m^2 D + 4 m D flops on 6 m D values (about m/6 flop per byte in
 // float32), far below the card's float32 balance of ~20 flop per byte, so
 // the least time is the bytes over 3.35 TB/s.  At the Section-6 shape
 // (m = 5, D = 760) one launch moves 91 KB and is bound by the launch
-// itself, not by either rate.
+// itself, not by either rate.  To reach the HBM rate an SM needs about
+// 16-20 KB of loads in flight (3.35 TB/s times a ~0.7 us DRAM latency,
+// over 132 SMs).
 //
-// What the design does about it: every input byte is read from device
-// memory once and every output byte written once.  Each block owns a tile
-// of kThreads columns, one column per thread, so a warp's loads and stores
-// of one row are 128 contiguous bytes.  M sits in dynamic shared memory
-// (read by all threads of a warp at one address: a broadcast).  A thread
-// streams down its column once per pass of kRows output rows, keeping the
-// kRows partial sums of both products in registers; for m <= kRows that is
-// a single pass.  The ragged D edge is masked here, so no padding copy is
-// made (the TPU kernel zero-pads D to its 512-wide tile).  alpha is a
-// runtime argument (the TPU kernel bakes it in at trace time).
+// Common to both: every input byte is read from device memory once and
+// every output byte written once.  M sits in dynamic shared memory (read
+// by all threads of a warp at one address: a broadcast).  The ragged D
+// edge is masked here, so no padding copy is made (the TPU kernel
+// zero-pads D to its 512-wide tile).  alpha is a runtime argument (the
+// TPU kernel bakes it in at trace time).
+//
+// consensus_step (the first design): each block owns kThreads columns, one
+// column per thread, so a warp's loads and stores of one row are 128
+// contiguous bytes.  A thread streams down its column once per pass of
+// kRows output rows, keeping the kRows partial sums of both products in
+// registers; for m <= kRows that is a single pass.  Each j issues one
+// small load per stream before its FMAs, so a thread keeps about two
+// loads in flight: 62% of the HBM rate at (16, 4M) float32, faster than
+// the pair of addmm calls that computes the same.  The restaging below
+// would apply to it as well; it is left as it is until it is the kernel
+// that loses the most time.
+//
+// consensus_mix (redesigned): the first design's loop kept one 4-byte load a
+// thread in flight (about 8 KB an SM) and reached 36% of the HBM rate.
+// Now each thread owns kV adjacent columns and moves them as one 16-byte
+// load or store a row (4 floats, 8 bfloat16), and for m <= kRows it loads
+// all m rows into registers before the first FMA, so all of its loads are
+// in flight at once (m x 16 bytes a thread: 256 bytes at m = 16), and it
+// issues them before staging M, so the two memory latencies overlap (what
+// sets the time at the launch-bound Section-6 shape).  The rows stay
+// packed in registers (64 registers at m = 16 in either dtype); the
+// output rows are then summed kOut at a time and stored as soon as they
+// are done, so only kOut x kV partial sums are live.  The
+// 16-byte path needs D * itemsize to be a multiple of 16 and both base
+// pointers 16-byte aligned (row j then starts on a 16-byte boundary); the
+// host picks it only then, and otherwise the same kernel runs with kV = 1
+// (4- or 2-byte accesses, still every row's load in flight).  For m >
+// kRows the output rows go in passes of kRows, with the input rows
+// streamed kChunk at a time (their loads issued together).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,31 +130,169 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// 16 bytes of a row as kV floats (kV = 16 / sizeof(T)), and back.
+__device__ __forceinline__ void unpack(uint4 raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+// bfloat16 -> float is exact: a shift and a mask.  The asm is volatile so
+// that the conversion stays where it is used: hoisted out of the loop over
+// output rows, 16 rows of 8 floats would take 128 registers.
+__device__ __forceinline__ void unpack(uint4 raw, float (&f)[8]) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t lo, hi;
+    asm volatile("shl.b32 %0, %1, 16;" : "=r"(lo) : "r"(words[q]));
+    asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(hi) : "r"(words[q]));
+    f[2 * q] = __uint_as_float(lo);
+    f[2 * q + 1] = __uint_as_float(hi);
+  }
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                    __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  uint32_t words[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    words[q] = static_cast<uint32_t>(__bfloat16_as_ushort(
+                   __float2bfloat16(f[2 * q]))) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(
+                    __float2bfloat16(f[2 * q + 1])))
+                << 16);
+  return make_uint4(words[0], words[1], words[2], words[3]);
+}
+
+// kV adjacent elements of a row as they lie in memory: one 16-byte word
+// (kV > 1) or one element.  They stay packed in registers until used, so
+// 16 rows of bfloat16 take 64 registers, not 128.
+template <typename T, int kV>
+struct Cols {
+  using type = uint4;
+};
 template <typename T>
+struct Cols<T, 1> {
+  using type = T;
+};
+
+template <typename T, int kV>
+__device__ __forceinline__ typename Cols<T, kV>::type load_cols(const T* p) {
+  if constexpr (kV == 1) {
+    return *p;
+  } else {
+    static_assert(kV * sizeof(T) == 16, "16-byte accesses only");
+    return *reinterpret_cast<const uint4*>(p);
+  }
+}
+template <typename T, int kV>
+__device__ __forceinline__ void unpack_cols(typename Cols<T, kV>::type raw,
+                                            float (&f)[kV]) {
+  if constexpr (kV == 1) {
+    f[0] = to_f32(raw);
+  } else {
+    unpack(raw, f);
+  }
+}
+template <typename T, int kV>
+__device__ __forceinline__ void store_cols(T* p, const float (&f)[kV]) {
+  if constexpr (kV == 1) {
+    *p = from_f32<T>(f[0]);
+  } else {
+    *reinterpret_cast<uint4*>(p) = pack(f);
+  }
+}
+
+constexpr int kOut = 4;    // output rows summed together (one pass)
+constexpr int kChunk = 4;  // input rows loaded together when m > kRows
+
+// out = M @ x with kV columns a thread.  kOnePass (m <= kRows): every
+// row's load is issued first, before M is staged, so the two memory
+// latencies overlap; then the output rows, kOut at a time, from the
+// packed rows in registers.  Otherwise passes of kRows output rows over
+// input rows kChunk at a time.
+template <typename T, int kV, bool kOnePass>
 __global__ void __launch_bounds__(kThreads)
     consensus_mix_kernel(const float* __restrict__ M,
                          const T* __restrict__ x, T* __restrict__ out, int m,
                          int64_t D) {
   extern __shared__ float sM[];
-  stage_matrix(M, sM, m);
-  const int64_t d = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (d >= D) return;
-  for (int i0 = 0; i0 < m; i0 += kRows) {
-    float acc[kRows];
+  const int64_t d =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kV;
+  const bool live = d < D;
+  if constexpr (kOnePass) {
+    typename Cols<T, kV>::type xr[kRows];
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < m; ++j) {
-      const float xv = to_f32(x[j * D + d]);
-      const float* w = sM + i0 * m + j;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (i0 + r < m) acc[r] = fmaf(w[r * m], xv, acc[r]);
-      }
+      for (int j = 0; j < kRows; ++j)
+        if (j < m) xr[j] = load_cols<T, kV>(x + j * D + d);
     }
+    stage_matrix(M, sM, m);
+    if (!live) return;
+    for (int i0 = 0; i0 < m; i0 += kOut) {
+      float acc[kOut][kV];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < m) out[i * D + d] = from_f32<T>(acc[r]);
+      for (int r = 0; r < kOut; ++r)
+#pragma unroll
+        for (int c = 0; c < kV; ++c) acc[r][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        if (j < m) {
+          float xf[kV];
+          unpack_cols<T, kV>(xr[j], xf);
+#pragma unroll
+          for (int r = 0; r < kOut; ++r) {
+            if (i0 + r < m) {
+              const float wr = sM[(i0 + r) * m + j];
+#pragma unroll
+              for (int c = 0; c < kV; ++c)
+                acc[r][c] = fmaf(wr, xf[c], acc[r][c]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kOut; ++r)
+        if (i0 + r < m) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
+    }
+  } else {
+    stage_matrix(M, sM, m);
+    if (!live) return;
+    for (int i0 = 0; i0 < m; i0 += kRows) {
+      float acc[kRows][kV];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int c = 0; c < kV; ++c) acc[r][c] = 0.f;
+      for (int j0 = 0; j0 < m; j0 += kChunk) {
+        float xr[kChunk][kV];
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q)
+          if (j0 + q < m)
+            unpack_cols<T, kV>(load_cols<T, kV>(x + (j0 + q) * D + d),
+                               xr[q]);
+#pragma unroll
+        for (int q = 0; q < kChunk; ++q) {
+          if (j0 + q < m) {
+            const float* w = sM + i0 * m + j0 + q;  // M[i0 + r, j0 + q]
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              if (i0 + r < m) {
+                const float wr = w[r * m];
+#pragma unroll
+                for (int c = 0; c < kV; ++c)
+                  acc[r][c] = fmaf(wr, xr[q][c], acc[r][c]);
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (i0 + r < m) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
     }
   }
 }
@@ -160,16 +325,37 @@ cudaError_t launch_step(const void* M, const void* x, const void* u,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_mix(const void* M, const void* x, void* out, int m,
-                       int64_t D, cudaStream_t stream) {
+template <typename T, int kV, bool kOnePass>
+cudaError_t launch_mix_kernel(const void* M, const void* x, void* out, int m,
+                              int64_t D, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  cudaError_t err = reserve_shared(consensus_mix_kernel<T>, smem);
+  auto kernel = consensus_mix_kernel<T, kV, kOnePass>;
+  cudaError_t err = reserve_shared(kernel, smem);
   if (err != cudaSuccess) return err;
-  consensus_mix_kernel<T><<<num_blocks(D), kThreads, smem, stream>>>(
+  const int64_t units = (D + kV - 1) / kV;  // column groups, one a thread
+  kernel<<<num_blocks(units), kThreads, smem, stream>>>(
       static_cast<const float*>(M), static_cast<const T*>(x),
       static_cast<T*>(out), m, D);
   return cudaGetLastError();
+}
+
+// vec != 0 asks for 16-byte accesses; refused unless every row of x and
+// out starts on a 16-byte boundary, so no access is ever misaligned.
+template <typename T>
+cudaError_t launch_mix(const void* M, const void* x, void* out, int m,
+                       int64_t D, int vec, cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec) {
+    const bool aligned = (D * sizeof(T)) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    if (!aligned) return cudaErrorMisalignedAddress;
+    return m <= kRows
+               ? launch_mix_kernel<T, kV, true>(M, x, out, m, D, stream)
+               : launch_mix_kernel<T, kV, false>(M, x, out, m, D, stream);
+  }
+  return m <= kRows ? launch_mix_kernel<T, 1, true>(M, x, out, m, D, stream)
+                    : launch_mix_kernel<T, 1, false>(M, x, out, m, D, stream);
 }
 
 }  // namespace
@@ -188,12 +374,14 @@ extern "C" int repro_consensus_step(const void* M, const void* x,
   return cudaErrorInvalidValue;
 }
 
+// vec: 1 for 16-byte accesses (ops.py checks the alignment first), 0 for
+// element accesses.
 extern "C" int repro_consensus_mix(const void* M, const void* x, void* out,
-                                   int m, long long D, int dtype,
+                                   int m, long long D, int dtype, int vec,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_mix<float>(M, x, out, m, D, s);
-  if (dtype == 1) return launch_mix<__nv_bfloat16>(M, x, out, m, D, s);
+  if (dtype == 0) return launch_mix<float>(M, x, out, m, D, vec, s);
+  if (dtype == 1) return launch_mix<__nv_bfloat16>(M, x, out, m, D, vec, s);
   return cudaErrorInvalidValue;
 }
 

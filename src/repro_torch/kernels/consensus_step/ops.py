@@ -21,7 +21,7 @@ from repro_torch.kernels.consensus_step.ref import (consensus_mix_ref,
 
 __all__ = ["LAUNCHES", "MAX_SHARED_BYTES", "SOURCE", "consensus_mix",
            "consensus_mix_kernel", "consensus_step", "consensus_step_kernel",
-           "flatten_agents", "load"]
+           "flatten_agents", "load", "mix_takes_16_byte_path"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "consensus_step.cu"
 
@@ -41,7 +41,7 @@ def load() -> ctypes.CDLL:
     lib.repro_consensus_step.argtypes = [ptr] * 7 + [i32, i64, ctypes.c_float,
                                                      i32, ptr]
     lib.repro_consensus_step.restype = i32
-    lib.repro_consensus_mix.argtypes = [ptr] * 3 + [i32, i64, i32, ptr]
+    lib.repro_consensus_mix.argtypes = [ptr] * 3 + [i32, i64, i32, i32, ptr]
     lib.repro_consensus_mix.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -114,6 +114,17 @@ def consensus_step_kernel(M: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
     return x_out, u_out
 
 
+def mix_takes_16_byte_path(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether ``consensus_mix``'s kernel may move ``x`` and ``out`` in
+    16-byte accesses: every row starts on a 16-byte boundary, i.e. a row
+    is a multiple of 16 bytes and both base pointers are 16-byte aligned
+    (a view with a storage offset may not be).  Otherwise it takes element
+    accesses."""
+    row_bytes = x.shape[1] * x.element_size()
+    return (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
+            and out.data_ptr() % 16 == 0)
+
+
 def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``M @ x`` on (m, D) rows."""
     _check(M, (x,))
@@ -127,9 +138,10 @@ def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_consensus_mix(M.data_ptr(), x.data_ptr(),
-                                      out.data_ptr(), m, d,
-                                      _DTYPE_CODES[x.dtype], stream)
+        err = lib.repro_consensus_mix(
+            M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d,
+            _DTYPE_CODES[x.dtype], int(mix_takes_16_byte_path(x, out)),
+            stream)
     _raise_on_error(lib, err, "consensus_mix")
     LAUNCHES["consensus_mix"] += 1
     return out

@@ -6,8 +6,11 @@ version in ``ref.py``, a CUDA tensor launches the kernel of
 ``csrc/wkv6.cu`` or raises.  The JAX wrapper runs its kernel from a zero
 state and folds an incoming state in afterwards, in closed form; the
 kernel here starts from the incoming state, which is the same function,
-so there is no fold and no padding.  ``LAUNCHES`` counts kernel
-launches, one per launch, and nothing else.
+so there is no fold and no padding.  The kernel stages r, k, v and w
+with 16-byte asynchronous copies, so an input that does not start on a
+16-byte boundary (a view with a storage offset) is copied to one that
+does first (``aligned16``).  ``LAUNCHES`` counts kernel launches, one per
+launch, and nothing else.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.rwkv6.ref import wkv6_ref
 
-__all__ = ["HEAD_SIZES", "LAUNCHES", "SOURCE", "load", "wkv6"]
+__all__ = ["HEAD_SIZES", "LAUNCHES", "SOURCE", "aligned16", "load", "wkv6"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 
@@ -68,6 +71,12 @@ def _check(r, k, v, w, u, state) -> None:
             raise ValueError("all operands must be on one device")
 
 
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its data starts on a 16-byte boundary, else a
+    contiguous copy (fresh allocations are aligned)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor, state: torch.Tensor | None = None
          ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -86,6 +95,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"head size {n} is not one of {HEAD_SIZES}")
     if not all(t.is_contiguous() for t in (r, k, v, w)):
         raise ValueError("r, k, v and w must be contiguous")
+    r, k, v, w = (aligned16(t) for t in (r, k, v, w))
     u32 = u.float().contiguous()
     state_in = None if state is None else state.contiguous()
     out = torch.empty_like(r)

@@ -107,6 +107,56 @@ def test_consensus_mix_matches_jax_kernel(m, d, dtype, matrix):
     np.testing.assert_allclose(_np(port), _np(j_out), atol=tol, rtol=tol)
 
 
+# consensus_mix's edges: agents (17: two passes of 16 rows in the CUDA
+# kernel) by row lengths (760 and 4096 take its 16-byte path in both
+# dtypes; 1, 3, 123 and 761 the element path in both)
+MIX_EDGES = [(m, d) for m in (1, 3, 5, 16, 17) for d in (1, 3, 123, 760,
+                                                         761, 4096)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d", MIX_EDGES)
+def test_consensus_mix_edges_match_jax_kernel(m, d, dtype):
+    """Random non-symmetric M; x one element into its storage (contiguous,
+    a misaligned base) and aligned: the same values either way."""
+    from repro.kernels.consensus_step.kernel import consensus_mix_kernel
+    rng = np.random.default_rng(m * 10007 + d)
+    mix = _random_mixing(m, rng) if m > 1 else np.ones((1, 1), np.float32)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j_out = consensus_mix_kernel(jnp.asarray(mix), _jax(x, jd))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    buf = torch.cat([torch.zeros(1, dtype=td), _torch(x, td).flatten()])
+    for tx in (_torch(x, td), buf[1:].view(m, d)):
+        assert tx.is_contiguous()
+        port = ops.consensus_mix_kernel(torch.tensor(mix), tx)
+        assert port.dtype == td
+        np.testing.assert_allclose(_np(port), _np(j_out), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,d,offset,expect", [
+    (torch.float32, 760, 0, True), (torch.float32, 4096, 0, True),
+    (torch.bfloat16, 760, 0, True), (torch.bfloat16, 4096, 0, True),
+    (torch.float32, 761, 0, False),    # a row of 3044 bytes
+    (torch.float32, 123, 0, False),
+    (torch.bfloat16, 3, 0, False),
+    (torch.float32, 760, 1, False),    # base 4 bytes into its storage
+    (torch.bfloat16, 760, 1, False),   # base 2 bytes in
+    (torch.bfloat16, 760, 8, True),    # base 16 bytes in
+    (torch.float32, 760, 4, True),
+])
+def test_mix_takes_16_byte_path_only_when_every_row_is_aligned(
+        dtype, d, offset, expect):
+    m = 5
+    x = torch.zeros(m * d + offset, dtype=dtype)[offset:].view(m, d)
+    out = torch.empty_like(x)
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    assert ops.mix_takes_16_byte_path(x, out) is expect
+    misaligned_out = torch.zeros(m * d + 1, dtype=dtype)[1:].view(m, d)
+    assert not ops.mix_takes_16_byte_path(x, misaligned_out)
+
+
 def _mixed_tree(m, rng, scale=1.0):
     """A backbone-shaped list of (W, b) with one bfloat16 leaf."""
     w0 = scale * rng.standard_normal((m, 13, 7)).astype(np.float32)

@@ -1,5 +1,5 @@
-"""The port's flash attention and WKV6 kernels against their plain
-versions, on the card.
+"""The port's consensus_mix, flash attention and WKV6 kernels against
+their plain versions, on the card.
 
 Every test here needs an NVIDIA Hopper card and skips elsewhere.  The
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -17,13 +17,22 @@ held row by row to the wrapper module's gate, ``ops.row_errors`` at most
 ``ops.TC_ROW_RTOL`` (||got - want||_2 <= 1e-2 ||want||_2) against the
 plain version in float32 on the same bf16 inputs, with rows that see no
 key exactly 0 (tests/test_torch_flash_attention.py sizes that gate).
-WKV6: float32 2e-3, bfloat16 5e-2, as in tests/test_kernels.py.
-chip_smoke.py runs these and the serving shapes.
+WKV6: float32 2e-3, bfloat16 5e-2, as in tests/test_kernels.py, on
+every head size, lengths that are not a multiple of the kernel's
+16-token chunk, and a strong-decay draw (w exactly 0, below 1e-4 and
+above 0.999).  consensus_mix: float32 1e-5, bfloat16 3e-2, as in
+tests/test_torch_consensus_step.py, over the 16-byte and the element
+path (a row that is not a multiple of 16 bytes, or an x whose storage
+offset misaligns it), one and two passes of 16 rows, and a symmetric and
+a non-symmetric mixing matrix.  chip_smoke.py runs these and the serving
+shapes.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.consensus_step import ops as mix_ops  # noqa: E402
+from repro_torch.kernels.consensus_step import ref as mix_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
@@ -31,6 +40,13 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 
 FLASH_TOL = 2e-5             # float32, the FMA kernel
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+MIX_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+# consensus_mix: agents (17 takes two passes of 16 rows) and row lengths
+# (760 and 4096 take the 16-byte path in both dtypes, 1, 3, 123 and 761
+# in neither)
+MIX_M = (1, 3, 5, 16, 17)
+MIX_D = (1, 3, 123, 760, 761, 4096)
 
 # (batch, sq, skv, heads, kv_heads, head_dim, causal, window, softcap,
 # q_offset): the first seven are tests/test_kernels.py's float32 cases.
@@ -65,6 +81,31 @@ WKV_CASES = [
     (1, 128, 2, 64, False, torch.float32),
     (1, 64, 2, 16, False, torch.bfloat16),
 ]
+# every head size, lengths that are not a multiple of the 16-token chunk
+WKV_EDGE_CASES = [
+    (2, 37, 3, n, with_state, dtype)
+    for n in (8, 16, 32, 64) for with_state in (False, True)
+    for dtype in (torch.float32, torch.bfloat16)]
+
+
+def wkv_inputs(b, s, h, n, with_state, dtype, device, strong=False,
+               seed=0):
+    """r, k, v, w, u, state as tests/test_kernels.py draws them; with
+    ``strong``, a quarter of w each exactly 0, in (0, 1e-4) and in
+    (0.999, 1)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=gen, device=device)
+    rand = lambda *shape: torch.rand(*shape, generator=gen, device=device)
+    r, k, v = (randn(b, s, h, n).to(dtype) for _ in range(3))
+    w = torch.sigmoid(randn(b, s, h, n) * 2.0 - 1.0) * 0.6 + 0.35
+    if strong:
+        pick = torch.randint(0, 4, w.shape, generator=gen, device=device)
+        w = torch.where(pick == 0, 0.0, w)
+        w = torch.where(pick == 1, 1e-4 * rand(*w.shape), w)
+        w = torch.where(pick == 2, 0.999 + 1e-3 * rand(*w.shape), w)
+    u = (0.3 * randn(h, n)).to(dtype)
+    state = 0.5 * randn(b, h, n, n) if with_state else None
+    return r, k, v, w.to(dtype), u, state
 
 
 @pytest.fixture
@@ -132,23 +173,70 @@ def test_flash_tc_kernel_rejects_misaligned_views(hopper):
     assert fa_ops.LAUNCHES == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,s,h,n,with_state,dtype", WKV_CASES)
-def test_wkv6_kernel_matches_plain_version(hopper, b, s, h, n, with_state,
-                                           dtype):
-    gen = torch.Generator(device=hopper).manual_seed(0)
-    randn = lambda *shape: torch.randn(*shape, generator=gen, device=hopper)
-    r, k, v = (randn(b, s, h, n).to(dtype) for _ in range(3))
-    w = (torch.sigmoid(randn(b, s, h, n) * 2.0 - 1.0) * 0.6 + 0.35).to(dtype)
-    u = (0.3 * randn(h, n)).to(dtype)
-    state = 0.5 * randn(b, h, n, n) if with_state else None
+def _check_wkv6(r, k, v, w, u, state, dtype):
     before = wkv_ops.LAUNCHES["wkv6"]
     out, final = wkv_ops.wkv6(r, k, v, w, u, state)
     assert wkv_ops.LAUNCHES["wkv6"] == before + 1
+    assert out.dtype == dtype and final.dtype == torch.float32
     want, want_final = wkv_ref.wkv6_ref(r, k, v, w, u, state)
     tol = WKV_TOL[dtype]
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(final, want_final, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,n,with_state,dtype", WKV_CASES)
+def test_wkv6_kernel_matches_plain_version(hopper, b, s, h, n, with_state,
+                                           dtype):
+    _check_wkv6(*wkv_inputs(b, s, h, n, with_state, dtype, hopper), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strong", [False, True], ids=["decay", "strong"])
+@pytest.mark.parametrize("b,s,h,n,with_state,dtype", WKV_EDGE_CASES)
+def test_wkv6_kernel_edges(hopper, b, s, h, n, with_state, dtype, strong):
+    _check_wkv6(*wkv_inputs(b, s, h, n, with_state, dtype, hopper,
+                            strong=strong, seed=1), dtype)
+
+
+@pytest.mark.cuda
+def test_wkv6_kernel_takes_misaligned_views(hopper):
+    # contiguous views one element into their storage: the wrapper hands
+    # the kernel 16-byte aligned copies
+    r, k, v, w, u, state = wkv_inputs(1, 20, 2, 64, True, torch.bfloat16,
+                                      hopper)
+    views = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+             for t in (r, k, v, w)]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    _check_wkv6(*views, u, state, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", ["symmetric", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", MIX_D)
+@pytest.mark.parametrize("m", MIX_M)
+def test_consensus_mix_kernel_matches_plain_version(hopper, m, d, dtype,
+                                                    matrix):
+    gen = torch.Generator(device=hopper).manual_seed(m * 10007 + d)
+    if matrix == "symmetric":
+        M = torch.full((m, m), 1.0 / m, device=hopper)
+    else:
+        M = torch.rand(m, m, generator=gen, device=hopper) + 0.05
+        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+    # aligned, and one element into its storage (a misaligned base)
+    for offset in (0, 1):
+        buf = torch.randn(m * d + offset, generator=gen, device=hopper)
+        x = buf.to(dtype)[offset:].view(m, d)
+        assert x.is_contiguous()
+        before = mix_ops.LAUNCHES["consensus_mix"]
+        got = mix_ops.consensus_mix_kernel(M, x)
+        assert mix_ops.LAUNCHES["consensus_mix"] == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        want = mix_ref.consensus_mix_ref(M, x)
+        tol = MIX_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.cuda

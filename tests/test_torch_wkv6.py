@@ -140,3 +140,81 @@ def test_wkv6_rejects_bad_arguments(what):
         w = w.to(torch.bfloat16)
     with pytest.raises((ValueError, TypeError)):
         ops.wkv6(r, k, v, w, u, state=state)
+
+
+def _strong_decay_inputs(b, s, h, n, seed, with_state):
+    """``_inputs`` with a quarter of w each exactly 0, in (0, 1e-4) and in
+    (0.999, 1): decays that forget at once, nearly at once, and hardly."""
+    arrays, state = _inputs(b, s, h, n, seed=seed, with_state=with_state)
+    rng = np.random.default_rng(seed + 100)
+    w = arrays[3]
+    pick = rng.integers(0, 4, w.shape)
+    w = np.where(pick == 0, 0.0, w)
+    w = np.where(pick == 1, rng.uniform(0.0, 1e-4, w.shape), w)
+    w = np.where(pick == 2, rng.uniform(0.999, 1.0, w.shape), w)
+    arrays[3] = w.astype(np.float32)
+    return arrays, state
+
+
+# (batch, seq, heads, N, chunk of the JAX kernel, with_state, dtype):
+# every head size, lengths that are not a multiple of the CUDA kernel's
+# 16-token chunk
+STRONG_CASES = [
+    (1, 37, 2, 8, 16, False, "float32"),
+    (2, 37, 2, 16, 16, True, "float32"),
+    (1, 45, 2, 32, 16, False, "float32"),
+    (1, 37, 2, 64, 16, True, "float32"),
+    (1, 37, 2, 16, 16, False, "bfloat16"),
+    (1, 37, 2, 64, 16, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,n,chunk,with_state,dtype", STRONG_CASES)
+def test_wkv6_strong_decay_matches_jax_kernel_and_ref(b, s, h, n, chunk,
+                                                      with_state, dtype):
+    """w exactly 0, below 1e-4 and above 0.999: the port's plain version
+    agrees with the JAX oracle ref.py on the draw, and with the JAX kernel
+    on the draw with its zeros lifted to 1e-30.  The JAX kernel cannot
+    take w = 0: it clamps w at 1e-38, a subnormal that XLA flushes to 0,
+    so its log is -inf and its output NaN (ROADMAP, Queue C)."""
+    arrays, state = _strong_decay_inputs(b, s, h, n, seed=9,
+                                         with_state=with_state)
+    w = arrays[3]
+    assert (w == 0).any() and (w > 0.999).any() and ((w > 0) & (w < 1e-4)).any()
+    t_state = None if state is None else torch.tensor(state)
+    j_state = None if state is None else jnp.asarray(state)
+    out, final = ops.wkv6(*_torch(arrays, dtype), state=t_state)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(final).all()
+    want, want_final = j_ref.wkv6_ref(*_jax(arrays, dtype), state=j_state)
+    _close(out, want, TOL[dtype])
+    _close(final, want_final, TOL[dtype])
+    arrays[3] = np.where(w == 0, np.float32(1e-30), w)
+    out, final = ops.wkv6(*_torch(arrays, dtype), state=t_state)
+    want, want_final = j_ops.wkv6(*_jax(arrays, dtype), state=j_state,
+                                  chunk=chunk)
+    _close(out, want, TOL[dtype])
+    _close(final, want_final, TOL[dtype])
+
+
+def test_wkv6_zero_decay_forgets_the_state_exactly():
+    """w = 0 at a token: the state after it is k v^T of that token alone,
+    exactly (the CUDA kernel computes w S + kv as one FMA, 0 * S + kv)."""
+    arrays, state = _inputs(1, 3, 2, 16, seed=4, with_state=True)
+    r, k, v, w, u = _torch(arrays, "float32")
+    w[:, -1] = 0.0
+    _, final = ops.wkv6(r, k, v, w, u, state=torch.tensor(state))
+    kv = k[:, -1, :, :, None] * v[:, -1, :, None, :]
+    torch.testing.assert_close(final, kv, atol=0, rtol=0)
+
+
+def test_aligned16_copies_only_a_misaligned_view():
+    base = torch.arange(65, dtype=torch.float32)
+    aligned = base[:64].view(4, 16)
+    assert ops.aligned16(aligned) is aligned
+    view = base[1:].view(4, 16)               # 4 bytes into its storage
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    copy = ops.aligned16(view)
+    assert copy is not view and copy.data_ptr() % 16 == 0
+    torch.testing.assert_close(copy, view, atol=0, rtol=0)
+    bf = torch.zeros(72, dtype=torch.bfloat16)[8:].view(4, 16)  # 16 bytes in
+    assert ops.aligned16(bf) is bf
