@@ -16,10 +16,13 @@
    16-byte path and the element path, one and two passes).  Flash
    attention: the JAX package's test cases, q_offset cases, the two
    cases where its wrapper's padding shows, rows that see no key and
-   strided views, each in float32 (the exact FMA kernel, 2e-5) and in
-   bfloat16 (the tensor-core kernel, a per-row relative gate), and the
-   gemma2-2b serving shapes: global in both dtypes, local in both; each
-   call must add one launch to the count of the kernel its dtype takes.
+   strided views, each in float32 (the split pass and the split-operand
+   tensor-core kernel, 2e-5) and in bfloat16 (the bf16 tensor-core
+   kernel, a per-row relative gate), a float32 view misaligned for
+   16-byte loads, and the gemma2-2b serving shapes: global in both
+   dtypes, local in both; each call must add one launch to the count of
+   each kernel its dtype takes; the float32 split pass is bit-equal to its
+   plain version at the serving shape and on the strided views.
    WKV6: the JAX package's test cases, every head size at a length that
    is not a multiple of its 16-token chunk, a strong-decay draw (w
    exactly 0, below 1e-4, above 0.999) and the rwkv6-3b serving shape,
@@ -38,10 +41,10 @@
    (c) agree with a kernel prefill of the prompt plus the fed tokens
    (d), and each kernel prefill launched the kernel once per layer
    (counts set to 0 just before each model's run; for gemma2-2b the
-   float32 flash kernel, never the tensor-core one).  Then the same flow
+   float32 split pass and kernel, never the bf16 one).  Then the same flow
    in bfloat16, the configs' published dtype, gated on finite logits
    only (each gemma2-2b prefill makes its 26 flash launches on the
-   tensor-core kernel), with a profile of one prefill and one decode
+   bf16 kernel), with a profile of one prefill and one decode
    step.  In both
    dtypes the gated calls are the warm-up of the timing that follows
    them: three kernel prefills, three plain cached prefills and three
@@ -105,8 +108,8 @@ WKV_REPLACES = "src/repro/kernels/rwkv6/kernel.py:89"
 
 # Flash attention shapes: (b, sq, skv, nh, nkv, hd, causal, window, softcap,
 # q_offset).  The first seven are tests/test_kernels.py's FLASH_CASES
-# (sq = skv, q_offset 0); each runs in float32 (the FMA kernel) and in
-# bfloat16 (the tensor-core kernel).
+# (sq = skv, q_offset 0); each runs in float32 (the split pass and the
+# split-operand kernel) and in bfloat16 (the bf16 tensor-core kernel).
 FLASH_SHAPES = [
     (2, 256, 256, 4, 2, 64, True, None, None, 0),
     (1, 256, 256, 8, 1, 128, True, None, None, 0),   # MQA
@@ -129,16 +132,18 @@ FLASH_CASES = (
     + [c + ("bfloat16",) for c in FLASH_SHAPES]
     + [(1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),
        (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
-       GEMMA_LOCAL + ("float32",)])
-# Checked and timed: both kernels at the gemma2 global shape, the
-# tensor-core one at the local shape too (the serving dtype).
+       (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, "float32"),
+       (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, "float32")])
+# Checked and timed: both dtypes at gemma2's global and local shapes.
 FLASH_MAIN = {
     "global": GEMMA_GLOBAL + ("bfloat16",),
     "local": GEMMA_LOCAL + ("bfloat16",),
     "global_f32": GEMMA_GLOBAL + ("float32",),
+    "local_f32": GEMMA_LOCAL + ("float32",),
 }
-# float32, the exact FMA kernel: as tests/test_kernels.py.  bfloat16, the
-# tensor-core kernel: the wrapper module's per-row gate, ops.row_errors
+# float32: as tests/test_kernels.py (tests/test_torch_flash_attention.py
+# emulates the split-operand kernel's arithmetic at under a third of it).
+# bfloat16: the wrapper module's per-row gate, ops.row_errors
 # at most ops.TC_ROW_RTOL (1e-2) against the plain version in float32 on
 # the same bf16 inputs, rows that see no key exactly 0 (the emulation in
 # tests/test_torch_flash_attention.py puts the largest row error at
@@ -166,7 +171,8 @@ WKV_STRONG = [(2, 37, 3, n, st, dt) for n in (8, 16, 32, 64)
     (4, 1024, 40, 64, True, "float32"),
     (4, 1024, 40, 64, True, "bfloat16")]
 # kernels whose nvcc report (registers, spills) the kernels line carries
-PTXAS_KERNELS = ("consensus_mix_kernel", "wkv6_kernel")
+PTXAS_KERNELS = ("consensus_mix_kernel", "wkv6_kernel",
+                 "flash_attention_f32_kernel", "flash_split_f32_kernel")
 WKV_MAIN = (4, 1024, 40, 64, False, "bfloat16")
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 
@@ -416,14 +422,26 @@ def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int
 
 
 def flash_bound_ms(b, sq, skv, nh, nkv, hd, causal, window, q_offset,
-                   itemsize) -> tuple[float, str]:
-    """4 hd flops per visible pair and head, at the bf16 tensor-core peak
-    (float32 inputs: the float32 peak); q, k, v read once, out written
-    once."""
-    flops = 4 * hd * visible_pairs(sq, skv, causal, window, q_offset) * b * nh
-    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+                   itemsize, flops_per_pair=4, peak=None
+                   ) -> tuple[float, str]:
+    """``flops_per_pair`` hd flops per visible pair and head (4: the two
+    products) at ``peak``, by default the bf16 tensor-core peak for bf16
+    inputs and the float32 peak of the CUDA cores for float32 ones; q, k,
+    v read once and out written once, ``itemsize`` bytes an element."""
+    flops = (flops_per_pair * hd * b * nh
+             * visible_pairs(sq, skv, causal, window, q_offset))
+    if peak is None:
+        peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
     nbytes = itemsize * hd * b * (2 * sq * nh + 2 * skv * nkv)
     return roofline_ms(nbytes, flops, peak)
+
+
+def split_bound_ms(b, sq, skv, nh, nkv, hd) -> tuple[float, str]:
+    """The float32 split pass: q, k, v read once as float32 and written
+    once as two float16 terms (8 bytes an element), no flops to speak of;
+    the tile exponents are a few kB."""
+    return roofline_ms(8 * hd * b * (sq * nh + 2 * skv * nkv), 0,
+                       FP32_FLOP_PER_S)
 
 
 def wkv_bound_ms(b, s, h, n, with_state, itemsize) -> tuple[float, str]:
@@ -448,7 +466,10 @@ def check_flash_case(torch, ops, ref, q, k, v, kw, what: str
     torch.cuda.synchronize()
     check(ops.LAUNCHES == {
         "flash_attention": before["flash_attention"] + 1,
-        "flash_attention_tc": before["flash_attention_tc"] + int(tc)},
+        "flash_attention_tc": before["flash_attention_tc"] + int(tc),
+        "flash_attention_f32_split":
+            before["flash_attention_f32_split"] + int(not tc),
+        "flash_attention_f32": before["flash_attention_f32"] + int(not tc)},
         f"flash {what}: launches {ops.LAUNCHES} after {before}")
     check(got.dtype == q.dtype and got.shape == want.shape,
           f"flash {what}: dtype/shape")
@@ -469,14 +490,85 @@ def check_flash_case(torch, ops, ref, q, k, v, kw, what: str
     return e, row
 
 
+def check_split(torch, ops, ref, q, k, v, what: str) -> float:
+    """The float32 split pass on q, k, v against its plain version: hi, lo
+    and the tile exponents bit for bit; returns the largest |got - want|
+    over them (0 when bit-equal)."""
+    lib = ops.load()
+    halves, exps = scratch = ops.f32_scratch(lib, q, k)
+    ops.launch_split_f32(lib, q, k, v, scratch)
+    torch.cuda.synchronize()
+    q_rows, kv_rows = ops.f32_tiles(lib, q.shape[3])
+    err = 0.0
+    for name, x, rows in (("q", q, q_rows), ("k", k, kv_rows),
+                          ("v", v, kv_rows)):
+        hi, lo, e = ref.split_f32_ref(x, rows)
+        n = hi.numel()
+        got = (halves[:n].view(hi.shape), halves[n:2 * n].view(hi.shape),
+               exps[:e.numel()].view(e.shape))
+        for g, w in zip(got, (hi, lo, e)):
+            err = max(err, float((g.double() - w.double()).abs().max()))
+        check(all(torch.equal(g, w) for g, w in zip(got, (hi, lo, e))),
+              f"flash split pass {what}: {name} differs from its plain "
+              f"version (largest difference {err:.3e})")
+        halves, exps = halves[2 * n:], exps[e.numel():]
+    check(halves.numel() == 0 and exps.numel() == 0,
+          f"flash split pass {what}: scratch size")
+    print(f"flash split pass {what}: bit-equal to its plain version",
+          flush=True)
+    return err
+
+
+def time_flash_f32(torch, ops, ref, q, k, v, kw) -> dict:
+    """The float32 path's kernels timed alone at one shape (split pass,
+    main kernel on its output) and as one wrapper call, their plain
+    versions, and the main kernel's bounds."""
+    b, sq, nh, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    lib = ops.load()
+    scratch = ops.f32_scratch(lib, q, k)
+    out = torch.empty_like(q)
+    ops.launch_split_f32(lib, q, k, v, scratch)
+    shape = (b, sq, skv, nh, nkv, hd, kw["causal"], kw["window"],
+             kw["q_offset"], 4)
+    # the function's bound: float32 attention's 4 hd flops a visible pair
+    # at the tensor cores' peak, the rate at which the kernel does them;
+    # beside it the split arithmetic's own work (12 hd: 3 products of 2 hd
+    # each for S and for P . V) at that peak, and the 4 hd at the CUDA
+    # cores' float32 rate
+    bound, by = flash_bound_ms(*shape, peak=BF16_FLOP_PER_S)
+    split_arith, _ = flash_bound_ms(*shape, flops_per_pair=12,
+                                    peak=BF16_FLOP_PER_S)
+    fma_bound, _ = flash_bound_ms(*shape)
+    split_bound, split_by = split_bound_ms(b, sq, skv, nh, nkv, hd)
+    q_rows, kv_rows = ops.f32_tiles(lib, hd)
+    return dict(
+        ms=time_ms(torch, lambda: ops.launch_f32(
+            lib, scratch, out, skv=skv, nkv=nkv, **kw), 3, reps=5),
+        call_ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                        3, reps=5),
+        plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
+                         1, reps=3),
+        bound_ms=bound, bound_by=by, bound_split_arith_ms=split_arith,
+        bound_f32_fma_ms=fma_bound,
+        split=dict(
+            ms=time_ms(torch, lambda: ops.launch_split_f32(
+                lib, q, k, v, scratch), 10, reps=5),
+            plain_ms=time_ms(torch, lambda: [
+                ref.split_f32_ref(x, r)
+                for x, r in ((q, q_rows), (k, kv_rows), (v, kv_rows))],
+                1, reps=3),
+            bound_ms=split_bound, bound_by=split_by))
+
+
 def check_flash(torch) -> dict:
-    """Both flash kernels against their plain version on every case;
-    times, bounds and SDPA (no softcap: it has none) at the serving
-    shapes."""
+    """Every flash kernel against its plain version on every case; times,
+    bounds and SDPA (no softcap: it has none) at the serving shapes."""
     from repro_torch.kernels.flash_attention import ops, ref
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(1)
-    err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_row": 0.0}
+    err = {"float32": 0.0, "bfloat16": 0.0, "bfloat16_row": 0.0,
+           "split": 0.0}
     timings = {}
     cases = [(c, None) for c in FLASH_CASES] + [
         (c, name) for name, c in FLASH_MAIN.items()]
@@ -494,8 +586,6 @@ def check_flash(torch) -> dict:
             err["bfloat16_row"] = max(err["bfloat16_row"], row)
         if main_name is None:
             continue
-        bound, by = flash_bound_ms(b, sq, skv, nh, nkv, hd, causal, window,
-                                   q_off, q.element_size())
         # SDPA in its own (b, h, s, hd) layout, made beforehand
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if window is None:
@@ -512,16 +602,24 @@ def check_flash(torch) -> dict:
         except RuntimeError as exc:   # no SDPA kernel for these inputs
             print(f"SDPA {main_name}: {exc}", flush=True)
             library_ms = None
-        # the tensor-core kernel takes about a millisecond, the FMA one 40
-        inner, reps = (10, 5) if dt == "bfloat16" else (3, 3)
         timings[main_name] = dict(
             shape=[b, sq, skv, nh, nkv, hd], window=window, softcap=cap,
-            dtype=dt,
-            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
-                       inner, reps=reps),
-            plain_ms=time_ms(torch, lambda: ref.attention_ref(q, k, v, **kw),
-                             1, reps=3),
-            bound_ms=bound, bound_by=by, library_ms=library_ms)
+            dtype=dt, library_ms=library_ms)
+        if dt == "bfloat16":
+            bound, by = flash_bound_ms(b, sq, skv, nh, nkv, hd, causal,
+                                       window, q_off, q.element_size())
+            timings[main_name].update(
+                ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw),
+                           10, reps=5),
+                plain_ms=time_ms(torch,
+                                 lambda: ref.attention_ref(q, k, v, **kw),
+                                 1, reps=3),
+                bound_ms=bound, bound_by=by)
+        else:
+            err["split"] = max(err["split"], check_split(
+                torch, ops, ref, q, k, v, main_name))
+            timings[main_name].update(time_flash_f32(torch, ops, ref, q, k,
+                                                     v, kw))
         print(f"flash {main_name}: {json.dumps(timings[main_name])}",
               flush=True)
         del q, k, v, qt, kt, vt
@@ -540,6 +638,21 @@ def check_flash(torch) -> dict:
         err[dt] = max(err[dt], e)
         if row is not None:
             err["bfloat16_row"] = max(err["bfloat16_row"], row)
+        else:
+            err["split"] = max(err["split"], check_split(
+                torch, ops, ref, q, k, v, "strided views"))
+    # float32 views that no 16-byte load could read (pointers 4 bytes in,
+    # a head stride of 276 bytes): the split pass takes them as they are
+    q = torch.randn(1, 130, 4, 64, generator=gen, device=dev)
+    k = torch.randn(1, 130, 2, 69, generator=gen, device=dev)[..., 1:65]
+    v = torch.randn(130 * 2 * 64 + 1, generator=gen,
+                    device=dev)[1:].view(1, 130, 2, 64)
+    check(k.data_ptr() % 16 != 0 and v.data_ptr() % 16 != 0,
+          "flash: the misaligned float32 views are aligned")
+    e, _ = check_flash_case(torch, ops, ref, q, k, v,
+                            dict(causal=True, window=50, logit_softcap=30.0),
+                            "misaligned float32 views")
+    err["float32"] = max(err["float32"], e)
     # the tensor-core kernel refuses a view it cannot load 16 bytes at a time
     q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, device=dev)
     k = torch.zeros(1, 8, 2, 80, dtype=torch.bfloat16, device=dev)[..., 4:68]
@@ -623,16 +736,18 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
     batch, prompt_len, steps = SERVE_RUNS[arch]
     specs = cfg.layer_pattern() * cfg.num_periods()
     n_attn = sum(s.mixer == "attn" for s in specs)
-    # flash_attention counts both flash kernels, flash_attention_tc the
-    # tensor-core one, which every bf16 prefill layer and no float32 one
-    # launches
+    # flash_attention counts the flash calls of either dtype; every bf16
+    # prefill layer launches the bf16 kernel, every float32 one the split
+    # pass and the float32 kernel
+    f32 = dtype == "float32"
     per_prefill = {
         "flash_attention": n_attn,
-        "flash_attention_tc": n_attn if dtype == "bfloat16" else 0,
+        "flash_attention_tc": 0 if f32 else n_attn,
+        "flash_attention_f32_split": n_attn if f32 else 0,
+        "flash_attention_f32": n_attn if f32 else 0,
         "wkv6": sum(s.mixer == "rwkv" for s in specs)}
-    counters = {"flash_attention": fa_ops.LAUNCHES,
-                "flash_attention_tc": fa_ops.LAUNCHES,
-                "wkv6": wkv_ops.LAUNCHES}
+    counters = {name: fa_ops.LAUNCHES for name in fa_ops.LAUNCHES}
+    counters["wkv6"] = wkv_ops.LAUNCHES
 
     def launches():
         return {name: c[name] for name, c in counters.items()}
@@ -909,14 +1024,34 @@ def main() -> int:
             "without the softcap, which it cannot apply")
     f32_run = serving[("gemma2-2b", "float32")]["launches"]
     main = flash["timings"]["global_f32"]
+    local = flash["timings"]["local_f32"]
     kernels.append(dict(
-        name="flash_attention", route="cuda", source=FLASH_SOURCE,
+        name="flash_attention_f32_split", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, dtype="float32",
-        launches=f32_run["flash_attention"] - f32_run["flash_attention_tc"],
+        launches=f32_run["flash_attention_f32_split"],
+        max_abs_err=flash["err"]["split"],
+        ms=main["split"]["ms"], plain_ms=main["split"]["plain_ms"],
+        bound_ms=main["split"]["bound_ms"],
+        bound_by=main["split"]["bound_by"], library_ms=None,
+        library_call="none: no PyTorch call computes the scaled split",
+        shape=main["shape"], local=local["split"],
+        ptxas={k: v for k, v in ptxas.items()
+               if "flash_split_f32_kernel" in k}))
+    kernels.append(dict(
+        name="flash_attention_f32", route="cuda", source=FLASH_SOURCE,
+        replaces=FLASH_REPLACES, dtype="float32",
+        launches=f32_run["flash_attention_f32"],
         max_abs_err=flash["err"]["float32"],
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-        bound_by=main["bound_by"], library_ms=main["library_ms"],
-        library_call=sdpa, shape=main["shape"], softcap=main["softcap"]))
+        bound_by=main["bound_by"],
+        bound_split_arith_ms=main["bound_split_arith_ms"],
+        bound_f32_fma_ms=main["bound_f32_fma_ms"], call_ms=main["call_ms"], library_ms=main["library_ms"],
+        library_call=sdpa, shape=main["shape"], softcap=main["softcap"],
+        local={key: local[key] for key in (
+            "ms", "call_ms", "plain_ms", "bound_ms", "bound_split_arith_ms",
+            "bound_f32_fma_ms", "library_ms")},
+        ptxas={k: v for k, v in ptxas.items()
+               if "flash_attention_f32_kernel" in k}))
     main = flash["timings"]["global"]
     kernels.append(dict(
         name="flash_attention_tc", route="cuda", source=FLASH_SOURCE,

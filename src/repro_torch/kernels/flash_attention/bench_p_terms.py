@@ -69,7 +69,8 @@ def main() -> int:
         kw = dict(causal=True, window=window, logit_softcap=50.0, q_offset=0)
         want = ref.attention_ref(q.float(), k.float(), v.float(), **kw)
         outs = {t: torch.empty_like(q) for t in libs}
-        fns = {t: (lambda t=t: ops.launch(libs[t], q, k, v, outs[t], **kw))
+        fns = {t: (lambda t=t: ops.launch_tc(libs[t], q, k, v, outs[t],
+                                             **kw))
                for t in libs}
         result = dict(shape=[b, s, s, nh, nkv, hd], window=window,
                       softcap=50.0)

@@ -2,31 +2,38 @@
 
 Counterpart of ``repro.kernels.flash_attention.ops.flash_attention``.
 Dispatch is on the inputs' device and dtype and on nothing else: a CPU
-tensor goes to the plain version in ``ref.py``; a CUDA tensor launches a
-kernel of ``csrc/flash_attention.cu`` or raises: float32 the exact FMA
-kernel, bfloat16 the tensor-core (wgmma) kernel, which also needs 16-byte
-aligned pointers and (batch, seq, head) strides.  The kernels mask key
-columns past the sequence themselves, so nothing is padded (the JAX
-wrapper pads k and v with zero rows, which a non-causal call or a
-``q_offset`` past the keys then attends to; this wrapper follows
-``ref.py`` in those cases too).  ``LAUNCHES["flash_attention"]`` counts
-the launches of both kernels, ``LAUNCHES["flash_attention_tc"]`` those of
-the tensor-core kernel; each adds one per launch and nothing else.
+tensor goes to the plain version in ``ref.py``; a CUDA tensor launches
+the kernels of ``csrc/flash_attention.cu`` or raises.  bfloat16 takes the
+tensor-core (wgmma) kernel, which needs 16-byte aligned pointers and
+(batch, seq, head) strides.  float32 takes two kernels: the split pass,
+which reads q, k and v at any strides and writes each as two scaled
+float16 terms into scratch allocated here, then the split-operand
+tensor-core kernel on that scratch.  The kernels mask key columns past
+the sequence themselves, so nothing is padded (the JAX wrapper pads k and
+v with zero rows, which a non-causal call or a ``q_offset`` past the keys
+then attends to; this wrapper follows ``ref.py`` in those cases too).
+
+``LAUNCHES`` counts, each adding one per launch and nothing else:
+``"flash_attention"`` one per call that launches (either dtype),
+``"flash_attention_tc"`` the bfloat16 kernel, ``"flash_attention_f32_split"``
+the float32 split pass and ``"flash_attention_f32"`` the float32 kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["HEAD_DIMS", "LAUNCHES", "SOURCE", "TC_ROW_RTOL",
-           "check_tc_alignment", "flash_attention", "launch", "load",
-           "row_errors"]
+__all__ = ["CPU_F32_TILES", "F32Scratch", "HEAD_DIMS", "LAUNCHES", "SOURCE",
+           "TC_ROW_RTOL", "check_tc_alignment", "f32_scratch", "f32_tiles",
+           "flash_attention", "launch_f32", "launch_split_f32", "launch_tc",
+           "load", "row_errors"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -34,7 +41,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # 128 and 256; the reduced ones 32).
 HEAD_DIMS = (32, 64, 128, 256)
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_f32_split": 0, "flash_attention_f32": 0}
 
 # What the bfloat16 kernel is held to (chip_smoke.py,
 # tests/test_torch_kernels_cuda.py; tests/test_torch_flash_attention.py
@@ -42,6 +50,21 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
 # ``row_errors`` against the plain version in float32 on the same bf16
 # inputs at most TC_ROW_RTOL.
 TC_ROW_RTOL = 1e-2
+
+# The float32 kernel's tiles (query rows a block, keys a kv tile) by head
+# size, for the CPU emulation of its rounding, where no library is built:
+# 64-key tiles except at 256, where two f16 terms of a 64-key tile do not
+# fit beside q's.  On the card the library's own numbers (``f32_tiles``)
+# are used; the card test of the split pass holds the two equal.
+CPU_F32_TILES = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 32)}
+
+
+class F32Scratch(NamedTuple):
+    """What the float32 split pass writes and its kernel reads: float16 hi
+    and lo terms of q, k and v, and the exponents of their tiles."""
+    halves: torch.Tensor
+    exps: torch.Tensor
+
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -51,12 +74,20 @@ def load(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (at first use) and load the kernels, with typed launchers;
     ``defines`` (``NAME=VALUE``) build a variant of the source."""
     lib = load_library(SOURCE, defines)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.repro_flash_attention, lib.repro_flash_attention_tc):
-        fn.argtypes = ([ptr] * 4 + [i32] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [i32, i32, ctypes.c_float, i32, ptr])
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64p = ctypes.POINTER(ctypes.c_longlong)
+    lib.repro_flash_attention_tc.argtypes = (
+        [ptr] * 4 + [i32] * 6 + [i64p, i32, i32, f32, i32, ptr])
+    lib.repro_flash_split_f32.argtypes = [ptr] * 5 + [i32] * 6 + [i64p, ptr]
+    lib.repro_flash_attention_f32.argtypes = (
+        [ptr] * 3 + [i32] * 8 + [f32, i32, ptr])
+    lib.repro_flash_f32_scratch.argtypes = [i32] * 6 + [i64p]
+    for fn in (lib.repro_flash_attention_tc, lib.repro_flash_split_f32,
+               lib.repro_flash_attention_f32):
         fn.restype = i32
+    lib.repro_flash_f32_scratch.restype = None
+    lib.repro_flash_f32_tiles.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.repro_flash_f32_tiles.restype = None
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -148,34 +179,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if k.shape[1] == 0:
         return out.zero_()
-    launch(load(), q, k, v, out, **kwargs)
-    LAUNCHES["flash_attention"] += 1
+    lib = load()
     if tc:
+        launch_tc(lib, q, k, v, out, **kwargs)
         LAUNCHES["flash_attention_tc"] += 1
+    else:
+        scratch = f32_scratch(lib, q, k)
+        launch_split_f32(lib, q, k, v, scratch)
+        LAUNCHES["flash_attention_f32_split"] += 1
+        launch_f32(lib, scratch, out, nkv=k.shape[2], skv=k.shape[1],
+                   **kwargs)
+        LAUNCHES["flash_attention_f32"] += 1
+    LAUNCHES["flash_attention"] += 1
     return out
 
 
-def launch(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
-           v: torch.Tensor, out: torch.Tensor, *, causal: bool,
-           window: int | None, logit_softcap: float | None,
-           q_offset: int) -> None:
-    """Launch ``lib``'s kernel for q's dtype on arguments that
-    ``flash_attention`` has checked, into ``out``; counts nothing."""
-    b, sq, nh, hd = q.shape
-    skv, nkv = k.shape[1], k.shape[2]
-    tc = q.dtype == torch.bfloat16
-    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
-                                       for s in t.stride()[:3]))
-    fn = lib.repro_flash_attention_tc if tc else lib.repro_flash_attention
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                 sq, skv, nh, nkv, hd, strides, int(causal),
-                 0 if window is None else int(window),
-                 0.0 if logit_softcap is None else float(logit_softcap),
-                 int(q_offset), stream)
+def _raise_on(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err != 0:
-        name = "flash_attention_tc" if tc else "flash_attention"
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def _strides(*tensors: torch.Tensor) -> ctypes.Array:
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(s for t in tensors for s in t.stride()[:3]))
+
+
+def launch_tc(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, out: torch.Tensor, *, causal: bool,
+              window: int | None, logit_softcap: float | None,
+              q_offset: int) -> None:
+    """Launch ``lib``'s bfloat16 kernel on arguments that
+    ``flash_attention`` has checked, into ``out``; counts nothing."""
+    b, sq, nh, hd = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_attention_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            k.shape[1], nh, k.shape[2], hd, _strides(q, k, v), int(causal),
+            0 if window is None else int(window),
+            0.0 if logit_softcap is None else float(logit_softcap),
+            int(q_offset), stream)
+    _raise_on(lib, err, "flash_attention_tc")
+
+
+def f32_scratch(lib: ctypes.CDLL, q: torch.Tensor,
+                k: torch.Tensor) -> F32Scratch:
+    """Empty scratch for the float32 path at q's and k's sizes, on q's
+    device, sized by the library."""
+    b, sq, nh, hd = q.shape
+    counts = (ctypes.c_longlong * 2)()
+    lib.repro_flash_f32_scratch(b, sq, k.shape[1], nh, k.shape[2], hd,
+                                counts)
+    return F32Scratch(
+        torch.empty(counts[0], dtype=torch.float16, device=q.device),
+        torch.empty(counts[1], dtype=torch.int32, device=q.device))
+
+
+def f32_tiles(lib: ctypes.CDLL, hd: int) -> tuple[int, int]:
+    """Query rows a block and keys a kv tile of ``lib``'s float32 kernel
+    at head size ``hd``: the tiles its split pass scales one by one."""
+    rows = (ctypes.c_int * 2)()
+    lib.repro_flash_f32_tiles(hd, rows)
+    return rows[0], rows[1]
+
+
+def launch_split_f32(lib: ctypes.CDLL, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, scratch: F32Scratch) -> None:
+    """Launch ``lib``'s float32 split pass on checked q, k, v (any
+    strides, head size contiguous) into ``scratch``; counts nothing."""
+    b, sq, nh, hd = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_split_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            scratch.halves.data_ptr(), scratch.exps.data_ptr(), b, sq,
+            k.shape[1], nh, k.shape[2], hd, _strides(q, k, v), stream)
+    _raise_on(lib, err, "flash_attention_f32_split")
+
+
+def launch_f32(lib: ctypes.CDLL, scratch: F32Scratch, out: torch.Tensor, *,
+               skv: int, nkv: int, causal: bool, window: int | None,
+               logit_softcap: float | None, q_offset: int) -> None:
+    """Launch ``lib``'s float32 kernel on what ``launch_split_f32`` wrote,
+    into a contiguous float32 ``out`` (b, sq, nh, hd); counts nothing."""
+    b, sq, nh, hd = out.shape
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_flash_attention_f32(
+            scratch.halves.data_ptr(), scratch.exps.data_ptr(),
+            out.data_ptr(), b, sq, skv, nh, nkv, hd, int(causal),
+            0 if window is None else int(window),
+            0.0 if logit_softcap is None else float(logit_softcap),
+            int(q_offset), stream)
+    _raise_on(lib, err, "flash_attention_f32")

@@ -11,10 +11,13 @@ Tolerances, as in tests/test_kernels.py: float32 2e-5 (one softmax and
 two products summed in another order), bfloat16 2e-2 (the output rounded
 to 8 bits of mantissa).
 
-On the card, bfloat16 runs a tensor-core kernel whose rounding points
-differ from the plain version's.  ``_tc_emulation`` below repeats them
-in float32 on the CPU, and the tests of it size the per-row gate that
-chip_smoke.py and tests/test_torch_kernels_cuda.py hold that kernel to.
+On the card, both dtypes run tensor-core kernels whose rounding points
+differ from the plain version's.  ``_tc_emulation`` (bfloat16) and
+``_f32_emulation`` (float32: operands as two scaled float16 terms) below
+repeat them in float32 on the CPU; the tests of the first size the
+per-row gate that chip_smoke.py and tests/test_torch_kernels_cuda.py
+hold the bfloat16 kernel to, those of the second show the float32
+kernel's arithmetic inside a third of float32's 2e-5 gate.
 """
 import numpy as np
 import pytest
@@ -131,15 +134,15 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing(monkeypatch):
         return ref.attention_ref(*args, **kwargs)
 
     monkeypatch.setattr(ops, "attention_ref", spy)
-    monkeypatch.setitem(ops.LAUNCHES, "flash_attention", 0)
-    monkeypatch.setitem(ops.LAUNCHES, "flash_attention_tc", 0)
+    for name in list(ops.LAUNCHES):
+        monkeypatch.setitem(ops.LAUNCHES, name, 0)
     for dtype in ("float32", "bfloat16"):
         calls.clear()
         q, k, v = _torch(_inputs(1, 64, 64, 4, 2, 32), dtype)
         out = ops.flash_attention(q, k, v, window=16, logit_softcap=30.0)
         assert calls == [dict(causal=True, window=16, logit_softcap=30.0,
                               q_offset=0)]
-        assert ops.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
+        assert set(ops.LAUNCHES.values()) == {0}
         torch.testing.assert_close(
             out, ref.attention_ref(q, k, v, window=16, logit_softcap=30.0),
             atol=0, rtol=0)
@@ -339,3 +342,231 @@ def test_tc_emulation_gate_sees_a_dropped_kv_tile():
     k_cut = k[:, :TC_TILE]
     got = _tc_emulation(q, k_cut, v[:, :TC_TILE], causal=False)
     assert float(_row_errors(got, want).max()) > 10 * ops.TC_ROW_RTOL
+
+
+# -- the float32 kernel's arithmetic, emulated ------------------------------
+
+# float32's gate on the card (chip_smoke.py, tests/test_torch_kernels_cuda.py)
+# is allclose(atol=2e-5, rtol=2e-5) against the plain version, as in
+# tests/test_kernels.py.  The emulation's largest error must be at most a
+# third of it.
+F32_TOL = 2e-5
+P_SHIFT = 14
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _gate_ratio(got, want):
+    """Largest |got - want| / (atol + rtol |want|) at F32_TOL: allclose
+    passes at most 1."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want, np.float32)
+    return float((np.abs(got - want)
+                  / (F32_TOL + F32_TOL * np.abs(want))).max())
+
+
+def _split_terms(x, rows, terms):
+    """(hi, lo, e) of x (b, s, h, hd) in (b, h, s, hd) layout, as floats:
+    ``"f16"`` the kernel's split pass (``ref.split_f32_ref``); ``"bf16"``
+    two unscaled bf16 terms; ``"bf16_one"`` bf16(x) alone."""
+    if terms == "f16":
+        hi, lo, e = ref.split_f32_ref(x, rows)
+        return hi.float(), lo.float(), e
+    xt = x.permute(0, 2, 1, 3)
+    hi = xt.to(torch.bfloat16).float()
+    lo = (xt - hi).to(torch.bfloat16).float()
+    if terms == "bf16_one":
+        lo = torch.zeros_like(lo)
+    b, s, h, _ = x.shape
+    return hi, lo, torch.zeros(b, h, -(-s // rows), dtype=torch.int32)
+
+
+def _f32_emulation(q, k, v, *, causal=True, window=None, logit_softcap=None,
+                   q_offset=0, qk_terms="f16", vp_terms="f16"):
+    """The float32 kernel's arithmetic in float32 on the CPU: the split
+    pass's tiles (``ops.CPU_F32_TILES``) and terms, S as
+    Qhi Khi + Qhi Klo + Qlo Khi times scale 2^(e_q + e_k), softcap with
+    tanh, scores in log2 units, online softmax with exp2, P times
+    2^(14 + e_v - e_run) as two f16 terms, O += Phi Vhi + Phi Vlo + Plo Vhi
+    rescaled when e_run grows, the two warpgroups' alternate kv tiles
+    merged at the end.  ``qk_terms`` and ``vp_terms`` ("f16", "bf16",
+    "bf16_one") put other terms in place of q and k, and of v and P."""
+    b, sq, nh, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    bq, bk = ops.CPU_F32_TILES[hd]
+    qh, ql, eq = _split_terms(q, bq, qk_terms)
+    kh, kl, ek = (t.repeat_interleave(group, dim=1)
+                  for t in _split_terms(k, bk, qk_terms))
+    vh, vl, ev = (t.repeat_interleave(group, dim=1)
+                  for t in _split_terms(v, bk, vp_terms))
+    scale = np.float32(1 / np.sqrt(hd))
+    out = torch.zeros(b, nh, sq, hd)
+    for q0 in range(0, sq, bq):
+        rows = torch.arange(q0, min(q0 + bq, sq))
+        pos = rows + q_offset
+        kv_lo, kv_hi = 0, skv
+        if causal:
+            kv_hi = min(kv_hi, int(pos[-1]) + 1)
+        if window is not None:
+            kv_lo = max(0, int(pos[0]) - window + 1)
+        n = len(rows)
+        wgs = [dict(m=torch.full((b, nh, n), -torch.inf),
+                    l=torch.zeros(b, nh, n), o=torch.zeros(b, nh, n, hd),
+                    e=torch.full((b, nh), -1000, dtype=torch.int32))
+               for _ in range(2)]
+        e_q = eq[:, :, q0 // bq]
+        for it, k0 in enumerate(range(kv_lo // bk * bk, kv_hi, bk)):
+            st = wgs[it % 2]
+            cols = torch.arange(k0, min(k0 + bk, skv))
+            t = k0 // bk
+
+            def mm(x, y):
+                return torch.einsum("bhqd,bhkd->bhqk", x[:, :, rows],
+                                    y[:, :, cols])
+            s = mm(qh, kh) + mm(qh, kl) + mm(ql, kh)
+            mul = (scale * torch.exp2((e_q + ek[:, :, t]).double()).float()
+                   )[..., None, None]
+            if logit_softcap is not None:
+                y = (torch.tanh(s * (mul * np.float32(1 / logit_softcap)))
+                     * np.float32(logit_softcap * LOG2E))
+            else:
+                y = s * (mul * LOG2E)
+            mask = cols[None, :] < skv
+            if causal:
+                mask = mask & (pos[:, None] >= cols[None, :])
+            if window is not None:
+                mask = mask & (pos[:, None] - cols[None, :] < window)
+            y = torch.where(mask, y, -torch.inf)
+            m_new = torch.maximum(st["m"], y.amax(dim=-1))
+            m_use = torch.where(m_new == -torch.inf, 0.0, m_new)
+            corr = torch.exp2(st["m"] - m_use)
+            p = torch.exp2(y - m_use[..., None])
+            st["l"] = st["l"] * corr + p.sum(dim=-1)
+            e_t = ev[:, :, t]
+            e_new = torch.maximum(st["e"], e_t)
+            corr = corr * torch.exp2((st["e"] - e_new).float())[..., None]
+            p = p * torch.exp2((P_SHIFT + e_t - e_new).float())[..., None,
+                                                                 None]
+            if vp_terms == "f16":
+                p_hi = p.to(torch.float16).float()
+                p_lo = (p - p_hi).to(torch.float16).float()
+            else:
+                p_hi = p.to(torch.bfloat16).float()
+                p_lo = (p - p_hi).to(torch.bfloat16).float()
+
+            def pv(x, y):
+                return torch.einsum("bhqk,bhkd->bhqd", x, y[:, :, cols])
+            st["o"] = (st["o"] * corr[..., None] + pv(p_hi, vh)
+                       + pv(p_hi, vl) + pv(p_lo, vh))
+            st["m"], st["e"] = m_new, e_new
+        m = torch.maximum(wgs[0]["m"], wgs[1]["m"])
+        m_use = torch.where(m == -torch.inf, 0.0, m)
+        e_m = torch.maximum(wgs[0]["e"], wgs[1]["e"])
+        c = [torch.exp2(st["m"] - m_use) for st in wgs]
+        l = wgs[0]["l"] * c[0] + wgs[1]["l"] * c[1]
+        inv = torch.where(
+            l > 0, torch.ldexp(1 / l.clamp_min(1e-30),
+                               (e_m - P_SHIFT)[..., None].float()), 0.0)
+        o = sum(st["o"] * (ci * torch.exp2((st["e"] - e_m).float())[..., None]
+                           * inv)[..., None] for st, ci in zip(wgs, c))
+        out[:, :, rows] = o
+    return out.permute(0, 2, 1, 3)
+
+
+def _f32_case(b, sq, skv, nh, nkv, hd, causal, win, cap, q_off, seed=6):
+    q, k, v = _torch(_inputs(b, sq, skv, nh, nkv, hd, seed=seed), "float32")
+    kw = dict(causal=causal, window=win, logit_softcap=cap, q_offset=q_off)
+    want = j_ref.attention_ref(*_jax([q.numpy(), k.numpy(), v.numpy()],
+                                     "float32"), **kw)
+    return q, k, v, kw, np.asarray(want)
+
+
+# TC_CASES, and gemma2-2b's head size, softcap and a window at a length
+# the CPU runs in seconds
+F32_CASES = TC_CASES + [(1, 640, 640, 2, 1, 256, True, 512, 50.0, 0)]
+
+
+@pytest.mark.parametrize("b,sq,skv,nh,nkv,hd,causal,win,cap,q_off",
+                         F32_CASES)
+def test_f32_emulation_error_leaves_the_f32_gate_three_times_its_size(
+        b, sq, skv, nh, nkv, hd, causal, win, cap, q_off):
+    q, k, v, kw, want = _f32_case(b, sq, skv, nh, nkv, hd, causal, win, cap,
+                                  q_off)
+    ratio = _gate_ratio(_f32_emulation(q, k, v, **kw), want)
+    print(f"f32 emulation {(b, sq, skv, nh, nkv, hd)}: largest error "
+          f"{ratio:.3f} of the 2e-5 gate")
+    assert 0 < ratio <= 1 / 3
+
+
+@pytest.mark.parametrize("case", [F32_CASES[0], F32_CASES[-1]],
+                         ids=["hd64", "hd256"])
+def test_f32_emulation_one_bf16_term_of_q_and_k_fails_the_gate(case):
+    # Why q and k are split at all: as bf16(x) alone (v and P as the
+    # kernel carries them) the scores keep 8 bits, far outside the gate.
+    q, k, v, kw, want = _f32_case(*case)
+    assert _gate_ratio(_f32_emulation(q, k, v, qk_terms="bf16_one", **kw),
+                       want) > 1
+
+
+def test_f32_emulation_two_bf16_terms_leave_less_than_three_times_the_gate():
+    # Why the terms are scaled float16 and not bfloat16: two bf16 terms
+    # of q, k, v and P carry 16 bits, and at gemma2-2b's head size their
+    # error comes within less than 3x of the gate; two f16 terms, 22 bits.
+    worst = {"bf16": 0.0, "f16": 0.0}
+    for case in (F32_CASES[2], F32_CASES[-1]):
+        q, k, v, kw, want = _f32_case(*case)
+        for terms in worst:
+            got = _f32_emulation(q, k, v, qk_terms=terms, vp_terms=terms,
+                                 **kw)
+            worst[terms] = max(worst[terms], _gate_ratio(got, want))
+    print(f"largest error over the gate: two bf16 terms {worst['bf16']:.3f}"
+          f", two scaled f16 terms {worst['f16']:.3f}")
+    assert worst["bf16"] > 1 / 3 >= worst["f16"]
+
+
+def test_f32_emulation_is_exact_under_powers_of_two():
+    # The per-tile scales take out any power of two: q 2^-60, k 2^60 and
+    # v 2^100 (far outside float16's range) give the same output times
+    # 2^100, bit for bit.
+    q, k, v, kw, _ = _f32_case(1, 130, 130, 4, 2, 64, True, 100, 30.0, 0)
+    base = _f32_emulation(q, k, v, **kw)
+    scaled = _f32_emulation(q * 2.0 ** -60, k * 2.0 ** 60, v * 2.0 ** 100,
+                            **kw)
+    assert torch.isfinite(scaled).all()
+    assert torch.equal(scaled, base * 2.0 ** 100)
+
+
+def test_split_f32_ref_scales_each_tile_into_f16_range():
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 100, 3, 32)).astype(np.float32)
+    # tiles of 32 rows, each of its own magnitude, one all zero
+    mags = np.array([1e-30, 3.0, 1e30, 0.0])[:, None, None]
+    x = torch.tensor(x * np.repeat(mags, 32, axis=0)[:100][None])
+    hi, lo, e = ref.split_f32_ref(x, 32)
+    assert hi.dtype == lo.dtype == torch.float16
+    assert tuple(hi.shape) == (2, 3, 100, 32) and tuple(e.shape) == (2, 3, 4)
+    assert e.dtype == torch.int32 and (e[..., 3] == 0).all()
+    scaled = x.permute(0, 2, 1, 3).double() * torch.exp2(
+        -e.double()).repeat_interleave(32, dim=2)[:, :, :100, None]
+    for t in range(3):
+        tile = scaled[:, :, 32 * t:32 * t + 32]
+        peak = tile.abs().amax(dim=(2, 3))
+        assert ((peak >= 2.0 ** 14) & (peak < 2.0 ** 15)).all()
+        err = (hi[:, :, 32 * t:32 * t + 32].double()
+               + lo[:, :, 32 * t:32 * t + 32].double() - tile).abs()
+        assert (err.amax(dim=(2, 3)) <= 2.0 ** -22 * peak).all()
+    assert (hi[:, :, 96:] == 0).all() and (lo[:, :, 96:] == 0).all()
+
+
+def test_f32_kv_tile_matches_the_kernel_layout():
+    # 64-key tiles, except at hd = 256, where two f16 terms of q (64 KB)
+    # and two warpgroups' k and v buffers of 32 keys (128 KB) fill the
+    # 227 KB a block may have.
+    assert set(ops.CPU_F32_TILES) == set(ops.HEAD_DIMS)
+    assert {hd: kv for hd, (_, kv) in ops.CPU_F32_TILES.items()} == {
+        32: 64, 64: 64, 128: 64, 256: 32}
+    for hd, (bq, bk) in ops.CPU_F32_TILES.items():
+        assert bq == 64
+        tile = bq * hd * 2
+        kv = bk * hd * 2
+        assert 2 * tile + 2 * 4 * kv + 1024 <= 232448

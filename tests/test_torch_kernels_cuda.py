@@ -10,13 +10,17 @@ with the card and PyTorch alone:
 
 (``--noconftest``: tests/conftest.py imports JAX).  The cases are the JAX
 package's kernel test cases (tests/test_kernels.py) and the port's own
-edge cases.  Flash attention: float32 goes to the exact FMA kernel, held
-to the plain version at 2e-5 as in tests/test_kernels.py; every float32
-case has a bfloat16 twin, which goes to the tensor-core kernel and is
-held row by row to the wrapper module's gate, ``ops.row_errors`` at most
-``ops.TC_ROW_RTOL`` (||got - want||_2 <= 1e-2 ||want||_2) against the
-plain version in float32 on the same bf16 inputs, with rows that see no
-key exactly 0 (tests/test_torch_flash_attention.py sizes that gate).
+edge cases.  Flash attention: float32 goes to the split pass and the
+split-operand tensor-core kernel, held to the plain version at 2e-5 as
+in tests/test_kernels.py (tests/test_torch_flash_attention.py emulates
+its arithmetic at under a third of that), on strided and misaligned
+views too, with the split pass bit-equal to its plain version; each of
+FLASH_SHAPES runs in bfloat16 too, which goes to the bf16 tensor-core
+kernel and is held row by row to the wrapper module's gate,
+``ops.row_errors`` at most ``ops.TC_ROW_RTOL`` (||got - want||_2 <= 1e-2
+||want||_2) against the plain version in float32 on the same bf16
+inputs, with rows that see no key exactly 0
+(tests/test_torch_flash_attention.py sizes that gate).
 WKV6: float32 2e-3, bfloat16 5e-2, as in tests/test_kernels.py, on
 every head size, lengths that are not a multiple of the kernel's
 16-token chunk, and a strong-decay draw (w exactly 0, below 1e-4 and
@@ -38,7 +42,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 
-FLASH_TOL = 2e-5             # float32, the FMA kernel
+FLASH_TOL = 2e-5             # float32
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 MIX_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -68,7 +72,11 @@ FLASH_CASES = (
     [c + (torch.float32,) for c in FLASH_SHAPES]
     + [c + (torch.bfloat16,) for c in FLASH_SHAPES]
     + [(1, 256, 256, 2, 2, 256, True, None, None, 0, torch.bfloat16),
-       (1, 128, 128, 4, 2, 32, True, None, None, 0, torch.bfloat16)])
+       (1, 128, 128, 4, 2, 32, True, None, None, 0, torch.bfloat16),
+       # gemma2-2b's heads, softcap and local window over several hundred
+       # tokens (32-key tiles), and a window that binds
+       (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, torch.float32),
+       (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, torch.float32)])
 
 
 # (batch, seq, heads, N, with_state, dtype)
@@ -133,7 +141,10 @@ def test_flash_kernel_matches_plain_version(hopper, b, sq, skv, nh, nkv, hd,
     tc = dtype == torch.bfloat16
     assert fa_ops.LAUNCHES == {
         "flash_attention": before["flash_attention"] + 1,
-        "flash_attention_tc": before["flash_attention_tc"] + int(tc)}
+        "flash_attention_tc": before["flash_attention_tc"] + int(tc),
+        "flash_attention_f32_split":
+            before["flash_attention_f32_split"] + int(not tc),
+        "flash_attention_f32": before["flash_attention_f32"] + int(not tc)}
     assert got.dtype == dtype
     want = fa_ref.attention_ref(q.float(), k.float(), v.float(), **kw)
     if tc:
@@ -158,6 +169,66 @@ def test_flash_kernel_reads_strided_views(hopper, dtype):
         assert float(fa_ops.row_errors(got, want).max()) <= fa_ops.TC_ROW_RTOL
     else:
         torch.testing.assert_close(got, want, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernel_takes_misaligned_views(hopper):
+    # float32 views whose pointers and strides are not multiples of 16
+    # bytes: the split pass reads them as they are
+    gen = torch.Generator(device=hopper).manual_seed(2)
+    q = torch.randn(1, 130, 4, 64, generator=gen, device=hopper)
+    k = torch.randn(1, 130, 2, 69, generator=gen, device=hopper)[..., 1:65]
+    flat = torch.randn(130 * 2 * 64 + 1, generator=gen, device=hopper)
+    v = flat[1:].view(1, 130, 2, 64)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    assert (k.stride(2) * 4) % 16
+    kw = dict(causal=True, window=50, logit_softcap=30.0)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ref.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got, want, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_f32_split_pass_matches_plain_version_bitwise(hopper, hd):
+    gen = torch.Generator(device=hopper).manual_seed(hd)
+    # a strided q, and tiles of very different magnitudes, one all zero
+    q = torch.randn(2, 70, 6, hd, generator=gen, device=hopper)[:, :, ::2]
+    k = torch.randn(2, 100, 1, hd, generator=gen, device=hopper)
+    k = k * torch.logspace(-30, 30, 100, device=hopper)[None, :, None, None]
+    v = torch.randn(2, 100, 1, hd, generator=gen, device=hopper)
+    v[:, :32] = 0.0
+    lib = fa_ops.load()
+    scratch = fa_ops.f32_scratch(lib, q, k)
+    fa_ops.launch_split_f32(lib, q, k, v, scratch)
+    torch.cuda.synchronize()
+    halves, exps = scratch
+    q_rows, kv_rows = fa_ops.f32_tiles(lib, hd)
+    assert (q_rows, kv_rows) == fa_ops.CPU_F32_TILES[hd]
+    for x, rows in ((q, q_rows), (k, kv_rows), (v, kv_rows)):
+        hi, lo, e = fa_ref.split_f32_ref(x, rows)
+        n = hi.numel()
+        assert torch.equal(halves[:n].view(hi.shape), hi)
+        assert torch.equal(halves[n:2 * n].view(hi.shape), lo)
+        assert torch.equal(exps[:e.numel()].view(e.shape), e)
+        halves, exps = halves[2 * n:], exps[e.numel():]
+    assert halves.numel() == 0 and exps.numel() == 0
+
+
+@pytest.mark.cuda
+def test_flash_f32_kernel_is_exact_under_powers_of_two(hopper):
+    # q 2^-60, k 2^60 and v 2^100, far outside float16's range: the
+    # split pass's per-tile scales take the powers of two out exactly
+    gen = torch.Generator(device=hopper).manual_seed(3)
+    q = torch.randn(1, 300, 4, 128, generator=gen, device=hopper)
+    k = torch.randn(1, 300, 2, 128, generator=gen, device=hopper)
+    v = torch.randn(1, 300, 2, 128, generator=gen, device=hopper)
+    kw = dict(causal=True, logit_softcap=30.0)
+    base = fa_ops.flash_attention(q, k, v, **kw)
+    scaled = fa_ops.flash_attention(q * 2.0 ** -60, k * 2.0 ** 60,
+                                    v * 2.0 ** 100, **kw)
+    assert torch.isfinite(scaled).all()
+    assert torch.equal(scaled, base * 2.0 ** 100)
 
 
 @pytest.mark.cuda
