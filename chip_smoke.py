@@ -30,10 +30,37 @@
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes.
 4. INTERACT path: ``solve`` on the Section-6 instance at full size, 40
-   steps, with the ``cuda`` backend and then ``dense``; checks that both
-   eq.-11 traces fall and agree and that the ``cuda`` run went through
-   both consensus kernels (counts set to 0 just before it).  Then
-   profiles 3 ``cuda`` steps.
+   steps, with the ``cuda`` backend and then ``dense`` (both step through
+   captured CUDA graphs); checks that both eq.-11 traces fall and agree
+   and that the ``cuda`` run went through both consensus kernels: the
+   wrapper counts (set to 0 just before it) count the warm-up steps, the
+   capture and the round-latency mixes, and ``torch.profiler``'s kernel
+   events over the run, which see graph replays, must show
+   ``consensus_step`` once in each of the 40 replayed steps and the 2
+   warm-up steps.
+4b. The four Section-6 algorithms (INTERACT, SVR-INTERACT, GT-DSGD,
+   D-SGD) on the same instance, nothing cut (m = 5, n = 600, 2 x 20 tanh
+   backbone, ER(0.5) Laplacian, ``cg`` at 32 trips, alpha = beta = 0.3,
+   q = |S| = ceil(sqrt(n)) = 25), 40 steps recording every 5, each run
+   twice on the ``cuda`` backend through ``run_recorded``: ``scan=False``
+   (the eager loop) and ``scan=True`` (replayed CUDA graphs).  The
+   warm-up step, or the warm-up steps and the captures, come first, so
+   the counted run is the 40 steps alone.  Checks: every trace finite and
+   falling; captured and eager traces within ``TRACE_RTOL``;
+   ``consensus_step`` launched exactly once on every step of INTERACT,
+   SVR-INTERACT and GT-DSGD and ``consensus_mix`` on every step of
+   D-SGD, the other kernel never: an eager run's launches are its wrapper
+   counts, a captured run's are the kernel events under
+   ``torch.profiler`` (its wrappers must count none: nothing is launched
+   from the host between replays), and a second, unprofiled captured run
+   gives its ``us_per_step``.  Then INTERACT's ``run_traced`` (steps and
+   metric both replayed) twice from one state, the first call capturing:
+   its trace against the eager one, and its host-clock time.  Prints the
+   Figure-2 ordering of the final metrics (not gated: the port draws
+   other random numbers than the JAX benchmark).  Then 3 eager INTERACT
+   steps, whose kernel events must equal their wrapper counts (the check
+   on the profiler count), and profiles of 3 eager and 3 captured steps
+   (consensus_step once a replay).
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -89,11 +116,22 @@ LARGE_SHAPE = (16, 4194304)    # large enough that the kernel, not the launch, s
 MIX_EDGE_M = (1, 3, 5, 16, 17)
 MIX_EDGE_D = (1, 3, 123, 760, 761, 4096)
 NUM_STEPS, RECORD_EVERY = 40, 5
+ALGORITHMS = ("interact", "svr-interact", "gt-dsgd", "d-sgd")
+# the consensus kernel each algorithm's step launches once
+STEP_KERNEL = {"interact": "consensus_step", "svr-interact": "consensus_step",
+               "gt-dsgd": "consensus_step", "d-sgd": "consensus_mix"}
+# each consensus kernel's symbol, which names its torch.profiler events
+KERNEL_SYMBOL = {"consensus_step": "consensus_step_kernel",
+                 "consensus_mix": "consensus_mix_kernel"}
+PRIMER_LAUNCHES = 32    # see ``profiled``
+PRIMER_SYMBOL = "spin_kernel"    # what torch.cuda._sleep launches
 # The cuda and dense runs differ only in how the mix is summed (the
 # kernel's sequential FMAs vs cuBLAS), a float32 rounding difference.
 # The port's one-step state gap against the JAX package is below 2e-6
 # of each field's scale (tests/test_torch_interact.py); over 40 steps
-# that allows 40 * 2e-6 = 8e-5 relative between the two traces.
+# that allows 40 * 2e-6 = 8e-5 relative between the two traces.  The
+# same bound holds a captured trace to its eager one (the graphs hold
+# the eager step's kernels in its order: the gap is expected to be 0).
 TRACE_RTOL = NUM_STEPS * 2e-6
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
@@ -873,35 +911,243 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return runs
 
 
+def profiled(torch, run, cpu: bool = True):
+    """``(run(), prof)``: ``run()`` under ``torch.profiler`` (CUDA
+    activity, and CPU activity with ``cpu``).  The profiler can miss the
+    first few kernels launched after it starts, never one later in the
+    run, so ``PRIMER_LAUNCHES`` spin kernels of about 60 us each
+    (``torch.cuda._sleep``), synchronised, come first; the readers below
+    leave their events out."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PRIMER_LAUNCHES):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        out = run()
+        torch.cuda.synchronize()
+    return out, prof
+
+
 def device_profile(torch, run, units: int) -> dict:
     """Device time, kernel launches and the top kernels per unit of work
     under ``torch.profiler``, where ``run()`` does ``units`` units (kernel
-    events only: their durations summed).  ``wall_us`` is the host clock
-    around the profiled run, profiler overhead included."""
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=activities) as prof:
+    events only: their durations summed), and the consensus kernels'
+    launches in the whole run.  ``wall_us`` is the host clock around
+    ``run()``, profiler overhead included."""
+
+    def timed() -> float:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-    wall_us = 1e6 * (time.perf_counter() - t0) / units
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    took, prof = profiled(torch, timed)
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and PRIMER_SYMBOL not in e.key]
+    check(bool(kernels), "torch.profiler recorded no kernel events")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     device_us = sum(e.self_device_time_total for e in kernels) / units
     return dict(
-        units=units, device_us=device_us, wall_us=wall_us,
+        units=units, device_us=device_us, wall_us=1e6 * took / units,
         kernels=sum(e.count for e in kernels) / units,
+        consensus=consensus_launches([(e.key, e.count) for e in kernels]),
         top=[dict(name=e.key[:80], us=e.self_device_time_total / units,
                   count=e.count / units) for e in top])
 
 
+def consensus_launches(kernels) -> dict:
+    """How many times the card ran each consensus kernel, from
+    ``(kernel name, count)`` pairs."""
+    return {name: sum(count for key, count in kernels if symbol in key)
+            for name, symbol in KERNEL_SYMBOL.items()}
+
+
+def device_launches(torch, run):
+    """``(run(), counts)``: ``consensus_launches`` during ``run()``, from
+    the kernel events of ``torch.profiler`` (CUDA activity only).  A graph
+    replay's kernels are events like any other, so this counts the
+    launches no wrapper sees.  The events are read from the Chrome trace,
+    which the profiler writes from C++: building its Python events for
+    the 200,000 kernels of a 40-step captured run takes over a minute."""
+    out, prof = profiled(torch, run, cpu=False)
+    path = ROOT / "build" / "launch_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    kernels = [(e.get("name", ""), 1) for e in events
+               if str(e.get("cat", "")).lower() == "kernel"
+               and PRIMER_SYMBOL not in e.get("name", "")]
+    check(bool(kernels), "torch.profiler recorded no kernel events")
+    return out, consensus_launches(kernels)
+
+
+def run_algorithms(torch, ops) -> dict:
+    """Phase 4b (see the module docstring): each algorithm eager and
+    captured.  Returns each run's record, keyed (algo, mode), and the
+    captured INTERACT solver and data for the profile."""
+    from repro_torch.core import convergence_metric_fn
+    from repro_torch.hypergrad import measure_problem_counts
+    from repro_torch.solvers import (SolverConfig, default_setup,
+                                     make_solver, run_recorded)
+    problem, x0, y0, data = default_setup(0)
+    n = data.inner_x.shape[1] + data.outer_x.shape[1]
+    runs, keep = {}, {}
+    for algo in ALGORITHMS:
+        config = SolverConfig(algo=algo, backend="cuda", alpha=0.3, beta=0.3)
+        for mode in ("eager", "captured"):
+            scan = mode == "captured"
+            solver = make_solver(config)
+            state0 = solver.init(problem, None, x0, y0, data)
+            eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg,
+                                         data)
+            metric = lambda st: float(eq11(st))
+            # the warm-up step, or the warm-up steps and the captures,
+            # before the counted run (run_recorded then finds them done)
+            for name in ops.LAUNCHES:
+                ops.LAUNCHES[name] = 0
+            stepper = solver.stepper_for(state0, data, scan)
+            stepper.prepare(NUM_STEPS)
+            prepared = dict(ops.LAUNCHES)
+            for name in ops.LAUNCHES:
+                ops.LAUNCHES[name] = 0
+            run = lambda: run_recorded(solver, state0, data, NUM_STEPS,
+                                       RECORD_EVERY, metric, scan=scan)
+            t0 = time.perf_counter()
+            if scan:
+                (state, trace, took), ran = device_launches(torch, run)
+            else:
+                state, trace, took = run()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            replays = stepper.replays if scan else 0
+            rec = dict(
+                algo=algo, mode=mode, trace=trace,
+                samples_per_step=solver.samples_per_step(n),
+                communications_per_step=solver.communications_per_step,
+                launches_prepare=prepared, launches_wrapper=launches,
+                launches_run=ran if scan else launches, graph_replays=replays,
+                graphs=len(stepper.graphs) if scan else 0, wall_s=wall)
+            if scan:
+                # the same 40 steps again from the same state, unprofiled
+                # and unrecorded, for the time a step takes (the draws
+                # are the generator's next ones)
+                rec["us_per_step_profiled"] = 1e6 * took / NUM_STEPS
+                _, _, took = run_recorded(solver, state0, data, NUM_STEPS,
+                                          RECORD_EVERY, None, scan=True)
+            rec["us_per_step"] = 1e6 * took / NUM_STEPS
+            stats = measure_problem_counts(problem, solver._hg_cfg, x0, y0,
+                                           data)
+            calls = solver.hypergrad_calls_per_step(n)
+            rec.update(hvp_per_step=stats.hvp_count * calls,
+                       grad_per_step=stats.grad_count * calls,
+                       hess_per_step=stats.hess_count * calls)
+            runs[algo, mode] = rec
+            if scan:
+                keep[algo] = (solver, state, data)
+            print(f"algorithms {algo} {mode}: eq.-11 trace {trace}",
+                  flush=True)
+            print(f"algorithms {algo} {mode}: " + json.dumps(
+                {k: v for k, v in rec.items() if k != "trace"})
+                + " (launches_prepare: wrapper counts of the warm-up steps "
+                "and captures before the run; launches_wrapper: wrapper "
+                "counts in the run; launches_run: the kernels the run "
+                "launched, eager: the wrapper counts, captured: the card's "
+                "kernel events under torch.profiler, graph replays "
+                "included; us_per_step of a captured run: a second, "
+                "unprofiled run of the same steps)", flush=True)
+            check(len(trace) == NUM_STEPS // RECORD_EVERY + 1,
+                  f"{algo} {mode}: trace length")
+            check(all(math.isfinite(v) for v in trace),
+                  f"{algo} {mode}: non-finite eq.-11 trace")
+            check(trace[-1] < trace[0], f"{algo} {mode}: M_40 = {trace[-1]} "
+                  f"is not below M_0 = {trace[0]}")
+            kernel = STEP_KERNEL[algo]
+            for name in KERNEL_SYMBOL:
+                want = NUM_STEPS if name == kernel else 0
+                got = rec["launches_run"][name]
+                check(got == want, f"{algo} {mode}: {name} launched {got} "
+                      f"times in {NUM_STEPS} steps, not {want}")
+            if scan:
+                check(replays == NUM_STEPS, f"{algo}: {replays} replays")
+                check(all(launches[name] == 0 for name in KERNEL_SYMBOL),
+                      f"{algo} captured: a consensus kernel was launched "
+                      f"from the host between replays: {launches}")
+                check(prepared[kernel] == stepper.eager_steps
+                      + len(stepper.graphs),
+                      f"{algo} captured: {kernel} not launched once in each "
+                      "warm-up step and capture")
+            else:
+                check(prepared[kernel] == 1,
+                      f"{algo} eager: the warm-up step launched "
+                      f"{prepared[kernel]} {kernel}")
+        eager, captured = runs[algo, "eager"], runs[algo, "captured"]
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(captured["trace"], eager["trace"]))
+        runs[algo, "captured"]["trace_gap_to_eager"] = rel
+        print(f"algorithms {algo}: captured vs eager trace max relative "
+              f"gap {rel:.3e} (tolerance {TRACE_RTOL:.1e}); us_per_step "
+              f"eager {eager['us_per_step']:.1f} captured "
+              f"{captured['us_per_step']:.1f}", flush=True)
+        check(rel <= TRACE_RTOL, f"{algo}: captured and eager traces "
+              "disagree")
+    # the whole recorded INTERACT experiment as graphs: run_traced
+    # replays the eq.-11 metric's graph too; the first call captures, the
+    # second (from the same initial state) replays only
+    solver = make_solver(SolverConfig(algo="interact", backend="cuda",
+                                      alpha=0.3, beta=0.3))
+    state0 = solver.init(problem, None, x0, y0, data)
+    eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, trace = solver.run_traced(state0, data, NUM_STEPS, RECORD_EVERY,
+                                     eq11)
+        trace = trace.tolist()
+        walls.append(time.perf_counter() - t0)
+    eager = runs["interact", "eager"]["trace"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(trace, eager))
+    traced = dict(trace=trace, wall_s_first=walls[0], wall_s_replay=walls[1],
+                  eager_recorded_wall_s=runs["interact", "eager"]["wall_s"],
+                  trace_gap_to_eager=rel)
+    print(f"run_traced interact: {json.dumps(traced)} (wall: host clock "
+          f"around the call, {NUM_STEPS} steps and "
+          f"{NUM_STEPS // RECORD_EVERY + 1} records; the first call "
+          "captures the step and the metric)", flush=True)
+    check(len(trace) == NUM_STEPS // RECORD_EVERY + 1
+          and all(math.isfinite(v) for v in trace) and trace[-1] < trace[0],
+          "run_traced: trace length, finite and falling")
+    check(rel <= TRACE_RTOL, "run_traced and eager traces disagree")
+
+    finals = {a: runs[a, "captured"]["trace"][-1] for a in ALGORITHMS}
+    holds = (finals["interact"] < finals["gt-dsgd"]
+             and finals["interact"] < finals["d-sgd"]
+             and finals["svr-interact"] < finals["gt-dsgd"])
+    print(f"figure 2 ordering (benchmarks/bench_convergence.py, not gated): "
+          f"final M_40 {json.dumps(finals)}; INTERACT below GT-DSGD and "
+          f"D-SGD, SVR-INTERACT below GT-DSGD: {holds}", flush=True)
+    return dict(runs=runs, keep=keep, traced=traced,
+                figure2=dict(finals=finals, holds=holds))
+
+
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
-    """``device_profile`` of INTERACT steps, after a warm-up."""
-    solver.warmup(state, data)
+    """``device_profile`` of eager INTERACT steps (warmed up before)."""
     return device_profile(torch, lambda: solver.run(state, data, steps),
                           steps)
+
+
+def profile_captured_steps(torch, solver, state, data, steps: int = 3
+                           ) -> dict:
+    """``device_profile`` of replayed INTERACT steps (graphs captured
+    beforehand)."""
+    stepper = solver.stepper_for(state, data, scan=True)
+    stepper.prepare(steps)
+    return device_profile(torch, lambda: stepper.advance(steps), steps)
 
 
 def main() -> int:
@@ -918,8 +1164,8 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.consensus_step import ops, ref
-    from repro_torch.solvers import (SolverConfig, default_setup,
-                                     make_solver, solve)
+    from repro_torch.solvers import (GraphStepper, SolverConfig,
+                                     default_setup, make_solver, solve)
     from repro_torch.solvers.config import TopologyConfig
 
     # one nvcc per source, all started together
@@ -949,8 +1195,8 @@ def main() -> int:
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     t0 = time.perf_counter()
-    res_cuda = solve(SolverConfig(backend="cuda", **cfg), NUM_STEPS,
-                     RECORD_EVERY)
+    res_cuda, main_ran = device_launches(torch, lambda: solve(
+        SolverConfig(backend="cuda", **cfg), NUM_STEPS, RECORD_EVERY))
     launches = dict(ops.LAUNCHES)
     t_cuda = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -975,26 +1221,59 @@ def main() -> int:
               f"{res.trace[0]}")
         check((res.hvp_per_step, res.grad_per_step) == (33, 1),
               f"{name}: hypergradient counts")
-    # -- where a main-path step's time goes (after the counts were read) --
-    problem, x0, y0, data = default_setup(0)
-    solver = make_solver(SolverConfig(backend="cuda", **cfg))
-    profile = profile_steps(torch, solver,
-                            solver.init(problem, None, x0, y0, data), data)
-    if profile["device_us"] > 0:
-        profile["device_busy_share"] = (profile["device_us"]
-                                        / res_cuda.us_per_step)
-    else:
-        profile["device_busy_share"] = "not measured: no device events"
-    print(json.dumps({"profile": profile}), flush=True)
-
     rel = max(abs(a - b) / abs(b)
               for a, b in zip(res_cuda.trace, res_dense.trace))
-    print(f"main path: launches {launches}; cuda vs dense trace max "
-          f"relative gap {rel:.3e} (tolerance {TRACE_RTOL:.1e})", flush=True)
+    print(f"main path: wrapper launches {launches} (the warm-up steps, the "
+          f"capture and the round-latency mixes); the card ran {main_ran} "
+          f"(torch.profiler's kernel events: {NUM_STEPS} replays and "
+          f"{GraphStepper.WARMUP_STEPS} warm-up steps of consensus_step; "
+          f"the cuda run's us_per_step is under the profiler); cuda vs "
+          f"dense trace max relative gap {rel:.3e} (tolerance "
+          f"{TRACE_RTOL:.1e})", flush=True)
     check(rel <= TRACE_RTOL, "cuda and dense traces disagree")
-    check(launches["consensus_step"] >= NUM_STEPS,
-          f"consensus_step launched {launches['consensus_step']} times")
+    check(launches["consensus_step"] >= 1, "consensus_step never launched")
     check(launches["consensus_mix"] >= 1, "consensus_mix never launched")
+    want = NUM_STEPS + GraphStepper.WARMUP_STEPS
+    check(main_ran["consensus_step"] == want,
+          f"solve: the card ran consensus_step {main_ran['consensus_step']} "
+          f"times, not once in each of {NUM_STEPS} replayed steps and "
+          f"{GraphStepper.WARMUP_STEPS} warm-up steps")
+    check(main_ran["consensus_mix"] >= 1, "solve: consensus_mix never ran")
+
+    # -- the four algorithms, eager and captured: counts to 0 before each --
+    algos = run_algorithms(torch, ops)
+    runs = algos["runs"]
+
+    # -- where an INTERACT step's time goes (after the counts were read) --
+    solver, state, data = algos["keep"]["interact"]
+    eager_solver = make_solver(SolverConfig(backend="cuda", **cfg))
+    problem, x0, y0, _ = default_setup(0)
+    eager_state = eager_solver.init(problem, None, x0, y0, data)
+    eager_solver.warmup(eager_state, data)
+    # where both can see the launches (3 eager steps), the profiler's
+    # kernel events count what the wrappers count
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    _, ran = device_launches(
+        torch, lambda: eager_solver.run(eager_state, data, 3))
+    check(ran == ops.LAUNCHES, f"3 eager steps: kernel events {ran} "
+          f"against wrapper counts {ops.LAUNCHES}")
+    print(f"3 eager INTERACT steps: kernel events {ran}, wrapper counts "
+          f"{ops.LAUNCHES}", flush=True)
+    profiles = {
+        "eager": profile_steps(torch, eager_solver, eager_state, data),
+        "captured": profile_captured_steps(torch, solver, state, data)}
+    check(profiles["captured"]["consensus"]["consensus_step"]
+          == profiles["captured"]["units"],
+          "captured profile: consensus_step not run once a replayed step")
+    for mode, profile in profiles.items():
+        profile["mode"] = mode
+        if profile["device_us"] > 0:
+            profile["device_busy_share"] = (
+                profile["device_us"] / runs["interact", mode]["us_per_step"])
+        else:
+            profile["device_busy_share"] = "not measured: no device events"
+        print(json.dumps({"profile": profile}), flush=True)
 
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
@@ -1002,11 +1281,24 @@ def main() -> int:
     print(json.dumps({"serving": list(serving.values())}), flush=True)
 
     kernels = []
+    # launches: the main path's (solve's) run, from the kernel events;
+    # beside them the captured and eager runs of the algorithm whose every
+    # step launches the kernel (INTERACT for consensus_step, D-SGD for
+    # consensus_mix)
+    launch_runs = {"consensus_step": "interact", "consensus_mix": "d-sgd"}
     for name in REPLACES:
         main = timings[name]["main"]
+        run_of = launch_runs[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=launches[name],
+            launches=main_ran[name],
+            launches_from=(f"solve, interact, {NUM_STEPS} captured steps: "
+                           "torch.profiler kernel events"),
+            launches_wrapper=launches[name],
+            launches_captured_run=runs[run_of, "captured"]["launches_run"][
+                name],
+            launches_eager_run=runs[run_of, "eager"]["launches_run"][name],
+            launches_runs_of=run_of,
             max_abs_err=err[name]["float32"],
             max_abs_err_bf16=err[name]["bfloat16"],
             ms=main["ms"], plain_ms=main["plain_ms"],

@@ -36,12 +36,14 @@ def agent_data_from_numpy(data, device: torch.device | str) -> AgentData:
                      outer_y=to(data.outer_y, torch.int64))
 
 
-def state_from_numpy(state, device: torch.device | str) -> InteractState:
-    """``InteractState`` from any object with the fields ``x``, ``y``,
-    ``u``, ``v``, ``p_prev`` (numpy pytrees) and ``t``."""
-    tree = lambda field: tree_from_numpy(getattr(state, field), device)
-    return InteractState(x=tree("x"), y=tree("y"), u=tree("u"), v=tree("v"),
-                         p_prev=tree("p_prev"), t=int(np.asarray(state.t)))
+def state_from_numpy(state, device: torch.device | str,
+                     kind: type = InteractState):
+    """A port state of class ``kind`` (``InteractState``, ``SvrState``,
+    ``GtDsgdState``, ``DsgdState``) from any object with its fields:
+    numpy pytrees, and ``t``."""
+    fields = {f: tree_from_numpy(getattr(state, f), device)
+              for f in kind._fields if f != "t"}
+    return kind(**fields, t=int(np.asarray(state.t)))
 
 
 def lm_params_from_numpy(tree, cfg, device: torch.device | str) -> dict:

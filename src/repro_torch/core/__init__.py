@@ -1,4 +1,12 @@
 """Core: the paper's decentralized bilevel optimization, in PyTorch."""
+from repro_torch.core.baselines import (
+    DsgdState,
+    GtDsgdState,
+    dsgd_step,
+    gt_dsgd_step,
+    init_dsgd_state,
+    init_gt_dsgd_state,
+)
 from repro_torch.core.bilevel import (
     AgentData,
     BilevelProblem,
@@ -23,6 +31,13 @@ from repro_torch.core.interact import (
     init_state,
     interact_step,
     theorem1_step_sizes,
+)
+from repro_torch.core.svr_interact import (
+    Draws,
+    Sampler,
+    SvrState,
+    init_svr_state,
+    svr_interact_step,
 )
 from repro_torch.core.metrics import (
     MetricReport,

@@ -47,7 +47,8 @@ def _agent_gradients(problem: BilevelProblem, hg_cfg: HypergradConfig,
                      x, y, inner_batch, outer_batch):
     """(p_i, v_i) for a single agent (no leading agent dim here)."""
     p = hypergradient(problem.outer, problem.inner, x, y, hg_cfg,
-                      f_args=(outer_batch,), g_args=(inner_batch,))
+                      f_args=(outer_batch,), g_args=(inner_batch,),
+                      inner_hess_yy=problem.inner_hess_yy)
     v = grad(problem.inner, argnums=1)(x, y, inner_batch)
     return p, v
 

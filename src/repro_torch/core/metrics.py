@@ -72,7 +72,8 @@ def convergence_metric(problem: BilevelProblem, hg_cfg: HypergradConfig,
         y_star = solve_inner(problem, x_bar, y_i, inner_b, inner_steps,
                              inner_lr)
         p = hypergradient(problem.outer, problem.inner, x_bar, y_star,
-                          hg_cfg, f_args=(outer_b,), g_args=(inner_b,))
+                          hg_cfg, f_args=(outer_b,), g_args=(inner_b,),
+                          inner_hess_yy=problem.inner_hess_yy)
         return p, problem.outer(x_bar, y_star, outer_b)
 
     p_all, f_all = vmap(agent_hypergrad_at_bar)(

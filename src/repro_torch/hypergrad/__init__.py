@@ -1,6 +1,8 @@
 """Hypergradient engines: one ``hypergradient(...)`` surface.
 
-Counterpart of ``repro.hypergrad``; this slice has the ``cg`` backend.
+Counterpart of ``repro.hypergrad``; backends ``cg``, ``neumann`` and
+``cholesky``.  The JAX package's linearize-once backends
+(``cg-linearized``, ``neumann-linearized``) are not ported yet.
 """
 from repro_torch.hypergrad.config import HypergradConfig
 from repro_torch.hypergrad.engine import (
@@ -16,13 +18,20 @@ from repro_torch.hypergrad.engine import (
     register_backend,
 )
 from repro_torch.hypergrad.operator import HypergradStats, LinearOperator
+from repro_torch.hypergrad.cg import CgInfo, cg_solve
+from repro_torch.hypergrad.neumann import (
+    neumann_stochastic_apply,
+    neumann_truncated_apply,
+)
 
 __all__ = [
+    "CgInfo",
     "HypergradConfig",
     "HypergradEngine",
     "HypergradStats",
     "LinearOperator",
     "available_backends",
+    "cg_solve",
     "get_backend",
     "hvp_xy",
     "hvp_yy",
@@ -30,5 +39,7 @@ __all__ = [
     "hypergradient_with_stats",
     "measure_counts",
     "measure_problem_counts",
+    "neumann_stochastic_apply",
+    "neumann_truncated_apply",
     "register_backend",
 ]

@@ -2,10 +2,14 @@
 
     from repro_torch.solvers import SolverConfig, solve
 
-    result = solve(SolverConfig(algo="interact", backend="cuda"), 40,
+    result = solve(SolverConfig(algo="svr-interact", backend="cuda"), 40,
                    record_every=5)
+
+``algo`` is one of "interact", "svr-interact", "gt-dsgd", "d-sgd".
 """
 from repro_torch.solvers.api import (
+    EagerStepper,
+    GraphStepper,
     SolveResult,
     SolverBase,
     available_solvers,
@@ -17,10 +21,14 @@ from repro_torch.solvers.api import (
 )
 from repro_torch.solvers.config import SolverConfig, TopologyConfig
 
-# Importing the implementation module populates the registry.
+# Importing the implementation modules populates the registry.
+from repro_torch.solvers import baselines as _baselines  # noqa: F401
 from repro_torch.solvers import interact as _interact  # noqa: F401
+from repro_torch.solvers import svr_interact as _svr  # noqa: F401
 
 __all__ = [
+    "EagerStepper",
+    "GraphStepper",
     "SolveResult",
     "SolverBase",
     "SolverConfig",

@@ -1,18 +1,34 @@
-"""The solver registry, the stepping loop and the end-to-end ``solve``.
+"""The solver registry, the stepping loops and the end-to-end ``solve``.
 
 Counterpart of ``repro.solvers.api``:
 
     from repro_torch.solvers import SolverConfig, make_solver
 
-    solver = make_solver(SolverConfig(algo="interact", alpha=0.3, beta=0.3))
+    solver = make_solver(SolverConfig(algo="svr-interact"))
     state  = solver.init(problem, hg_cfg, x0, y0, data)
     state  = solver.step(state, data)            # one iteration
-    state  = solver.run(state, data, 100)        # 100 iterations
+    state  = solver.run(state, data, 100)        # 100 iterations, eager
+    state, trace = solver.run_traced(state, data, 100, 10, metric_fn)
 
-PyTorch runs eagerly, so ``run`` is a Python loop over ``step`` where the
-JAX package compiles one ``lax.scan``.  ``solve`` and ``default_setup``
-run on the CUDA card unless ``device="cpu"`` is passed, and raise when
-no card is present and no device was named.
+Stepping.  The JAX package compiles a chunk of steps into one XLA
+program (``lax.scan``).  The port's counterpart is the CUDA graph:
+``run_traced`` and ``run_recorded(scan=True)`` capture one step over
+static state and draw buffers (one graph for each branch a step can
+take: SVR-INTERACT's refresh and recursive steps) and replay it every
+step, and ``run_traced`` captures the metric too.  On a CUDA device a
+capture that fails raises; nothing falls back to eager stepping.  On the
+CPU, where graphs do not exist, they run the eager loop, which is what
+``run`` and ``run_recorded(scan=False)`` always run.
+
+Randomness.  The stochastic solvers draw each step's minibatch indices
+and Neumann k on the host (``repro_torch.core.svr_interact.Sampler``,
+seeded from ``SolverConfig.seed`` unless ``init`` is given a
+generator); a step takes them as a ``Draws`` tuple, which callers may
+also hand over themselves.
+
+``solve`` and ``default_setup`` run on the CUDA card unless
+``device="cpu"`` is passed, and raise when no card is present and no
+device was named.
 """
 from __future__ import annotations
 
@@ -25,10 +41,13 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.consensus.engine import make_engine
 from repro_torch.consensus.ledger import time_round_us
+from repro_torch.core.svr_interact import Draws, Sampler, step_draws
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.solvers.config import SolverConfig
 
 __all__ = [
+    "EagerStepper",
+    "GraphStepper",
     "SolveResult",
     "SolverBase",
     "available_solvers",
@@ -77,14 +96,36 @@ def _state_device(state) -> torch.device:
     return pytree.tree_leaves(state.x)[0].device
 
 
+def _tensors(tree) -> list[torch.Tensor]:
+    return [leaf for leaf in pytree.tree_leaves(tree)
+            if isinstance(leaf, torch.Tensor)]
+
+
+def _clone(tree):
+    return pytree.tree_map(
+        lambda l: l.clone() if isinstance(l, torch.Tensor) else l, tree)
+
+
+def _chunks(num_steps: int, record_every: int) -> list[int]:
+    """Chunk lengths between records: ``record_every`` each, then the
+    remainder (the whole run when ``record_every`` is 0)."""
+    chunk = record_every if record_every else num_steps
+    lengths = [chunk] * (num_steps // chunk) if chunk else []
+    if chunk and num_steps % chunk:
+        lengths.append(num_steps % chunk)
+    return lengths
+
+
 class SolverBase:
-    """Shared plumbing: engine construction, stepping, warmup.
+    """Shared plumbing: engine construction, sampling, stepping, warmup.
 
     Subclasses implement ``_init_state`` and ``_make_step`` (the step
-    body over a bound ``ConsensusEngine``).
+    body over a bound ``ConsensusEngine``); stochastic ones set
+    ``uses_draws`` and SVR-INTERACT overrides ``step_variant``.
     """
 
     communications_per_step = 2  # Steps 1 and 3 each mix once
+    uses_draws = False           # whether a step takes a ``Draws`` tuple
 
     def __init__(self, config: SolverConfig):
         self.config = config
@@ -92,19 +133,28 @@ class SolverBase:
         self._engine = None
         self._problem = None
         self._hg_cfg = None
+        self._sampler = None
+        self._stepper = None
 
     # -- subclass hooks ---------------------------------------------------
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         raise NotImplementedError
 
-    def _make_step(self, problem, hg_cfg, engine) -> Callable:
-        """Return ``step(state, data) -> state``."""
+    def _make_step(self, problem, hg_cfg, engine, n: int | None) -> Callable:
+        """Return ``step(state, data, draws) -> state``."""
         raise NotImplementedError
+
+    def step_variant(self, t: int):
+        """Which branch the step from iteration ``t`` takes, where the step
+        branches on the host's t (one CUDA graph is captured per branch);
+        ``None`` for a step that does not branch."""
+        return None
 
     # -- construction -----------------------------------------------------
     def build(self, problem, hg_cfg=None, *, device: torch.device | str,
-              m: int | None = None) -> "SolverBase":
-        """Bind the problem and the network on ``device``."""
+              m: int | None = None, n: int | None = None) -> "SolverBase":
+        """Bind the problem and the network on ``device``; ``n`` is the
+        per-agent sample count the q and batch defaults are taken from."""
         hg_cfg = hg_cfg if hg_cfg is not None else self.config.hypergrad
         hg_cfg.resolve_backend()   # fail fast on unknown engine names
         spec = self.config.mixing_spec(m)
@@ -113,39 +163,116 @@ class SolverBase:
                 f"config declares a {spec.num_agents}-agent network "
                 f"(num_agents/mixing) but the data carries m={m} agents")
         self._engine = make_engine(self.config.backend, spec, device)
-        self._step_fn = self._make_step(problem, hg_cfg, self._engine)
+        self._step_fn = self._make_step(problem, hg_cfg, self._engine, n)
         self._problem, self._hg_cfg = problem, hg_cfg
+        self._stepper = None
         return self
 
-    def init(self, problem, hg_cfg, x0, y0, data):
+    def init(self, problem, hg_cfg, x0, y0, data,
+             generator: torch.Generator | None = None):
         """Build the solver on the data's device; return the initial state.
 
-        ``hg_cfg=None`` falls back to ``config.hypergrad``.
+        ``hg_cfg=None`` falls back to ``config.hypergrad``.  A stochastic
+        solver draws from ``generator``, by default a CPU generator seeded
+        with ``config.seed``; its initial state takes the first draw.
         """
-        self.build(problem, hg_cfg, device=data.inner_x.device,
-                   m=data.inner_x.shape[0])
+        m = data.inner_x.shape[0]
+        n_inner, n_outer = data.inner_x.shape[1], data.outer_x.shape[1]
+        # n is the full per-agent dataset: the paper's q = |S| =
+        # ceil(sqrt(n)) defaults are taken against it
+        n = n_inner + n_outer
+        self.build(problem, hg_cfg, device=data.inner_x.device, m=m, n=n)
+        if self.uses_draws:
+            if generator is None:
+                generator = torch.Generator().manual_seed(self.config.seed)
+            self._sampler = Sampler(generator, m, n_inner, n_outer,
+                                    self.config.resolve_batch(n),
+                                    self._hg_cfg.neumann_k)
         return self._init_state(self._problem, self._hg_cfg, x0, y0, data)
 
+    # -- sampling ---------------------------------------------------------
+    def draw(self, num_steps: int, device: torch.device | str
+             ) -> Draws | None:
+        """The next ``num_steps`` steps' draws, stacked, on ``device``
+        (``None`` for a solver that draws nothing)."""
+        if not self.uses_draws:
+            return None
+        if self._sampler is None:
+            raise RuntimeError("call init() before stepping a stochastic "
+                               "solver without draws")
+        return self._sampler.draw(num_steps, device)
+
     # -- stepping ---------------------------------------------------------
-    def step(self, state, data):
-        """One iteration."""
+    def step(self, state, data, draws: Draws | None = None):
+        """One iteration; a stochastic solver draws when ``draws`` is
+        ``None``."""
         if self._step_fn is None:
             raise RuntimeError("call init()/build() before step()")
-        return self._step_fn(state, data)
+        if draws is None and self.uses_draws:
+            draws = step_draws(self.draw(1, _state_device(state)), 0)
+        return self._step_fn(state, data, draws)
 
     def run(self, state, data, num_steps: int):
-        """``num_steps`` iterations."""
-        for _ in range(num_steps):
-            state = self.step(state, data)
+        """``num_steps`` eager iterations."""
+        draws = self.draw(num_steps, _state_device(state))
+        for i in range(num_steps):
+            state = self.step(state, data,
+                              None if draws is None else step_draws(draws, i))
         return state
+
+    def run_traced(self, state, data, num_steps: int, record_every: int = 0,
+                   metric_fn=None):
+        """``num_steps`` iterations with ``metric_fn(state) -> 0-dim
+        tensor`` recorded on the device.
+
+        Returns ``(state, trace)``: ``trace`` is a tensor laid out like
+        ``run_recorded``'s list (the metric before steps 0, r, 2r, ...,
+        then after the last step), empty without a ``metric_fn``.  On a
+        CUDA device the steps and the metric replay captured graphs with
+        no host read between them, so ``metric_fn`` must not read a
+        tensor on the host either: its capture raises if it does.
+        """
+        stepper = self.stepper_for(state, data, scan=True)
+        stepper.prepare(num_steps)
+        record = stepper.record(metric_fn) if metric_fn is not None else None
+        records = []
+        for length in _chunks(num_steps, record_every):
+            if record is not None:
+                records.append(record())
+            stepper.advance(length)
+        if record is not None:
+            records.append(record())
+        trace = (torch.stack(records) if records
+                 else torch.zeros(0, device=stepper.device))
+        return stepper.state(), trace
 
     def warmup(self, state, data) -> None:
         """One step on a copy of ``state``, result discarded, so that
         first-use costs (the kernel build, library set-up) fall outside
-        any timed window."""
-        copy = pytree.tree_map(
-            lambda l: l.clone() if isinstance(l, torch.Tensor) else l, state)
-        synchronize(_state_device(self.step(copy, data)))
+        any timed window.  Takes all-zero draws; the generator does not
+        move."""
+        device = _state_device(state)
+        draws = self._sampler.zeros(device) if self.uses_draws else None
+        synchronize(_state_device(self.step(_clone(state), data, draws)))
+
+    def stepper_for(self, state, data, scan: bool = True):
+        """The stepper ``run_traced`` and ``run_recorded`` step with,
+        holding ``state``: a ``GraphStepper`` with ``scan`` on a CUDA
+        device, else an ``EagerStepper``.  It is kept across calls with
+        the same ``data`` and kind, so graphs and warm-up are paid once."""
+        graphs = scan and _state_device(state).type == "cuda"
+        kind = GraphStepper if graphs else EagerStepper
+        if type(self._stepper) is not kind or self._stepper.data is not data:
+            self._stepper = kind(self, state, data)
+        else:
+            self._stepper.load(state)
+        return self._stepper
+
+    @property
+    def stepper(self):
+        """The stepper of the last ``stepper_for`` call (``None`` before
+        one), for its accounting."""
+        return self._stepper
 
     def samples_per_step(self, n: int) -> float:
         raise NotImplementedError
@@ -155,32 +282,184 @@ class SolverBase:
         return 1.0
 
 
+def _copy_state(dst, src) -> None:
+    """Copy every tensor of ``src`` into the one of ``dst`` in its place.
+
+    An ``src`` tensor that shares memory with a ``dst`` one (SVR-INTERACT
+    returns the incoming x as x_prev) is cloned first, so no copy reads
+    a buffer another copy has overwritten.
+    """
+    dst, src = _tensors(dst), _tensors(src)
+    held = {t.untyped_storage().data_ptr() for t in dst}
+    src = [t.clone() if t.untyped_storage().data_ptr() in held else t
+           for t in src]
+    for d, s in zip(dst, src, strict=True):
+        d.copy_(s)
+
+
+class EagerStepper:
+    """Steps a built solver with eager calls, behind ``GraphStepper``'s
+    interface (``load``, ``state``, ``prepare``, ``record``,
+    ``advance``), so that ``run_traced`` and ``run_recorded`` keep one
+    loop for both."""
+
+    def __init__(self, solver: SolverBase, state, data):
+        self.solver, self.data = solver, data
+        self.device = _state_device(state)
+        self.warmed = False
+        self.load(state)
+
+    def load(self, state) -> None:
+        self._state = state
+
+    def state(self):
+        return self._state
+
+    def prepare(self, num_steps: int) -> None:
+        """One warm-up step on a copy (``SolverBase.warmup``), once."""
+        if not self.warmed:
+            self.solver.warmup(self._state, self.data)
+            self.warmed = True
+
+    def record(self, metric_fn) -> Callable[[], Any]:
+        return lambda: metric_fn(self._state)
+
+    def advance(self, num_steps: int) -> None:
+        self._state = self.solver.run(self._state, self.data, num_steps)
+
+
+class GraphStepper:
+    """Steps a built solver on a CUDA device by replaying CUDA graphs of
+    its step.
+
+    The state lives in static buffers: ``load`` copies a state in and
+    ``state()`` copies it out.  Each graph runs one step from the buffers
+    and writes the new state back into them, so a replay needs no host
+    work beyond copying that step's draws into the draw buffers; t is
+    kept on the host and picks the graph (``solver.step_variant``).  A
+    graph is captured the first time a step needs it (``prepare``
+    captures every one a run needs before it starts), after
+    ``WARMUP_STEPS`` eager steps on a copy on a side stream.  A capture
+    that fails raises.
+
+    ``graphs``, ``replays`` and ``eager_steps`` (the warm-up steps) are
+    kept for accounting: a kernel launched c times in the eager step is
+    launched c times by each replay, and its wrapper counts only the
+    warm-up's and the capture's launches.
+    """
+
+    WARMUP_STEPS = 2
+
+    def __init__(self, solver: SolverBase, state, data):
+        device = _state_device(state)
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+        self.solver, self.data, self.device = solver, data, device
+        self.static = _clone(state)
+        self.t = state.t
+        self.draws = (solver._sampler.zeros(device) if solver.uses_draws
+                      else None)
+        self.graphs: dict[Any, torch.cuda.CUDAGraph] = {}
+        self.metrics: dict[int, tuple[Callable, Callable]] = {}
+        self.replays = 0
+        self.eager_steps = 0
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the static buffers."""
+        _copy_state(self.static, state)
+        self.t = state.t
+
+    def state(self):
+        """A copy of the current state."""
+        return _clone(self.static)._replace(t=self.t)
+
+    def _warm(self, fn) -> None:
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def capture(self, t: int) -> torch.cuda.CUDAGraph:
+        """The graph of the step from iteration ``t``, captured if new."""
+        variant = self.solver.step_variant(t)
+        graph = self.graphs.get(variant)
+        if graph is not None:
+            return graph
+        step, at_t = self.solver._step_fn, self.static._replace(t=t)
+        self._warm(lambda: step(_clone(at_t), self.data, self.draws))
+        self.eager_steps += self.WARMUP_STEPS
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _copy_state(self.static, step(at_t, self.data, self.draws))
+        self.graphs[variant] = graph
+        return graph
+
+    def prepare(self, num_steps: int) -> None:
+        """Capture every graph the next ``num_steps`` steps replay."""
+        for t in range(self.t, self.t + num_steps):
+            self.capture(t)
+
+    def record(self, metric_fn) -> Callable[[], torch.Tensor]:
+        """A graph of ``metric_fn`` on the static state (captured once per
+        ``metric_fn``); returns a call that replays it and returns a copy
+        of its value."""
+        held = self.metrics.get(id(metric_fn))
+        if held is not None:
+            return held[1]
+        self._warm(lambda: metric_fn(self.static))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            value = torch.as_tensor(metric_fn(self.static))
+
+        def replay() -> torch.Tensor:
+            graph.replay()
+            return value.clone()
+
+        # the function is held beside its graph, so its id is not reused
+        self.metrics[id(metric_fn)] = (metric_fn, replay)
+        return replay
+
+    def advance(self, num_steps: int) -> None:
+        """``num_steps`` steps, on the solver's next draws."""
+        draws = self.solver.draw(num_steps, self.device)
+        for i in range(num_steps):
+            graph = self.capture(self.t)
+            if draws is not None:
+                for buf, d in zip(self.draws, draws):
+                    buf.copy_(d[i])
+            graph.replay()
+            self.t += 1
+            self.replays += 1
+
+
 def run_recorded(solver: SolverBase, state, data, num_steps: int,
-                 record_every: int = 0, metric_fn=None):
+                 record_every: int = 0, metric_fn=None, scan: bool = True):
     """Step ``num_steps`` times, recording ``metric_fn`` between chunks.
 
-    One warmup step on a copy runs first.  ``metric_fn(state) -> float``
-    is evaluated before each ``record_every``-step chunk and after the
-    last; it runs outside the timed window, so the returned seconds
-    cover stepping only (device synchronised before each clock read).
-    Returns ``(state, trace, seconds)``.
+    ``scan=True`` replays captured CUDA graphs on a CUDA device (the
+    reference's compiled scan); on the CPU, and with ``scan=False``, the
+    eager loop runs.  Capture, or a warmup step on a copy, happens first,
+    and ``metric_fn(state) -> float`` is evaluated before each
+    ``record_every``-step chunk and after the last, outside the timed
+    window, so the returned seconds cover stepping only (device
+    synchronised before each clock read).  Returns
+    ``(state, trace, seconds)``.
     """
-    chunk = record_every if record_every else num_steps
-    lengths = [chunk] * (num_steps // chunk)
-    if num_steps % chunk:
-        lengths.append(num_steps % chunk)
-    solver.warmup(state, data)
     device = _state_device(state)
-
+    stepper = solver.stepper_for(state, data, scan)
+    stepper.prepare(num_steps)
     trace, took = [], 0.0
-    for length in lengths:
+    for length in _chunks(num_steps, record_every):
         if metric_fn is not None:
-            trace.append(metric_fn(state))
+            trace.append(metric_fn(stepper.state()))
         synchronize(device)
         t0 = time.perf_counter()
-        state = solver.run(state, data, length)
+        stepper.advance(length)
         synchronize(device)
         took += time.perf_counter() - t0
+    state = stepper.state()
     if metric_fn is not None:
         trace.append(metric_fn(state))
     return state, trace, took
@@ -199,6 +478,7 @@ class SolveResult:
     # call at the initial iterate times the calls per step
     hvp_per_step: float = 0.0
     grad_per_step: float = 0.0
+    hess_per_step: float = 0.0
     # median wall-clock of one warmed consensus combine of the final x
     round_latency_us: float | None = None
 
@@ -238,11 +518,13 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
     Section-6 instance and records the eq.-11 metric; pass ``problem``/
     ``x0``/``y0``/``data`` to run another instance (moved to ``device``),
     and ``metric_fn(state) -> float`` to record another metric.  Runs on
-    the CUDA card unless ``device`` names another.
+    the CUDA card unless ``device`` names another, stepping through
+    ``run_recorded(scan=True)``: captured CUDA graphs on the card, the
+    eager loop on the CPU.
 
     ``measure_hypergrad`` (default: ``record_every > 0``) attaches the
-    per-step HVP / gradient counts of one counted estimator call at the
-    initial iterate.
+    per-step HVP / gradient / Hessian counts of one counted estimator
+    call at the initial iterate.
     """
     device = resolve_device(device)
     if measure_hypergrad is None:
@@ -273,7 +555,8 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
                                           data)
         calls = solver.hypergrad_calls_per_step(n)
         counts = dict(hvp_per_step=per_call.hvp_count * calls,
-                      grad_per_step=per_call.grad_count * calls)
+                      grad_per_step=per_call.grad_count * calls,
+                      hess_per_step=per_call.hess_count * calls)
     return SolveResult(
         state=state, trace=trace,
         us_per_step=1e6 * took / max(num_steps, 1),

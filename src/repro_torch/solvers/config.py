@@ -1,12 +1,13 @@
 """`SolverConfig`: the configuration object behind every solver.
 
-Counterpart of ``repro.solvers.config`` with the fields this slice of the
-port honours.  Compression, topology processes, Byzantine rules and
+Counterpart of ``repro.solvers.config`` with the fields the port
+honours.  Compression, topology processes, Byzantine rules and
 guards are later slices and have no field here yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from repro_torch.core.consensus import (MixingSpec, erdos_renyi_adjacency,
                                         laplacian_mixing, ring_mixing,
@@ -51,19 +52,26 @@ class SolverConfig:
     """Configuration of a registry solver.
 
     Attributes:
-      algo: registry name ("interact"; see ``available_solvers()``).
+      algo: registry name ("interact", "svr-interact", "gt-dsgd", "d-sgd";
+        see ``available_solvers()``).
       alpha / beta: outer / inner step sizes (Theorem-1 bounds apply).
+      batch_size: minibatch size |S| of the stochastic solvers; ``None``
+        takes q (the paper's |S| = q).
+      q: SVR-INTERACT's refresh period; ``None`` takes ceil(sqrt(n)).
       num_agents: network size m; when set it wins over the m of the data.
       mixing: explicit ``MixingSpec``; overrides ``topology`` when set.
       topology: declarative graph, realised once m is known.
       backend: consensus backend, "dense" or "cuda".
       hypergrad: how the inner-Hessian inverse is applied (eq. 5).
-      seed: seed of the default Section-6 instance ``solve`` builds.
+      seed: seed of the default Section-6 instance ``solve`` builds, and
+        of the stochastic solvers' sampling generator.
     """
 
     algo: str = "interact"
     alpha: float = 0.3
     beta: float = 0.3
+    batch_size: int | None = None
+    q: int | None = None
     num_agents: int | None = None
     mixing: MixingSpec | None = None
     topology: TopologyConfig = TopologyConfig()
@@ -90,3 +98,17 @@ class SolverConfig:
         if self.mixing is not None:
             return self.mixing.num_agents
         return m
+
+    def resolve_q(self, n: int | None = None) -> int:
+        """Refresh period: explicit ``q`` or the paper's ceil(sqrt(n))."""
+        if self.q is not None:
+            return self.q
+        if n is None:
+            raise ValueError("q unset and per-agent sample count n unknown")
+        return int(math.ceil(math.sqrt(n)))
+
+    def resolve_batch(self, n: int | None = None) -> int:
+        """Minibatch size: explicit ``batch_size`` or |S| = q (paper)."""
+        if self.batch_size is not None:
+            return self.batch_size
+        return self.resolve_q(n)

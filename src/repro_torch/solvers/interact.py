@@ -19,10 +19,10 @@ class InteractSolver(SolverBase):
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         return init_state(problem, hg_cfg, x0, y0, data)
 
-    def _make_step(self, problem, hg_cfg, engine):
+    def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta
 
-        def step(state, data):
+        def step(state, data, draws=None):
             return interact_step(problem, hg_cfg, engine, alpha, beta,
                                  state, data)
 

@@ -139,9 +139,14 @@ def test_library_path_is_keyed_on_defines(tmp_path):
 
 
 def test_registries():
-    assert available_solvers() == ("interact",)
+    assert available_solvers() == ("d-sgd", "gt-dsgd", "interact",
+                                   "svr-interact")
     with pytest.raises(ValueError, match="unknown algorithm"):
-        make_solver(SolverConfig(algo="svr-interact"))
+        make_solver(SolverConfig(algo="fedavg"))
+    from repro_torch.hypergrad import HypergradConfig, available_backends
+    assert available_backends() == ("cg", "cholesky", "neumann")
+    with pytest.raises(ValueError, match="not available in the port"):
+        HypergradConfig(backend="cg-linearized").resolve_backend()
     from repro_torch.consensus import BACKENDS, make_engine
     assert sorted(BACKENDS) == ["cuda", "dense"]
     with pytest.raises(ValueError, match="unknown consensus backend"):

@@ -1,5 +1,6 @@
 """The port's consensus_mix, flash attention and WKV6 kernels against
-their plain versions, on the card.
+their plain versions, and its captured solver steps against its eager
+ones, on the card.
 
 Every test here needs an NVIDIA Hopper card and skips elsewhere.  The
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -30,7 +31,21 @@ path (a row that is not a multiple of 16 bytes, or an x whose storage
 offset misaligns it), one and two passes of 16 rows, and a symmetric and
 a non-symmetric mixing matrix.  chip_smoke.py runs these and the serving
 shapes.
+
+Captured stepping: each algorithm's steps replayed from CUDA graphs
+(``run_recorded(scan=True)``, ``run_traced``) against the eager loop from
+the same seed, on the Section-6 instance at full width (m = 5, n = 100,
+q = 3 so that SVR-INTERACT refreshes twice in 6 steps), with each
+hypergradient backend: ``cg``, truncated and stochastic-k ``neumann``,
+and ``cholesky`` from the closed-form H_yy and from HVPs on the identity
+basis.  The graphs hold
+the eager step's kernels in its order, so the states must agree to
+``CAPTURE_RTOL`` = 1e-6 of each field's scale (expected: bit for bit).
+A capture that cannot happen (a host read in the step or the metric)
+raises; nothing runs eagerly in its place.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -41,10 +56,30 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
+from repro_torch.core import convergence_metric_fn  # noqa: E402
+from repro_torch.hypergrad import HypergradConfig  # noqa: E402
+from repro_torch.solvers import (SolverConfig, default_setup,  # noqa: E402
+                                 make_solver, run_recorded)
 
 FLASH_TOL = 2e-5             # float32
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 MIX_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+CAPTURE_RTOL = 1e-6
+ALGOS = ("interact", "svr-interact", "gt-dsgd", "d-sgd")
+# the hypergradient backends a captured step runs: (config, whether the
+# problem keeps its closed-form H_yy; without it cholesky builds H_yy from
+# HVPs on the identity basis)
+HG_CASES = {
+    "cg": (HypergradConfig(), True),
+    "neumann": (HypergradConfig(backend="neumann"), True),
+    "neumann-stochastic": (HypergradConfig(backend="neumann",
+                                           stochastic_k=True), True),
+    "cholesky": (HypergradConfig(backend="cholesky"), True),
+    "cholesky-hvp-basis": (HypergradConfig(backend="cholesky"), False),
+}
+# INTERACT takes no draws, so it has no stochastic-k Neumann
+CAPTURE_CASES = [(algo, hg) for algo in ALGOS for hg in HG_CASES
+                 if not (algo == "interact" and hg == "neumann-stochastic")]
 
 # consensus_mix: agents (17 takes two passes of 16 rows) and row lengths
 # (760 and 4096 take the 16-byte path in both dtypes, 1, 3, 123 and 761
@@ -318,3 +353,77 @@ def test_kernels_reject_cpu_and_cuda_mixes(hopper):
     r = torch.zeros(1, 8, 2, 16, device=hopper)
     with pytest.raises(ValueError, match="one device"):
         wkv_ops.wkv6(r, r, r, r, torch.zeros(2, 16))
+
+
+def _section6(device, algo, hg="cg"):
+    problem, x0, y0, data = default_setup(0, n_per_agent=100, device=device)
+    hg_cfg, closed_form = HG_CASES[hg]
+    if not closed_form:
+        problem = dataclasses.replace(problem, inner_hess_yy=None)
+    config = SolverConfig(algo=algo, backend="cuda", q=3, seed=1,
+                          hypergrad=hg_cfg)
+    return problem, x0, y0, data, config
+
+
+def _max_rel_gap(a, b) -> float:
+    gap = 0.0
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b)):
+        if isinstance(x, torch.Tensor):
+            gap = max(gap, float((x - y).abs().max() / y.abs().max()))
+        else:
+            assert x == y
+    return gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,hg", CAPTURE_CASES)
+def test_captured_steps_equal_eager_steps(hopper, algo, hg):
+    problem, x0, y0, data, config = _section6(hopper, algo, hg)
+    # the eq.-11 metric takes no draws: a stochastic-k config is measured
+    # with its truncated form
+    metric = convergence_metric_fn(
+        problem, dataclasses.replace(config.hypergrad, stochastic_k=False),
+        data, inner_steps=30)
+    runs = {}
+    for scan in (False, True):
+        solver = make_solver(config)
+        state = solver.init(problem, None, x0, y0, data)
+        runs[scan] = run_recorded(solver, state, data, 6, 3,
+                                  lambda st: float(metric(st)), scan=scan)
+        if scan:
+            assert solver.stepper.replays == 6
+            assert len(solver.stepper.graphs) == (
+                2 if algo == "svr-interact" else 1)
+    assert runs[True][0].t == runs[False][0].t == 6
+    assert _max_rel_gap(runs[True][0], runs[False][0]) <= CAPTURE_RTOL
+    traced = make_solver(config)
+    state, trace = traced.run_traced(
+        traced.init(problem, None, x0, y0, data), data, 6, 3, metric)
+    assert trace.device.type == "cuda" and trace.shape == (3,)
+    assert _max_rel_gap(state, runs[False][0]) <= CAPTURE_RTOL
+    for got, want in zip(trace.tolist(), runs[False][1]):
+        assert got == pytest.approx(want, rel=CAPTURE_RTOL)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_runs_nothing_eagerly(hopper):
+    problem, x0, y0, data, config = _section6(hopper, "gt-dsgd")
+    solver = make_solver(config)
+    state = solver.init(problem, None, x0, y0, data)
+    reads = lambda st: torch.tensor(float(st.x[0][0].sum()), device=hopper)
+    with pytest.raises(RuntimeError):
+        solver.run_traced(state, data, 2, 1, reads)
+    again = make_solver(config)
+    state = again.init(problem, None, x0, y0, data)
+    step = again._step_fn
+
+    def reading_step(st, d, draws):
+        float(st.y[1].sum())          # a host read inside the step
+        return step(st, d, draws)
+
+    again._step_fn = reading_step
+    with pytest.raises(RuntimeError):
+        run_recorded(again, state, data, 2, scan=True)
+    assert again.stepper.graphs == {}
+    assert state.t == 0
