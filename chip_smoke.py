@@ -37,7 +37,10 @@
    capture and the round-latency mixes, and ``torch.profiler``'s kernel
    events over the run, which see graph replays, must show
    ``consensus_step`` once in each of the 40 replayed steps and the 2
-   warm-up steps.
+   warm-up steps.  (The profiler loses a few kernel records in some
+   windows and never adds one, so a count that falls short is taken
+   again from a repeat of the same run, three windows at most, and each
+   kernel's count is its largest: ``counted_launches``.)
 4b. The four Section-6 algorithms (INTERACT, SVR-INTERACT, GT-DSGD,
    D-SGD) on the same instance, nothing cut (m = 5, n = 600, 2 x 20 tanh
    backbone, ER(0.5) Laplacian, ``cg`` at 32 trips, alpha = beta = 0.3,
@@ -58,9 +61,31 @@
    its trace against the eager one, and its host-clock time.  Prints the
    Figure-2 ordering of the final metrics (not gated: the port draws
    other random numbers than the JAX benchmark).  Then 3 eager INTERACT
-   steps, whose kernel events must equal their wrapper counts (the check
-   on the profiler count), and profiles of 3 eager and 3 captured steps
+   steps, whose kernel events (``counted_launches``) must equal their
+   wrapper counts (the check on the profiler count), and profiles of 3 eager and 3 captured steps
    (consensus_step once a replay).
+4c. The compressed wire and the time-varying topologies (``WIRE_ROWS``),
+   on the same instance: INTERACT with sign1bit and error feedback, 5
+   warm-up steps and a round every 2 steps; INTERACT with top-5% and
+   gamma = 0.5; SVR-INTERACT and D-SGD with int8; GT-DSGD over
+   link-failure (p = 0.3, a 40-step stream); INTERACT over the adaptive
+   process (tau = 1).  Each row: ``solve`` on ``cuda``, 40 captured steps
+   (counts set to 0 just before it, read just after: the wrappers count
+   its graphs' warm-up steps and captures and the 6 round-latency mixes);
+   its measured wire bytes must equal the port's priced
+   ``cumulative_wire_bytes`` exactly.  Then the same 40 steps by
+   ``run_traced`` in two calls (8 and 32 steps, step and eq.-11 metric
+   replayed: M_0, M_8, M_40), whose state must equal ``solve``'s bit for
+   bit and whose trace must fall; then 40 replays of those graphs
+   (``run_recorded``) alone under ``torch.profiler``, whose consensus
+   kernel events (``counted_launches``, as in 4) must be the row's, with
+   nothing launched from the host; 8 eager steps on ``cuda``, whose M_0,
+   M_8 and state must equal the captured ones bit for bit; and ``solve`` on
+   ``dense`` (it launches no kernel), whose bytes must equal the priced
+   ones and whose M_40 must be within ``TRACE_RTOL`` of cuda's
+   (``WIRE_RTOL`` for the compressed rows).  Stream rows also print the
+   per-link ``stream_wire_bytes`` and the mean spectral gap, and hold
+   both kernels on the last round matrix against their plain versions.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -124,6 +149,7 @@ STEP_KERNEL = {"interact": "consensus_step", "svr-interact": "consensus_step",
 KERNEL_SYMBOL = {"consensus_step": "consensus_step_kernel",
                  "consensus_mix": "consensus_mix_kernel"}
 PRIMER_LAUNCHES = 32    # see ``profiled``
+LAUNCH_WINDOWS = 3      # profiled runs at most, see ``counted_launches``
 PRIMER_SYMBOL = "spin_kernel"    # what torch.cuda._sleep launches
 # The cuda and dense runs differ only in how the mix is summed (the
 # kernel's sequential FMAs vs cuBLAS), a float32 rounding difference.
@@ -133,6 +159,45 @@ PRIMER_SYMBOL = "spin_kernel"    # what torch.cuda._sleep launches
 # same bound holds a captured trace to its eager one (the graphs hold
 # the eager step's kernels in its order: the gap is expected to be 0).
 TRACE_RTOL = NUM_STEPS * 2e-6
+
+# The wire phase (4c): chip_smoke's rows of the compressed wire and the
+# time-varying topologies, each (algorithm, options, the consensus
+# kernels the 40 replayed steps of its captured ``solve`` launch).  A
+# mixing step of the wire path is two consensus_mix launches (x and u;
+# one for D-SGD), a silent step none; a topology stream without a wire
+# is one consensus_step a step, fed a fresh matrix.
+WIRE_ROWS = {
+    "sign1bit-ef-warm5-k2": ("interact", dict(
+        compression=dict(kind="sign1bit", compress_after=5),
+        communication_interval=2), dict(consensus_mix=40, consensus_step=0)),
+    "topk-gamma0.5": ("interact", dict(
+        compression=dict(kind="topk", topk_frac=0.05, gamma=0.5)),
+        dict(consensus_mix=80, consensus_step=0)),
+    "int8-ef svr-interact": ("svr-interact", dict(
+        compression=dict(kind="int8")),
+        dict(consensus_mix=80, consensus_step=0)),
+    "int8-ef d-sgd": ("d-sgd", dict(compression=dict(kind="int8")),
+                      dict(consensus_mix=40, consensus_step=0)),
+    "link-failure-0.3": ("gt-dsgd", dict(topology_process=dict(
+        kind="link-failure", p=0.3, period=40)),
+        dict(consensus_mix=0, consensus_step=40)),
+    "adaptive": ("interact", dict(topology_process=dict(
+        kind="adaptive", tau=1.0)), dict(consensus_mix=0, consensus_step=40)),
+}
+# The short eager run each wire row is held to, captured against eager,
+# bit for bit: 8 steps take sign1bit-ef-warm5-k2 through warm-up, silent
+# and compressed rounds.
+WIRE_EAGER_STEPS = 8
+# consensus_mix launches of solve's round-latency timing (time_round_us:
+# one warm call and 5 timed ones)
+ROUND_LATENCY_MIXES = 6
+# cuda against dense, M_40 relative: the uncompressed topology rows take
+# TRACE_RTOL (40 steps times the 2e-6 one-step bound); the compressed rows
+# WIRE_RTOL, the 6.4e-7 largest one-step gap of the six rows against the
+# JAX package (tests/test_torch_wire.py) times 40 steps times a margin of
+# 4 for the compressors' discontinuities (an int8 rounding, a top-k near
+# tie or a sign that a rounding difference flips), 1e-4.
+WIRE_RTOL = 1e-4
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -914,19 +979,24 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
 def profiled(torch, run, cpu: bool = True):
     """``(run(), prof)``: ``run()`` under ``torch.profiler`` (CUDA
     activity, and CPU activity with ``cpu``).  The profiler can miss the
-    first few kernels launched after it starts, never one later in the
-    run, so ``PRIMER_LAUNCHES`` spin kernels of about 60 us each
-    (``torch.cuda._sleep``), synchronised, come first; the readers below
-    leave their events out."""
+    first few kernels launched after it starts and the last few before it
+    stops, so ``PRIMER_LAUNCHES`` spin kernels of about 60 us each
+    (``torch.cuda._sleep``), synchronised, come first and last; the
+    readers below leave their events out."""
     activities = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         activities.append(torch.profiler.ProfilerActivity.CPU)
-    with torch.profiler.profile(activities=activities) as prof:
+
+    def spin():
         for _ in range(PRIMER_LAUNCHES):
             torch.cuda._sleep(100_000)
         torch.cuda.synchronize()
+
+    with torch.profiler.profile(activities=activities) as prof:
+        spin()
         out = run()
         torch.cuda.synchronize()
+        spin()
     return out, prof
 
 
@@ -984,6 +1054,30 @@ def device_launches(torch, run):
                and PRIMER_SYMBOL not in e.get("name", "")]
     check(bool(kernels), "torch.profiler recorded no kernel events")
     return out, consensus_launches(kernels)
+
+
+def counted_launches(torch, ops, run, expected):
+    """``(run(), counts, windows)``: the consensus kernels the card ran
+    during ``run()`` (``device_launches``), with the wrapper counts set to
+    0 just before it and read just after.  The profiler loses a few kernel
+    records in some windows and never adds one (one deterministic
+    ``solve`` profiled six times on an H100 gave 192,601 to 192,606
+    kernel records), so while some count falls short of
+    ``expected(wrapper counts)`` and none exceeds it, ``run()`` (which
+    must repeat the same work) is profiled again, ``LAUNCH_WINDOWS``
+    times in all at most; each kernel's count is its largest over the
+    windows, all of which are returned."""
+    windows = []
+    for _ in range(LAUNCH_WINDOWS):
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        out, ran = device_launches(torch, run)
+        windows.append(ran)
+        want = expected(dict(ops.LAUNCHES))
+        if ran == want or any(ran[k] > want[k] for k in KERNEL_SYMBOL):
+            break
+    counts = {k: max(w[k] for w in windows) for k in KERNEL_SYMBOL}
+    return out, counts, windows
 
 
 def run_algorithms(torch, ops) -> dict:
@@ -1135,6 +1229,188 @@ def run_algorithms(torch, ops) -> dict:
                 figure2=dict(finals=finals, holds=holds))
 
 
+def wire_config(algo: str, opts: dict, backend: str):
+    """A ``SolverConfig`` of one wire row on ``backend``."""
+    from repro_torch.consensus import CompressionConfig
+    from repro_torch.solvers import SolverConfig
+    from repro_torch.topology import TopologyProcessConfig
+    kw = dict(algo=algo, backend=backend, alpha=ALPHA, beta=ALPHA,
+              communication_interval=opts.get("communication_interval", 1))
+    if "compression" in opts:
+        kw["compression"] = CompressionConfig(**opts["compression"])
+    if "topology_process" in opts:
+        kw["topology_process"] = TopologyProcessConfig(
+            **opts["topology_process"])
+    return SolverConfig(**kw)
+
+
+def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
+    """Phase 4c for one row (see the module docstring)."""
+    from repro_torch.consensus import cumulative_wire_bytes
+    from repro_torch.kernels.consensus_step import ref
+    from repro_torch.core import convergence_metric_fn
+    from repro_torch.solvers import GraphStepper, make_solver, run_recorded
+    from repro_torch.solvers import solve
+    from repro_torch.topology import stream_of, stream_wire_bytes
+    algo, opts, want = WIRE_ROWS[name]
+    setup = dict(problem=problem, x0=x0, y0=y0, data=data)
+    # solve, captured, on cuda: counts to 0 just before, read just after.
+    # The wrappers count every launch from the host: each graph's warm-up
+    # steps and its capture (one pass through the step) and the
+    # round-latency mixes, and nothing between replays
+    latency = dict(consensus_mix=ROUND_LATENCY_MIXES, consensus_step=0)
+    warm = GraphStepper.WARMUP_STEPS
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    t0 = time.perf_counter()
+    res = solve(wire_config(algo, opts, "cuda"), NUM_STEPS, **setup)
+    solve_wall = time.perf_counter() - t0
+    wrapper = dict(ops.LAUNCHES)
+    captures = {}
+    for kernel in KERNEL_SYMBOL:
+        eager_side = wrapper[kernel] - latency[kernel]
+        check(eager_side >= 0 and eager_side % (warm + 1) == 0,
+              f"wire {name}: {kernel} wrapper count {wrapper[kernel]} is not "
+              f"the warm-up steps and captures plus {latency[kernel]}")
+        captures[kernel] = eager_side // (warm + 1)
+
+    # the same run as graphs of the step and the eq.-11 metric, in two
+    # calls (8 steps, then 32)
+    solver = make_solver(wire_config(algo, opts, "cuda"))
+    state0 = solver.init(problem, None, x0, y0, data)
+    eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
+    state8, head = solver.run_traced(state0, data, WIRE_EAGER_STEPS,
+                                     WIRE_EAGER_STEPS, eq11)
+    state40, tail = solver.run_traced(state8, data,
+                                      NUM_STEPS - WIRE_EAGER_STEPS,
+                                      NUM_STEPS - WIRE_EAGER_STEPS, eq11)
+    trace = head.tolist() + tail.tolist()[1:]
+    graphs = sorted(str(key) for key in solver.stepper.graphs)
+    # the consensus kernels the card ran in 40 replays of those graphs,
+    # alone in the profiled window (every graph is captured already)
+    _, replayed, windows = counted_launches(
+        torch, ops, lambda: run_recorded(solver, state0, data, NUM_STEPS, 0,
+                                         None, scan=True),
+        lambda wrapper: want)
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"wire {name}: a kernel was launched from the host between "
+          f"replays: {ops.LAUNCHES}")
+
+    # the short eager run on cuda: metric and state bit for bit
+    eager = make_solver(wire_config(algo, opts, "cuda"))
+    state_e = eager.init(problem, None, x0, y0, data)
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    state_e, trace_e, took = run_recorded(
+        eager, state_e, data, WIRE_EAGER_STEPS, WIRE_EAGER_STEPS,
+        lambda st: float(eq11(st)), scan=False)
+    eager_launches = dict(ops.LAUNCHES)
+    us_eager = 1e6 * took / WIRE_EAGER_STEPS
+    eager_gap = max(
+        float((a - b).abs().max()) for a, b in zip(
+            torch.utils._pytree.tree_leaves(state_e),
+            torch.utils._pytree.tree_leaves(state8))
+        if isinstance(a, torch.Tensor))
+    solve_gap = max(
+        float((a - b).abs().max()) for a, b in zip(
+            torch.utils._pytree.tree_leaves(res.state),
+            torch.utils._pytree.tree_leaves(state40))
+        if isinstance(a, torch.Tensor))
+
+    # dense, captured through solve, and its M_40 by the eager metric
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    res_d = solve(wire_config(algo, opts, "dense"), NUM_STEPS, **setup)
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"wire {name}: the dense run launched a kernel: {ops.LAUNCHES}")
+    m40_dense = float(eq11(res_d.state))
+    rel_dense = abs(trace[-1] - m40_dense) / abs(m40_dense)
+    tol = WIRE_RTOL if "compression" in opts else TRACE_RTOL
+
+    config = wire_config(algo, opts, "cuda")
+    comms = solver.communications_per_step
+    entries = sum(leaf[0].numel() for leaf in
+                  torch.utils._pytree.tree_leaves(res.state.x))
+    priced = cumulative_wire_bytes(config.compression, entries, NUM_STEPS,
+                                   comms, config.communication_interval)[-1]
+    rec = dict(
+        row=name, algo=algo, steps=NUM_STEPS, trace_captured=trace,
+        trace_eager=trace_e, m40_dense=m40_dense,
+        us_per_step_captured=res.us_per_step, us_per_step_eager=us_eager,
+        eager_steps=WIRE_EAGER_STEPS, graphs=graphs,
+        launches_replayed=replayed, launches_replay_windows=windows,
+        launches_captures=captures,
+        launches_warmup_steps={k: warm * v for k, v in captures.items()},
+        launches_round_latency=latency, launches_solve_wrapper=wrapper,
+        launches_eager_wrapper=eager_launches,
+        measured_wire_bytes=res.measured_wire_bytes,
+        measured_wire_bytes_dense=res_d.measured_wire_bytes,
+        priced_wire_bytes=priced, bytes_per_round=res.bytes_per_round,
+        entries=entries, comms_per_step=comms,
+        solve_wall_s=solve_wall,
+        eager_state_gap=eager_gap, solve_vs_traced_state_gap=solve_gap,
+        cuda_vs_dense_rel=rel_dense, cuda_vs_dense_rtol=tol)
+    stream = stream_of(solver._engine)
+    if stream is not None:
+        rec.update(stream_wire_bytes=stream_wire_bytes(
+            stream, config.compression, entries, NUM_STEPS, comms,
+            config.communication_interval)[-1],
+            mean_spectral_gap=stream.mean_spectral_gap,
+            period=stream.num_steps)
+        # both kernels on this row's last round matrix, against their
+        # plain versions (after the counts were read)
+        M = solver._engine.topology.round
+        gen = torch.Generator(device=M.device).manual_seed(1)
+        X, U, P, PP = (torch.randn(M.shape[0], 760, generator=gen,
+                                   device=M.device) for _ in range(4))
+        pairs = list(zip(
+            ops.consensus_step_kernel(M, X, U, P, PP, alpha=ALPHA),
+            ref.consensus_step_ref(M, X, U, P, PP, alpha=ALPHA)))
+        pairs.append((ops.consensus_mix_kernel(M, X),
+                       ref.consensus_mix_ref(M, X)))
+        rec["round_matrix_kernel_err"] = max(
+            float((g - w).abs().max()) for g, w in pairs)
+        check(rec["round_matrix_kernel_err"] <= F32_TOL,
+              f"wire {name}: the kernels disagree on the round matrix")
+    print(f"wire {name}: " + json.dumps(rec) + " (launches_replayed: the "
+          "card's kernel events in 40 replays of the row's graphs; "
+          "launches_solve_wrapper: solve's wrapper counts, its graphs' "
+          "warm-up steps and captures and the round-latency mixes; "
+          "trace_captured: run_traced's M_0, M_8, M_40; trace_eager: the "
+          "eager run's M_0, M_8; us_per_step_captured: solve's)",
+          flush=True)
+    check(len(trace) == 3 and all(math.isfinite(v) for v in trace),
+          f"wire {name}: trace {trace}")
+    check(trace[-1] < trace[0], f"wire {name}: M_40 = {trace[-1]} is not "
+          f"below M_0 = {trace[0]}")
+    check(trace_e == trace[:2] and eager_gap == 0.0,
+          f"wire {name}: captured and eager runs differ: {trace[:2]} against "
+          f"{trace_e}, state gap {eager_gap}")
+    check(solve_gap == 0.0, f"wire {name}: solve and run_traced differ "
+          f"({solve_gap})")
+    check(rel_dense <= tol, f"wire {name}: cuda M_40 {trace[-1]} and dense "
+          f"{m40_dense} differ by {rel_dense:.3e} (tolerance {tol:.1e})")
+    check(res.measured_wire_bytes == priced
+          and res_d.measured_wire_bytes == priced,
+          f"wire {name}: measured {res.measured_wire_bytes} / "
+          f"{res_d.measured_wire_bytes} bytes, priced {priced}")
+    check(replayed == want, f"wire {name}: the 40 replayed steps launched "
+          f"{replayed}, not {want}")
+    return rec
+
+
+def run_wire(torch, ops) -> dict:
+    """Phase 4c: every wire row on the Section-6 instance."""
+    from repro_torch.solvers import default_setup
+    problem, x0, y0, data = default_setup(0)
+    t0 = time.perf_counter()
+    rows = {name: run_wire_row(torch, ops, name, problem, x0, y0, data)
+            for name in WIRE_ROWS}
+    print(f"wire phase: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
     """``device_profile`` of eager INTERACT steps (warmed up before)."""
     return device_profile(torch, lambda: solver.run(state, data, steps),
@@ -1192,11 +1468,13 @@ def main() -> int:
 
     # -- the INTERACT path: counts to 0 just before, read just after -------
     cfg = dict(algo="interact", alpha=0.3, beta=0.3)
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
     t0 = time.perf_counter()
-    res_cuda, main_ran = device_launches(torch, lambda: solve(
-        SolverConfig(backend="cuda", **cfg), NUM_STEPS, RECORD_EVERY))
+    res_cuda, main_ran, main_windows = counted_launches(
+        torch, ops, lambda: solve(SolverConfig(backend="cuda", **cfg),
+                                  NUM_STEPS, RECORD_EVERY),
+        lambda wrapper: dict(
+            consensus_step=NUM_STEPS + GraphStepper.WARMUP_STEPS,
+            consensus_mix=wrapper["consensus_mix"]))
     launches = dict(ops.LAUNCHES)
     t_cuda = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1225,6 +1503,7 @@ def main() -> int:
               for a, b in zip(res_cuda.trace, res_dense.trace))
     print(f"main path: wrapper launches {launches} (the warm-up steps, the "
           f"capture and the round-latency mixes); the card ran {main_ran} "
+          f"(profiled windows: {main_windows}) "
           f"(torch.profiler's kernel events: {NUM_STEPS} replays and "
           f"{GraphStepper.WARMUP_STEPS} warm-up steps of consensus_step; "
           f"the cuda run's us_per_step is under the profiler); cuda vs "
@@ -1252,14 +1531,13 @@ def main() -> int:
     eager_solver.warmup(eager_state, data)
     # where both can see the launches (3 eager steps), the profiler's
     # kernel events count what the wrappers count
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
-    _, ran = device_launches(
-        torch, lambda: eager_solver.run(eager_state, data, 3))
+    _, ran, windows = counted_launches(
+        torch, ops, lambda: eager_solver.run(eager_state, data, 3),
+        lambda wrapper: wrapper)
     check(ran == ops.LAUNCHES, f"3 eager steps: kernel events {ran} "
-          f"against wrapper counts {ops.LAUNCHES}")
-    print(f"3 eager INTERACT steps: kernel events {ran}, wrapper counts "
-          f"{ops.LAUNCHES}", flush=True)
+          f"(windows {windows}) against wrapper counts {ops.LAUNCHES}")
+    print(f"3 eager INTERACT steps: kernel events {ran} (profiled windows "
+          f"{windows}), wrapper counts {ops.LAUNCHES}", flush=True)
     profiles = {
         "eager": profile_steps(torch, eager_solver, eager_state, data),
         "captured": profile_captured_steps(torch, solver, state, data)}
@@ -1274,6 +1552,9 @@ def main() -> int:
         else:
             profile["device_busy_share"] = "not measured: no device events"
         print(json.dumps({"profile": profile}), flush=True)
+
+    # -- the compressed wire and the time-varying topologies --------------
+    wire = run_wire(torch, ops)
 
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
@@ -1299,6 +1580,8 @@ def main() -> int:
                 name],
             launches_eager_run=runs[run_of, "eager"]["launches_run"][name],
             launches_runs_of=run_of,
+            launches_wire={row: rec["launches_replayed"][name]
+                           for row, rec in wire.items()},
             max_abs_err=err[name]["float32"],
             max_abs_err_bf16=err[name]["bfloat16"],
             ms=main["ms"], plain_ms=main["plain_ms"],

@@ -2,18 +2,24 @@
 
 Counterpart of ``repro.consensus.pallas``.  Wraps
 ``repro_torch/kernels/consensus_step`` behind the ``ConsensusEngine``
-API: both Step-1/3 products run in one kernel launch with the (m, m)
-mixing matrix in shared memory and the flattened parameters streaming
-through once.  The matrix is converted to a float32 tensor on the device
-once, here.  alpha is a runtime kernel argument, so any step size runs
-the fused kernel.  On CPU tensors the wrappers run the plain PyTorch
-versions of the kernels.
+API: on the full-precision path both Step-1/3 products run in one
+``consensus_step`` launch with the (m, m) mixing matrix in shared memory
+and the flattened parameters streaming through once; a time-varying
+topology feeds it the round's matrix.  On the wire path (compression or
+a communication interval) ``step1_step3`` composes the base class's two
+``mix_ef`` calls, each one ``consensus_mix`` launch of the compressed
+payload, as the reference's ``PallasEngine`` does.  The matrix is
+converted to a float32 tensor on the device once, here; a per-call
+matrix must be a contiguous float32 tensor on the same device (the
+kernel wrappers check).  alpha is a runtime kernel argument.  On CPU
+tensors the wrappers run the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.consensus.compress import CompressionConfig
 from repro_torch.consensus.engine import ConsensusEngine
 from repro_torch.core.consensus import MixingSpec
 from repro_torch.kernels.consensus_step.ops import (consensus_mix,
@@ -27,13 +33,25 @@ class CudaEngine(ConsensusEngine):
     name = "cuda"
 
     def __init__(self, mixing: MixingSpec | np.ndarray,
-                 device: torch.device | str):
+                 device: torch.device | str,
+                 compression: CompressionConfig | None = None,
+                 communication_interval: int = 1):
         mat = mixing.matrix if isinstance(mixing, MixingSpec) else mixing
         self.matrix = torch.as_tensor(np.asarray(mat), dtype=torch.float32,
                                       device=device).contiguous()
+        self._configure_wire(compression, communication_interval)
 
-    def mix(self, tree):
-        return consensus_mix(self.matrix, tree)
+    def mix(self, tree, *, matrix=None):
+        return consensus_mix(self.matrix if matrix is None else matrix, tree)
 
-    def step1_step3(self, x, u, p, p_prev, alpha: float):
-        return consensus_step(self.matrix, x, u, p, p_prev, alpha=float(alpha))
+    def step1_step3(self, x, u, p, p_prev, alpha: float, *, t=None, ef=None,
+                    matrix=None):
+        if ef is not None or self.wire_active:
+            return super().step1_step3(x, u, p, p_prev, alpha, t=t, ef=ef,
+                                       matrix=matrix)
+        self._ledger_note("x", x)
+        self._ledger_note("u", u)
+        if matrix is None:
+            matrix = self.topology_matrix(t, x)
+        return consensus_step(self.matrix if matrix is None else matrix,
+                              x, u, p, p_prev, alpha=float(alpha))

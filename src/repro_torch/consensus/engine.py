@@ -1,21 +1,52 @@
 """The ConsensusEngine API: one pluggable backend behind Steps 1 and 3.
 
-Counterpart of ``repro.consensus.engine`` on its full-precision path.
-The paper's communication result rests on the consensus combine
-``x_i <- sum_j M_ij x_j`` (eqs. 6/10):
+Counterpart of ``repro.consensus.engine``.  The paper's communication
+result rests on the consensus combine ``x_i <- sum_j M_ij x_j`` (eqs.
+6/10):
 
-    engine.mix(tree) -> tree
-        The bare combine on every (m, ...) leaf.
+    engine.mix(tree, matrix=None) -> tree
+        The bare combine on every (m, ...) leaf; ``matrix`` overrides
+        the engine's fixed matrix for this call.
 
-    engine.step1_step3(x, u, p, p_prev, alpha) -> (x_new, u_new)
+    engine.step1_step3(x, u, p, p_prev, alpha, *, t=None, ef=None,
+                       matrix=None) -> (x_new, u_new[, ef_new])
             x_new = mix(x) - alpha * u          (Step 1, eq. 6)
             u_new = mix(u) + (p - p_prev)       (Step 3, eq. 10)
-        The base class composes two ``mix`` calls; the ``cuda`` backend
-        runs both in one fused kernel launch.
+        The base class composes two ``mix`` calls (two ``mix_ef`` calls
+        on the wire path, where it also returns the new wire state); the
+        ``cuda`` backend runs the full-precision pair in one fused
+        kernel launch.
+
+    engine.mix_ef(tree, ef, t) -> (tree, ef)
+        The wire-aware combine: each agent sends the compressed
+        innovation against its public copy (CHOCO), under the warm-up
+        schedule and the communication interval.
+
+    engine.bytes_on_wire(tree) -> int
+        Wire bytes ONE agent ships for ONE combine of a per-agent
+        payload shaped like ``tree`` (no agent dim).
+
+Wire options (every backend): ``compression``, a ``CompressionConfig``,
+and ``communication_interval = k``, which mixes only on steps with ``t %
+k == 0``.  The step index t is a host int here, so the port computes
+only what the step's schedule selects: a warm-up step sends the raw
+innovation without compressing it, a step between rounds mixes nothing
+and launches nothing (the reference computes both sides of each
+``jnp.where``).  A captured step is captured once for each schedule
+(``wire_schedule``).
+
+A time-varying topology (``repro_torch.topology.attach_topology``) sits
+on ``engine.topology`` and gives each round its matrix
+(``topology_matrix``).  A realized stream is copied into a static round
+buffer by ``load_round(t)`` before the step runs (a CUDA graph replays
+with the buffer's address; the stepper loads it before each replay);
+the adaptive process computes its matrix on the device from the
+iterates.  An engine with ``engine.ledger`` set (``attach_ledger``)
+records the wire template of every stream it mixes.
 
 Backends: ``dense`` (the (m, m) matmul reference) and ``cuda`` (the
-hand-written Hopper kernels).  The compressed wire, time-varying
-topologies and Byzantine rules of the JAX engine are later slices.
+hand-written Hopper kernels).  The Byzantine rules of the JAX engine are
+a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +54,9 @@ from typing import Callable
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.consensus.compress import CompressionConfig, make_compressor
+from repro_torch.consensus.ledger import StreamRecord
 
 __all__ = ["BACKENDS", "ConsensusEngine", "consensus_descent_and_track",
            "make_engine", "register_backend"]
@@ -37,31 +71,230 @@ class ConsensusEngine:
 
     name = "base"
 
-    def mix(self, tree):
+    # time-varying topology runtime, installed by ``attach_topology``;
+    # None is the fixed-matrix path
+    topology = None
+    # the realized stream behind it, for accounting (``stream_of``)
+    topology_stream = None
+    # measured-communication ledger, installed by ``attach_ledger``
+    ledger = None
+
+    def _configure_wire(self, compression: CompressionConfig | None = None,
+                        communication_interval: int = 1) -> None:
+        """Install the wire options (call from ``__init__``)."""
+        self.compression = compression or CompressionConfig()
+        self.compressor = make_compressor(self.compression)
+        self.communication_interval = int(communication_interval)
+        if self.communication_interval < 1:
+            raise ValueError("communication_interval must be >= 1, got "
+                             f"{communication_interval}")
+        if not 0.0 < self.compression.gamma <= 1.0:
+            raise ValueError("compression.gamma must be in (0, 1], got "
+                             f"{self.compression.gamma}")
+
+    @property
+    def wire_active(self) -> bool:
+        """Does this engine need the (t, ef) wire path at all?"""
+        return (self.compression.active
+                or self.communication_interval != 1)
+
+    def wire_schedule(self, t: int) -> tuple[bool, bool]:
+        """``(warm-up, mixes)`` of the step from ``t``: whether it sends
+        uncompressed and whether it mixes at all (a silent step is never
+        a warm-up one).  The step computes only what these select, so a
+        captured step is captured once for each value."""
+        mixes = t % self.communication_interval == 0
+        warm = (mixes and self.compression.active
+                and t < self.compression.compress_after)
+        return warm, mixes
+
+    def mix(self, tree, *, matrix=None):
         """Apply ``x_i <- sum_j M_ij x_j`` to every leaf of ``tree``."""
         raise NotImplementedError
 
-    def step1_step3(self, x, u, p, p_prev, alpha: float):
-        """Fused eq. (6) + eq. (10): returns ``(x_new, u_new)``.
+    # -- the round's matrix -------------------------------------------------
+
+    def load_round(self, t: int) -> None:
+        """Make the step from ``t``'s matrix current: a realized stream
+        copies ``stream[t % T]`` into its round buffer.  Called outside
+        any capture, before the step runs or its graph replays."""
+        if self.topology is not None:
+            self.topology.load(t)
+
+    def topology_matrix(self, t, tree=None):
+        """The round's mixing-matrix override, or None on the fixed path
+        (the adaptive process reads the iterates ``tree``)."""
+        if self.topology is None:
+            return None
+        if t is None:
+            raise ValueError(
+                "a time-varying topology needs the step index: pass t= "
+                "to mix_ef / step1_step3 (or pass matrix=)")
+        return self.topology.matrix_at(t, tree)
+
+    # -- measured wire accounting ---------------------------------------
+
+    def _ledger_note(self, stream: str, tree) -> None:
+        """Record ``stream``'s per-round wire template on the ledger (a
+        no-op without one): one concatenated per-agent buffer a round,
+        exactly what ``bytes_on_wire`` prices."""
+        led = self.ledger
+        if led is None:
+            return
+        leaves = pytree.tree_leaves(tree)
+        m = int(leaves[0].shape[0]) if leaves[0].dim() else 1
+        size = sum(int(l.numel()) for l in leaves) // max(1, m)
+        led.note(stream, StreamRecord(
+            op=self.name, entries=size,
+            wire_bytes=int(self.compressor.bytes_on_wire(size)),
+            full_bytes=4 * size, collectives=1))
+
+    # -- the wire path: compression, warm-up, interval ---------------------
+
+    def _self_weights(self, matrix=None) -> torch.Tensor:
+        """Per-agent self weights M[i, i]."""
+        mat = self.matrix if matrix is None else matrix
+        return torch.diagonal(mat).to(torch.float32)
+
+    def _damp(self, mixed, tree):
+        """CHOCO consensus step size: ``x + gamma * (mixed - x)``."""
+        g = self.compression.gamma
+        if g == 1.0:
+            return mixed
+        return pytree.tree_map(
+            lambda mx, xx: (g * _f32(mx) + (1.0 - g) * _f32(xx)
+                            ).to(mx.dtype), mixed, tree)
+
+    @staticmethod
+    def _require_t(t) -> int:
+        if t is None:
+            raise ValueError(
+                "the warm-up schedule / communication interval need the "
+                "step index: pass t= to mix_ef / step1_step3")
+        return int(t)
+
+    def _skips(self, t) -> bool:
+        """Whether the step from ``t`` mixes nothing (between rounds)."""
+        k = self.communication_interval
+        return k != 1 and self._require_t(t) % k != 0
+
+    def _compress_payload(self, tree, ef, t):
+        """``(payload_tree, ef_new)``: each agent's leaves concatenated
+        into one row of an (m, D) float32 buffer and compressed row by
+        row.
+
+        With wire state ``ef = {"e", "ref"}`` the agent sends ``c = C(x -
+        ref)`` and every receiver reconstructs ``payload = ref + c``;
+        ``ef_new`` holds the residual ``(x - ref) - c`` and the advanced
+        public copy.  With ``ef=None``, ``payload = C(x)``.  A warm-up
+        step sends ``x - ref`` as it is.
+        """
+        leaves, spec = pytree.tree_flatten(tree)
+        m = leaves[0].shape[0]
+        sizes = [int(l.numel()) // m for l in leaves]
+        concat = lambda tr: torch.cat(
+            [_f32(l).reshape(m, -1) for l in pytree.tree_leaves(tr)], dim=1)
+
+        def split(buf, cast: bool):
+            parts = torch.split(buf, sizes, dim=1)
+            return pytree.tree_unflatten(
+                [p.reshape(l.shape).to(l.dtype) if cast
+                 else p.reshape(l.shape) for p, l in zip(parts, leaves)],
+                spec)
+
+        buf = concat(tree)
+        ref = None if ef is None else concat(ef["ref"])
+        v = buf if ref is None else buf - ref
+        warm, _ = self.wire_schedule(self._require_t(t))
+        c = v if warm else self.compressor.encode_decode(v)
+        if ref is None:
+            return split(c, cast=True), None
+        payload = ref + c
+        return split(payload, cast=True), {"e": split(v - c, cast=False),
+                                           "ref": split(payload, cast=False)}
+
+    def mix_ef(self, tree, ef=None, t=None, *, matrix=None,
+               stream: str = "x"):
+        """The wire-aware combine: ``(mixed, ef_new)``.
+
+        ``ef`` is this stream's wire state ``{"e", "ref"}`` (``None``
+        without error feedback).  Receivers combine the reconstructed
+        payload; the agent's own term mixes its clean value,
+        ``mix(payload) + M_ii (x - payload)``, then ``gamma`` damps.  On
+        a step between rounds nothing is sent: the local values stand
+        and the wire state stays.  ``matrix`` (or the attached topology's
+        round matrix for ``t``) overrides the fixed matrix.  With no wire
+        options this is ``(mix(tree), ef)``.
+        """
+        self._ledger_note(stream, tree)
+        if self._skips(t):
+            return tree, ef
+        if matrix is None:
+            matrix = self.topology_matrix(t, tree)
+        if not self.compression.active:
+            return self.mix(tree, matrix=matrix), ef
+        payload, ef_new = self._compress_payload(tree, ef, t)
+        mixed = self.mix(payload, matrix=matrix)
+        d = self._self_weights(matrix)
+        mixed = pytree.tree_map(
+            lambda mx, xx, cc: (
+                _f32(mx) + d.reshape((-1,) + (1,) * (mx.dim() - 1))
+                * (_f32(xx) - _f32(cc))).to(mx.dtype),
+            mixed, tree, payload)
+        return self._damp(mixed, tree), ef_new
+
+    def bytes_on_wire(self, tree) -> int:
+        """Wire bytes ONE agent ships for ONE combine of the per-agent
+        payload ``tree`` (no agent dim), schedule not folded in (see
+        ``cumulative_wire_bytes``)."""
+        size = sum(int(l.numel()) for l in pytree.tree_leaves(tree))
+        return self.compressor.bytes_on_wire(size)
+
+    def step1_step3(self, x, u, p, p_prev, alpha: float, *, t=None, ef=None,
+                    matrix=None):
+        """Fused eq. (6) + eq. (10).
+
+        Returns ``(x_new, u_new)`` on the full-precision path (``ef is
+        None`` and no wire options), ``(x_new, u_new, ef_new)`` on the
+        wire path, where ``ef`` is ``{"x": {"e", "ref"}, "u": {...}}`` or
+        ``None``.  One matrix serves both mixes; the adaptive topology
+        computes it from the pre-mix x.
 
         Math runs in float32 and is cast back to the leaf dtype.  The
         tracking term is grouped as ``mix(u) + (p - p_prev)``, so calling
         with ``p is p_prev`` yields ``mix(u)`` exactly.
         """
-        x_mixed = self.mix(x)
-        u_mixed = self.mix(u)
+        wire = ef is not None or self.wire_active
+        if matrix is None and not self._skips(t):
+            matrix = self.topology_matrix(t, x)
+        if wire:
+            x_mixed, ef_x = self.mix_ef(
+                x, None if ef is None else ef.get("x"), t, matrix=matrix,
+                stream="x")
+            u_mixed, ef_u = self.mix_ef(
+                u, None if ef is None else ef.get("u"), t, matrix=matrix,
+                stream="u")
+        else:
+            self._ledger_note("x", x)
+            self._ledger_note("u", u)
+            x_mixed = self.mix(x, matrix=matrix)
+            u_mixed = self.mix(u, matrix=matrix)
         x_new = pytree.tree_map(
             lambda mx, uu: (_f32(mx) - alpha * _f32(uu)).to(mx.dtype),
             x_mixed, u)
         u_new = pytree.tree_map(
             lambda mu, pn, pp: (_f32(mu) + (_f32(pn) - _f32(pp))).to(mu.dtype),
             u_mixed, p, p_prev)
-        return x_new, u_new
+        if not wire:
+            return x_new, u_new
+        # keys sorted, like ``init_ef``'s
+        ef_new = None if ef is None else {"u": ef_u, "x": ef_x}
+        return x_new, u_new, ef_new
 
 
 def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
                                 alpha: float, beta: float,
-                                grads_fn: Callable):
+                                grads_fn: Callable, *, t=None, ef=None):
     """One INTERACT iteration skeleton.
 
       Step 1: x_new = mix(x) - alpha u ;  y_new = y - beta v
@@ -71,10 +304,17 @@ def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
     Both mixes go through one ``engine.step1_step3`` call (with
     ``p = p_prev`` its tracking term vanishes and it returns
     ``(x_new, mix(u))``), so the ``cuda`` backend runs them in a single
-    kernel launch; the tracking correction is applied once the new local
-    gradients exist.  Returns ``(x_new, y_new, u_new, v_new, p_new, aux)``.
+    kernel launch on the full-precision path; the tracking correction is
+    applied once the new local gradients exist.  ``t`` (the step index)
+    and ``ef`` (the wire state, or ``None``) drive the engine's wire path.
+    Returns ``(x_new, y_new, u_new, v_new, p_new, ef_new, aux)``.
     """
-    x_new, u_mixed = engine.step1_step3(x, u, p_prev, p_prev, alpha)
+    if ef is not None or engine.wire_active:
+        x_new, u_mixed, ef_new = engine.step1_step3(
+            x, u, p_prev, p_prev, alpha, t=t, ef=ef)
+    else:
+        x_new, u_mixed = engine.step1_step3(x, u, p_prev, p_prev, alpha, t=t)
+        ef_new = ef
     y_new = pytree.tree_map(
         lambda yy, vv: (_f32(yy) - beta * _f32(vv)).to(yy.dtype), y, v)
 
@@ -83,10 +323,10 @@ def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
     u_new = pytree.tree_map(
         lambda mu, pn, pp: (_f32(mu) + (_f32(pn) - _f32(pp))).to(mu.dtype),
         u_mixed, p_new, p_prev)
-    return x_new, y_new, u_new, v_new, p_new, aux
+    return x_new, y_new, u_new, v_new, p_new, ef_new, aux
 
 
-# Backend registry: name -> factory(mixing, device).
+# Backend registry: name -> factory(mixing, device, **opts).
 BACKENDS: dict[str, Callable] = {}
 
 
@@ -105,22 +345,24 @@ def register_backend(name: str) -> Callable[[Callable], Callable]:
 
 
 @register_backend("dense")
-def _make_dense(mixing, device):
+def _make_dense(mixing, device, **opts):
     from repro_torch.consensus.dense import DenseEngine
-    return DenseEngine(mixing, device)
+    return DenseEngine(mixing, device, **opts)
 
 
 @register_backend("cuda")
-def _make_cuda(mixing, device):
+def _make_cuda(mixing, device, **opts):
     from repro_torch.consensus.cuda import CudaEngine
-    return CudaEngine(mixing, device)
+    return CudaEngine(mixing, device, **opts)
 
 
-def make_engine(backend: str, mixing,
-                device: torch.device | str) -> ConsensusEngine:
+def make_engine(backend: str, mixing, device: torch.device | str,
+                **opts) -> ConsensusEngine:
     """Build a consensus backend by name on ``device``.
 
-    ``mixing`` is a ``MixingSpec`` or a raw (m, m) matrix.
+    ``mixing`` is a ``MixingSpec`` or a raw (m, m) matrix; every backend
+    accepts the wire options ``compression`` and
+    ``communication_interval``.
     """
     try:
         factory = BACKENDS[backend]
@@ -128,4 +370,4 @@ def make_engine(backend: str, mixing,
         raise ValueError(
             f"unknown consensus backend {backend!r}; "
             f"choose from {sorted(BACKENDS)}") from None
-    return factory(mixing, device)
+    return factory(mixing, device, **opts)

@@ -20,9 +20,11 @@ __all__ = ["agent_data_from_numpy", "lm_params_from_numpy",
 
 
 def tree_from_numpy(tree, device: torch.device | str):
-    """Every numpy leaf of ``tree`` as a tensor on ``device`` (a copy)."""
+    """Every numpy leaf of ``tree`` as a tensor on ``device`` (a copy);
+    ``None`` stays ``None``."""
     return pytree.tree_map(
-        lambda a: torch.tensor(np.asarray(a), device=device), tree)
+        lambda a: None if a is None else torch.tensor(np.asarray(a),
+                                                      device=device), tree)
 
 
 def agent_data_from_numpy(data, device: torch.device | str) -> AgentData:
@@ -40,7 +42,8 @@ def state_from_numpy(state, device: torch.device | str,
                      kind: type = InteractState):
     """A port state of class ``kind`` (``InteractState``, ``SvrState``,
     ``GtDsgdState``, ``DsgdState``) from any object with its fields:
-    numpy pytrees, and ``t``."""
+    numpy pytrees, and ``t``.  The wire state ``ef`` comes across as its
+    nested dicts, or ``None``."""
     fields = {f: tree_from_numpy(getattr(state, f), device)
               for f in kind._fields if f != "t"}
     return kind(**fields, t=int(np.asarray(state.t)))

@@ -21,6 +21,7 @@ import torch
 from torch.func import grad, vmap
 from torch.utils import _pytree as pytree
 
+from repro_torch.consensus.compress import CompressionConfig, init_ef
 from repro_torch.consensus.engine import (ConsensusEngine,
                                           consensus_descent_and_track)
 from repro_torch.core.bilevel import AgentData, BilevelProblem
@@ -37,6 +38,7 @@ class InteractState(NamedTuple):
     v: object        # inner gradient, like y
     p_prev: object   # previous local hypergradient, like x
     t: int           # iteration counter
+    ef: object = None  # wire state {"x", "u"} (compressed wire with EF)
 
 
 def _per_agent_batch(data: AgentData):
@@ -60,11 +62,14 @@ def _all_agent_gradients(problem, hg_cfg, x, y, data: AgentData):
 
 
 def init_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
-               x0, y0, data: AgentData) -> InteractState:
+               x0, y0, data: AgentData,
+               compression: CompressionConfig | None = None) -> InteractState:
     """Algorithm-1 initialisation: u_0 = grad_bar f(x_0, y_0), v_0 = grad_y g.
 
     ``x0``/``y0`` are single-agent pytrees; every agent starts from the
     same point, so they are broadcast along the agent axis (as copies).
+    ``compression`` adds the zero wire state of the x and u streams when
+    it uses error feedback (``init_ef``); otherwise ``ef`` is ``None``.
     """
     m = data.inner_x.shape[0]
     bcast = lambda tree: pytree.tree_map(
@@ -72,7 +77,8 @@ def init_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
     x, y = bcast(x0), bcast(y0)
     p, v = _all_agent_gradients(problem, hg_cfg, x, y, data)
     p_prev = pytree.tree_map(torch.clone, p)
-    return InteractState(x=x, y=y, u=p, v=v, p_prev=p_prev, t=0)
+    return InteractState(x=x, y=y, u=p, v=v, p_prev=p_prev, t=0,
+                         ef=init_ef(compression, x=x, u=p))
 
 
 def interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
@@ -85,11 +91,12 @@ def interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
                                             data)
         return p_new, v_new, None
 
-    x_new, y_new, u_new, v_new, p_new, _ = consensus_descent_and_track(
-        engine, state.x, state.y, state.u, state.v, state.p_prev,
-        alpha, beta, grads_fn)
+    x_new, y_new, u_new, v_new, p_new, ef_new, _ = (
+        consensus_descent_and_track(
+            engine, state.x, state.y, state.u, state.v, state.p_prev,
+            alpha, beta, grads_fn, t=state.t, ef=state.ef))
     return InteractState(x=x_new, y=y_new, u=u_new, v=v_new, p_prev=p_new,
-                         t=state.t + 1)
+                         t=state.t + 1, ef=ef_new)
 
 
 def theorem1_step_sizes(mu_g: float, L_g: float, lam: float, m: int,

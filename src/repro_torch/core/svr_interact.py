@@ -31,6 +31,7 @@ import torch
 from torch.func import grad, vmap
 from torch.utils import _pytree as pytree
 
+from repro_torch.consensus.compress import CompressionConfig, init_ef
 from repro_torch.consensus.engine import (ConsensusEngine,
                                           consensus_descent_and_track)
 from repro_torch.core.bilevel import AgentData, BilevelProblem
@@ -104,6 +105,7 @@ class SvrState(NamedTuple):
     x_prev: object   # previous iterates (the reference's state keeps them)
     y_prev: object
     t: int           # iteration counter
+    ef: object = None  # wire state {"x", "u"} (compressed wire with EF)
 
 
 def _full_grads(problem, hg_cfg, x, y, data: AgentData, k):
@@ -135,15 +137,17 @@ def broadcast_agents(tree, m: int):
 
 
 def init_svr_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
-                   x0, y0, data: AgentData, draws: Draws) -> SvrState:
+                   x0, y0, data: AgentData, draws: Draws,
+                   compression: CompressionConfig | None = None) -> SvrState:
     """u_0 = p_0 = grad_bar f(x_0, y_0), v_0 = grad_y g, full batch;
-    ``draws.k`` is each agent's Neumann draw (the indices are unused)."""
+    ``draws.k`` is each agent's Neumann draw (the indices are unused).
+    ``compression`` adds the x and u wire state (``init_ef``)."""
     m = data.inner_x.shape[0]
     x, y = broadcast_agents(x0, m), broadcast_agents(y0, m)
     p, v = vmap(partial(_full_grads, problem, hg_cfg))(x, y, data, draws.k)
     copy = lambda tree: pytree.tree_map(torch.clone, tree)
     return SvrState(x=x, y=y, u=p, v=v, p_prev=copy(p), x_prev=copy(x),
-                    y_prev=copy(y), t=0)
+                    y_prev=copy(y), t=0, ef=init_ef(compression, x=x, u=p))
 
 
 def is_refresh(t: int, q: int) -> bool:
@@ -179,8 +183,10 @@ def svr_interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
                                   state.p_prev, data, draws)
         return p, v, None
 
-    x_new, y_new, u_new, v_new, p_new, _ = consensus_descent_and_track(
-        engine, state.x, state.y, state.u, state.v, state.p_prev,
-        alpha, beta, grads_fn)
+    x_new, y_new, u_new, v_new, p_new, ef_new, _ = (
+        consensus_descent_and_track(
+            engine, state.x, state.y, state.u, state.v, state.p_prev,
+            alpha, beta, grads_fn, t=state.t, ef=state.ef))
     return SvrState(x=x_new, y=y_new, u=u_new, v=v_new, p_prev=p_new,
-                    x_prev=state.x, y_prev=state.y, t=state.t + 1)
+                    x_prev=state.x, y_prev=state.y, t=state.t + 1,
+                    ef=ef_new)

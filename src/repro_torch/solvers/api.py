@@ -14,8 +14,9 @@ Stepping.  The JAX package compiles a chunk of steps into one XLA
 program (``lax.scan``).  The port's counterpart is the CUDA graph:
 ``run_traced`` and ``run_recorded(scan=True)`` capture one step over
 static state and draw buffers (one graph for each branch a step can
-take: SVR-INTERACT's refresh and recursive steps) and replay it every
-step, and ``run_traced`` captures the metric too.  On a CUDA device a
+take: SVR-INTERACT's refresh and recursive steps, and the wire's warm-up,
+compressed and silent rounds) and replay it every step, and
+``run_traced`` captures the metric too.  On a CUDA device a
 capture that fails raises; nothing falls back to eager stepping.  On the
 CPU, where graphs do not exist, they run the eager loop, which is what
 ``run`` and ``run_recorded(scan=False)`` always run.
@@ -40,7 +41,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.consensus.engine import make_engine
-from repro_torch.consensus.ledger import time_round_us
+from repro_torch.consensus.ledger import attach_ledger, time_round_us
 from repro_torch.core.svr_interact import Draws, Sampler, step_draws
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.solvers.config import SolverConfig
@@ -121,7 +122,7 @@ class SolverBase:
 
     Subclasses implement ``_init_state`` and ``_make_step`` (the step
     body over a bound ``ConsensusEngine``); stochastic ones set
-    ``uses_draws`` and SVR-INTERACT overrides ``step_variant``.
+    ``uses_draws`` and SVR-INTERACT overrides ``branch``.
     """
 
     communications_per_step = 2  # Steps 1 and 3 each mix once
@@ -144,11 +145,17 @@ class SolverBase:
         """Return ``step(state, data, draws) -> state``."""
         raise NotImplementedError
 
-    def step_variant(self, t: int):
-        """Which branch the step from iteration ``t`` takes, where the step
-        branches on the host's t (one CUDA graph is captured per branch);
-        ``None`` for a step that does not branch."""
+    def branch(self, t: int):
+        """Which branch of the algorithm the step from iteration ``t``
+        takes, where it branches on the host's t; ``None`` for a step
+        that does not branch."""
         return None
+
+    def step_variant(self, t: int) -> tuple:
+        """Everything the host's t decides about the step from ``t``: the
+        algorithm's ``branch`` and the engine's ``wire_schedule`` (warm-up
+        and mixing rounds).  One CUDA graph is captured per value."""
+        return (self.branch(t), *self._engine.wire_schedule(t))
 
     # -- construction -----------------------------------------------------
     def build(self, problem, hg_cfg=None, *, device: torch.device | str,
@@ -162,7 +169,16 @@ class SolverBase:
             raise ValueError(
                 f"config declares a {spec.num_agents}-agent network "
                 f"(num_agents/mixing) but the data carries m={m} agents")
-        self._engine = make_engine(self.config.backend, spec, device)
+        engine = make_engine(
+            self.config.backend, spec, device,
+            compression=self.config.compression,
+            communication_interval=self.config.communication_interval,
+            **dict(self.config.backend_opts))
+        if not self.config.topology_process.is_static:
+            from repro_torch.topology import attach_topology
+            attach_topology(engine, self.config.topology_process, spec,
+                            seed=self.config.seed)
+        self._engine = engine
         self._step_fn = self._make_step(problem, hg_cfg, self._engine, n)
         self._problem, self._hg_cfg = problem, hg_cfg
         self._stepper = None
@@ -210,6 +226,7 @@ class SolverBase:
             raise RuntimeError("call init()/build() before step()")
         if draws is None and self.uses_draws:
             draws = step_draws(self.draw(1, _state_device(state)), 0)
+        self._engine.load_round(state.t)
         return self._step_fn(state, data, draws)
 
     def run(self, state, data, num_steps: int):
@@ -287,8 +304,13 @@ def _copy_state(dst, src) -> None:
 
     An ``src`` tensor that shares memory with a ``dst`` one (SVR-INTERACT
     returns the incoming x as x_prev) is cloned first, so no copy reads
-    a buffer another copy has overwritten.
+    a buffer another copy has overwritten.  Both must have one structure
+    (wire-state dicts with their keys in one order), else it raises.
     """
+    if pytree.tree_structure(dst) != pytree.tree_structure(src):
+        raise ValueError("state structures differ: "
+                         f"{pytree.tree_structure(dst)} against "
+                         f"{pytree.tree_structure(src)}")
     dst, src = _tensors(dst), _tensors(src)
     held = {t.untyped_storage().data_ptr() for t in dst}
     src = [t.clone() if t.untyped_storage().data_ptr() in held else t
@@ -335,8 +357,10 @@ class GraphStepper:
     The state lives in static buffers: ``load`` copies a state in and
     ``state()`` copies it out.  Each graph runs one step from the buffers
     and writes the new state back into them, so a replay needs no host
-    work beyond copying that step's draws into the draw buffers; t is
-    kept on the host and picks the graph (``solver.step_variant``).  A
+    work beyond copying that step's draws into the draw buffers and its
+    topology matrix into the engine's round buffer
+    (``engine.load_round``); t is kept on the host and picks the graph
+    (``solver.step_variant``).  A
     graph is captured the first time a step needs it (``prepare``
     captures every one a run needs before it starts), after
     ``WARMUP_STEPS`` eager steps on a copy on a side stream.  A capture
@@ -388,6 +412,7 @@ class GraphStepper:
         if graph is not None:
             return graph
         step, at_t = self.solver._step_fn, self.static._replace(t=t)
+        self.solver._engine.load_round(t)
         self._warm(lambda: step(_clone(at_t), self.data, self.draws))
         self.eager_steps += self.WARMUP_STEPS
         graph = torch.cuda.CUDAGraph()
@@ -429,6 +454,7 @@ class GraphStepper:
             if draws is not None:
                 for buf, d in zip(self.draws, draws):
                     buf.copy_(d[i])
+            self.solver._engine.load_round(self.t)
             graph.replay()
             self.t += 1
             self.replays += 1
@@ -479,6 +505,14 @@ class SolveResult:
     hvp_per_step: float = 0.0
     grad_per_step: float = 0.0
     hess_per_step: float = 0.0
+    # wire bytes one agent ships a consensus round under the engine's
+    # compressor (``engine.bytes_on_wire`` of one agent's x), schedule
+    # not folded in (see ``cumulative_wire_bytes``)
+    bytes_per_round: float = 0.0
+    # measured per-agent bytes over the run, from the ``CommsLedger``
+    # attached before stepping (stream templates noted where a combine is
+    # called, the warm-up/interval schedule replayed on the host)
+    measured_wire_bytes: float | None = None
     # median wall-clock of one warmed consensus combine of the final x
     round_latency_us: float | None = None
 
@@ -524,7 +558,9 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
 
     ``measure_hypergrad`` (default: ``record_every > 0``) attaches the
     per-step HVP / gradient / Hessian counts of one counted estimator
-    call at the initial iterate.
+    call at the initial iterate.  A ``CommsLedger`` on the engine
+    measures the bytes the run shipped (``measured_wire_bytes``), beside
+    the priced ``bytes_per_round``.
     """
     device = resolve_device(device)
     if measure_hypergrad is None:
@@ -538,6 +574,7 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
 
     solver = make_solver(config)
     state = solver.init(problem, hg_cfg, x0, y0, data)
+    ledger = attach_ledger(solver._engine)
 
     if metric_fn is None and record_every:
         from repro_torch.core.metrics import convergence_metric_fn
@@ -557,10 +594,17 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
         counts = dict(hvp_per_step=per_call.hvp_count * calls,
                       grad_per_step=per_call.grad_count * calls,
                       hess_per_step=per_call.hess_count * calls)
+    ledger.commit_steps(num_steps)
+    engine = solver._engine
+    ledger.observe_latency(time_round_us(engine.mix, state.x))
+    # one agent's consensus payload: its slice of the outer iterate tree
+    payload = pytree.tree_map(lambda leaf: leaf[0], state.x)
     return SolveResult(
         state=state, trace=trace,
         us_per_step=1e6 * took / max(num_steps, 1),
         samples_per_step=solver.samples_per_step(n),
         communications_per_step=solver.communications_per_step,
-        round_latency_us=time_round_us(solver._engine.mix, state.x),
+        bytes_per_round=float(engine.bytes_on_wire(payload)),
+        measured_wire_bytes=ledger.measured_wire_bytes,
+        round_latency_us=ledger.round_latency_us,
         **counts)

@@ -23,7 +23,8 @@ class GtDsgdSolver(SolverBase):
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         draws = step_draws(self.draw(1, data.inner_x.device), 0)
-        return init_gt_dsgd_state(problem, hg_cfg, x0, y0, data, draws)
+        return init_gt_dsgd_state(problem, hg_cfg, x0, y0, data, draws,
+                                  compression=self.config.compression)
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta
@@ -46,7 +47,8 @@ class DsgdSolver(SolverBase):
     uses_draws = True
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
-        return init_dsgd_state(x0, y0, data.inner_x.shape[0])
+        return init_dsgd_state(x0, y0, data.inner_x.shape[0],
+                               compression=self.config.compression)
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta

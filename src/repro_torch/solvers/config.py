@@ -1,18 +1,21 @@
 """`SolverConfig`: the configuration object behind every solver.
 
 Counterpart of ``repro.solvers.config`` with the fields the port
-honours.  Compression, topology processes, Byzantine rules and
-guards are later slices and have no field here yet.
+honours.  Byzantine rules, guards and the sweep's ``static_key`` are
+later slices and have no field here yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Mapping
 
+from repro_torch.consensus.compress import CompressionConfig
 from repro_torch.core.consensus import (MixingSpec, erdos_renyi_adjacency,
                                         laplacian_mixing, ring_mixing,
                                         torus_mixing)
 from repro_torch.hypergrad import HypergradConfig
+from repro_torch.topology.process import TopologyProcessConfig
 
 __all__ = ["SolverConfig", "TopologyConfig"]
 
@@ -62,9 +65,21 @@ class SolverConfig:
       mixing: explicit ``MixingSpec``; overrides ``topology`` when set.
       topology: declarative graph, realised once m is known.
       backend: consensus backend, "dense" or "cuda".
+      backend_opts: extra keyword arguments for ``make_engine``.
       hypergrad: how the inner-Hessian inverse is applied (eq. 5).
-      seed: seed of the default Section-6 instance ``solve`` builds, and
-        of the stochastic solvers' sampling generator.
+      compression: wire compression of the consensus payloads
+        (``CompressionConfig``: none / int8 / sign1bit / topk, error
+        feedback, warm-up, damping).
+      communication_interval: steps between consensus rounds (1 mixes
+        every step, the paper's algorithms); the steps between mix
+        nothing.
+      topology_process: how the mixing matrix evolves over steps
+        (``TopologyProcessConfig``: static / link-failure / straggler /
+        random-gossip / adaptive), on top of ``topology`` / ``mixing``;
+        the default static process changes nothing.
+      seed: seed of the default Section-6 instance ``solve`` builds, of
+        the stochastic solvers' sampling generator, and the fallback seed
+        of the topology process.
     """
 
     algo: str = "interact"
@@ -76,7 +91,11 @@ class SolverConfig:
     mixing: MixingSpec | None = None
     topology: TopologyConfig = TopologyConfig()
     backend: str = "dense"
+    backend_opts: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     hypergrad: HypergradConfig = HypergradConfig()
+    compression: CompressionConfig = CompressionConfig()
+    communication_interval: int = 1
+    topology_process: TopologyProcessConfig = TopologyProcessConfig()
     seed: int = 0
 
     def mixing_spec(self, m: int | None = None) -> MixingSpec:

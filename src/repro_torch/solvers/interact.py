@@ -17,7 +17,8 @@ class InteractSolver(SolverBase):
     """Deterministic INTERACT: full gradient pass (eqs. 8-9) each step."""
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
-        return init_state(problem, hg_cfg, x0, y0, data)
+        return init_state(problem, hg_cfg, x0, y0, data,
+                          compression=self.config.compression)
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta

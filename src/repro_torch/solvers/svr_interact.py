@@ -22,7 +22,8 @@ class SvrInteractSolver(SolverBase):
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         draws = step_draws(self.draw(1, data.inner_x.device), 0)
-        return init_svr_state(problem, hg_cfg, x0, y0, data, draws)
+        return init_svr_state(problem, hg_cfg, x0, y0, data, draws,
+                              compression=self.config.compression)
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta
@@ -34,7 +35,7 @@ class SvrInteractSolver(SolverBase):
 
         return step
 
-    def step_variant(self, t: int) -> bool:
+    def branch(self, t: int) -> bool:
         """True for a refresh step, False for a recursive one."""
         return is_refresh(t, self._q)
 

@@ -43,6 +43,15 @@ the eager step's kernels in its order, so the states must agree to
 ``CAPTURE_RTOL`` = 1e-6 of each field's scale (expected: bit for bit).
 A capture that cannot happen (a host read in the step or the metric)
 raises; nothing runs eagerly in its place.
+
+The wire and time-varying topologies, captured against eager at the
+same ``CAPTURE_RTOL``: a link-failure stream whose matrix changes every
+step (period 3: a graph that baked one slice of it in would replay that
+matrix), compression with a warm-up and a communication interval both
+active (three graphs: warm-up, silent and compressed rounds; a graph key
+without the schedule would replay the first), and the other rows of
+chip_smoke.py's ``wire`` phase.  Both consensus kernels take a per-call
+matrix whose contents change between replays of one graph.
 """
 import dataclasses
 
@@ -57,9 +66,11 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.core import convergence_metric_fn  # noqa: E402
+from repro_torch.consensus import CompressionConfig  # noqa: E402
 from repro_torch.hypergrad import HypergradConfig  # noqa: E402
 from repro_torch.solvers import (SolverConfig, default_setup,  # noqa: E402
                                  make_solver, run_recorded)
+from repro_torch.topology import TopologyProcessConfig  # noqa: E402
 
 FLASH_TOL = 2e-5             # float32
 WKV_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
@@ -427,3 +438,71 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(hopper):
         run_recorded(again, state, data, 2, scan=True)
     assert again.stepper.graphs == {}
     assert state.t == 0
+
+
+# (algo, wire and topology options, graphs captured over 6 steps)
+WIRE_CASES = {
+    "link-failure-period3": ("gt-dsgd", dict(
+        topology_process=TopologyProcessConfig("link-failure", p=0.3,
+                                               period=3)), 1),
+    "sign1bit-warm2-k2": ("interact", dict(
+        compression=CompressionConfig("sign1bit", compress_after=2),
+        communication_interval=2), 3),
+    "topk-gamma0.5": ("interact", dict(
+        compression=CompressionConfig("topk", gamma=0.5)), 1),
+    "int8-svr-interact": ("svr-interact", dict(
+        compression=CompressionConfig("int8")), 2),
+    "int8-d-sgd": ("d-sgd", dict(compression=CompressionConfig("int8")), 1),
+    "adaptive": ("interact", dict(
+        topology_process=TopologyProcessConfig("adaptive")), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIRE_CASES))
+def test_captured_wire_steps_equal_eager_steps(hopper, case):
+    algo, opts, graphs = WIRE_CASES[case]
+    problem, x0, y0, data, config = _section6(hopper, algo)
+    config = dataclasses.replace(config, **opts)
+    runs = {}
+    for scan in (False, True):
+        solver = make_solver(config)
+        state = solver.init(problem, None, x0, y0, data)
+        runs[scan] = run_recorded(solver, state, data, 6, scan=scan)[0]
+        if scan:
+            assert solver.stepper.replays == 6
+            assert len(solver.stepper.graphs) == graphs
+    assert runs[True].t == runs[False].t == 6
+    assert _max_rel_gap(runs[True], runs[False]) <= CAPTURE_RTOL
+
+
+@pytest.mark.cuda
+def test_kernels_read_a_matrix_that_changes_between_replays(hopper):
+    gen = torch.Generator(device=hopper).manual_seed(0)
+    rand = lambda *shape: torch.rand(*shape, generator=gen, device=hopper)
+    m, d = 5, 760
+    buf = torch.empty(m, m, device=hopper)
+    x, u, p, pp = (rand(m, d) for _ in range(4))
+    mats = [rand(m, m) for _ in range(3)]
+    buf.copy_(mats[0])
+    side = torch.cuda.Stream(hopper)
+    side.wait_stream(torch.cuda.current_stream(hopper))
+    with torch.cuda.stream(side):
+        mix_ops.consensus_mix_kernel(buf, x)
+        mix_ops.consensus_step_kernel(buf, x, u, p, pp, alpha=0.3)
+    torch.cuda.current_stream(hopper).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        mixed = mix_ops.consensus_mix_kernel(buf, x)
+        x_out, u_out = mix_ops.consensus_step_kernel(buf, x, u, p, pp,
+                                                     alpha=0.3)
+    for mat in mats[1:] + mats[:1]:
+        buf.copy_(mat)
+        graph.replay()
+        torch.cuda.synchronize(hopper)
+        tol = MIX_TOL[torch.float32]
+        torch.testing.assert_close(mixed, mix_ref.consensus_mix_ref(mat, x),
+                                   atol=tol, rtol=tol)
+        want = mix_ref.consensus_step_ref(mat, x, u, p, pp, alpha=0.3)
+        torch.testing.assert_close(x_out, want[0], atol=tol, rtol=tol)
+        torch.testing.assert_close(u_out, want[1], atol=tol, rtol=tol)

@@ -137,7 +137,8 @@ def test_run_traced_equals_run_recorded_bitwise(small, algo):
     assert state_t.t == state_r.t == 6
     for a, b in zip(torch.utils._pytree.tree_leaves(state_t),
                     torch.utils._pytree.tree_leaves(state_r)):
-        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
     _, empty = traced.run_traced(state_t, data, 2)
     assert empty.shape == (0,)
 
@@ -162,7 +163,8 @@ def test_cpu_steps_through_one_kept_eager_stepper(small):
     want = plain.run(plain.init(problem, None, x0, y0, data), data, 3)
     for a, b in zip(torch.utils._pytree.tree_leaves(stepper.state()),
                     torch.utils._pytree.tree_leaves(want)):
-        assert (a == b) if isinstance(a, int) else torch.equal(a, b)
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b)
     with pytest.raises(ValueError, match="CUDA device"):
         GraphStepper(solver, state, data)
 

@@ -131,10 +131,15 @@ def port_solver(instance, algo, hg, backend):
 
 
 def gaps(port_state, ref_state, kind) -> dict:
-    """Largest |port - ref| of each field over that field's largest |ref|."""
+    """Largest |port - ref| of each field over that field's largest |ref|;
+    a field the reference leaves ``None`` (the wire state ``ef`` of an
+    uncompressed run) must be ``None`` in the port too."""
     out = {}
     for f in kind._fields:
         if f == "t":
+            continue
+        if getattr(ref_state, f) is None:
+            assert getattr(port_state, f) is None, f
             continue
         got = [l.numpy() for l in
                torch.utils._pytree.tree_leaves(getattr(port_state, f))]
