@@ -39,8 +39,9 @@
    ``consensus_step`` once in each of the 40 replayed steps and the 2
    warm-up steps.  (The profiler loses a few kernel records in some
    windows and never adds one, so a count that falls short is taken
-   again from a repeat of the same run, three windows at most, and each
-   kernel's count is its largest: ``counted_launches``.)
+   again from a repeat of the same run, led by more spins, three windows
+   at most, and each kernel's count is its largest:
+   ``counted_launches``.)
 4b. The four Section-6 algorithms (INTERACT, SVR-INTERACT, GT-DSGD,
    D-SGD) on the same instance, nothing cut (m = 5, n = 600, 2 x 20 tanh
    backbone, ER(0.5) Laplacian, ``cg`` at 32 trips, alpha = beta = 0.3,
@@ -77,7 +78,7 @@
    ``run_traced`` in two calls (8 and 32 steps, step and eq.-11 metric
    replayed: M_0, M_8, M_40), whose state must equal ``solve``'s bit for
    bit and whose trace must fall; then 40 replays of those graphs
-   (``run_recorded``) alone under ``torch.profiler``, whose consensus
+   (``replays``) alone under ``torch.profiler``, whose consensus
    kernel events (``counted_launches``, as in 4) must be the row's, with
    nothing launched from the host; 8 eager steps on ``cuda``, whose M_0,
    M_8 and state must equal the captured ones bit for bit; and ``solve`` on
@@ -86,6 +87,27 @@
    (``WIRE_RTOL`` for the compressed rows).  Stream rows also print the
    per-link ``stream_wire_bytes`` and the mean spectral gap, and hold
    both kernels on the last round matrix against their plain versions.
+4d. The Byzantine layer (``BYZANTINE_ROWS``), on the same instance: one
+   sign-flip attacker (scale 25) under the weighted rule, zero attackers,
+   trimmed-mean (f = 1), INTERACT on the complete graph; GT-DSGD with the
+   coordinate median on the ER(0.5) graph (supports of 4, 2, 3, 4 and 2
+   agents); SVR-INTERACT with two gaussian attackers under krum-like; the
+   weighted sign-flip row under a NaN and norm (1e3) guard.  Clean
+   INTERACT on the complete graph, captured on ``cuda`` and ``dense``,
+   gives the baselines.  Each row runs as a wire row (captured ``solve``,
+   ``run_traced`` in two calls, 40 profiled replays, 8 eager steps,
+   ``dense``), with states compared bit for bit (NaN where NaN: the
+   weighted rows overflow) and measured bytes equal to priced ones
+   (attacks do not change the wire).  Row gates: weighted M_40 at least
+   10x the clean one or non-finite on both backends; zero attackers
+   bit for bit the clean ``dense`` run, and ``cuda`` within
+   ``TRACE_RTOL`` of the clean ``cuda`` M_40; trimmed-mean contains the
+   attacker (a finite M_40 below M_0 on both backends; its factor over
+   the same rule with no attacker, the reference's 3x gate, is
+   reported); ``cuda`` and ``dense`` traces within ``TRACE_RTOL``
+   where finite and non-finite together (the median's honest agents
+   finite); the guard's counters equal across captured, eager and
+   ``dense``, with a finite final state.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -150,6 +172,7 @@ KERNEL_SYMBOL = {"consensus_step": "consensus_step_kernel",
                  "consensus_mix": "consensus_mix_kernel"}
 PRIMER_LAUNCHES = 32    # see ``profiled``
 LAUNCH_WINDOWS = 3      # profiled runs at most, see ``counted_launches``
+LAUNCH_SHIFT = 97       # more leading spins in each later window
 PRIMER_SYMBOL = "spin_kernel"    # what torch.cuda._sleep launches
 # The cuda and dense runs differ only in how the mix is summed (the
 # kernel's sequential FMAs vs cuBLAS), a float32 rounding difference.
@@ -198,6 +221,42 @@ ROUND_LATENCY_MIXES = 6
 # 4 for the compressors' discontinuities (an int8 rounding, a top-k near
 # tie or a sign that a rounding difference flips), 1e-4.
 WIRE_RTOL = 1e-4
+
+# The Byzantine phase (4d): chip_smoke's rows of the Byzantine layer on
+# the Section-6 instance, each (algorithm, ER edge probability (1.0: the
+# complete graph of benchmarks/bench_byzantine.py), ByzantineConfig
+# options, GuardConfig options, the consensus kernels the 40 replayed
+# steps of its captured ``solve`` launch).  An attack or a robust rule
+# puts the step on the wire path: a weighted round is two consensus_mix
+# launches, a robust rule's combine launches no consensus kernel (plain
+# PyTorch, as the reference's is jnp outside any Pallas kernel).
+SIGN_FLIP1 = dict(kind="sign-flip", num_byzantine=1, scale=25.0)
+BYZANTINE_ROWS = {
+    "signflip1-weighted": ("interact", 1.0, SIGN_FLIP1, None,
+                           dict(consensus_mix=80, consensus_step=0)),
+    "signflip0-weighted": ("interact", 1.0, dict(SIGN_FLIP1,
+                                                 num_byzantine=0), None,
+                           dict(consensus_mix=80, consensus_step=0)),
+    "signflip1-trimmed1": ("interact", 1.0, dict(
+        SIGN_FLIP1, combine="trimmed-mean", trim=1), None,
+        dict(consensus_mix=0, consensus_step=0)),
+    "signflip1-median-gt-dsgd": ("gt-dsgd", 0.5, dict(
+        SIGN_FLIP1, combine="coordinate-median"), None,
+        dict(consensus_mix=0, consensus_step=0)),
+    "gaussian2-krum-svr": ("svr-interact", 1.0, dict(
+        kind="gaussian", num_byzantine=2, scale=25.0, combine="krum-like"),
+        None, dict(consensus_mix=0, consensus_step=0)),
+    "signflip1-weighted-guard": ("interact", 1.0, SIGN_FLIP1, dict(
+        nan=True, max_norm=1e3), dict(consensus_mix=80, consensus_step=0)),
+}
+# benchmarks/bench_byzantine.py's gates: one sign-flip attacker under the
+# weighted rule ends beyond 10x the clean run's M (or non-finite), gated
+# here; trimmed-mean with f = 1 within 3x of the same rule with no
+# attacker, reported here and not gated: on this instance the JAX
+# package's own runs end far beyond it too (ROADMAP Queue C), so the
+# trimmed row is gated on containment (a finite M_40 below M_0)
+WEIGHTED_DIVERGE_FACTOR = 10.0
+TRIMMED_GATE_FACTOR = 3.0
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -976,27 +1035,31 @@ def wall_ms(torch, fn, reps: int) -> list[float]:
     return runs
 
 
-def profiled(torch, run, cpu: bool = True):
+def profiled(torch, run, cpu: bool = True, lead: int = PRIMER_LAUNCHES):
     """``(run(), prof)``: ``run()`` under ``torch.profiler`` (CUDA
     activity, and CPU activity with ``cpu``).  The profiler can miss the
-    first few kernels launched after it starts and the last few before it
-    stops, so ``PRIMER_LAUNCHES`` spin kernels of about 60 us each
-    (``torch.cuda._sleep``), synchronised, come first and last; the
-    readers below leave their events out."""
+    first few kernels launched after it starts, and those that start on
+    a card gone idle (in some process states; a diagnostic in PR 19 found
+    the lost record at the first replay's start, after a synchronise), and
+    the last few before it stops.  So ``lead`` spin kernels of about 60 us
+    each (``torch.cuda._sleep``) come first, not synchronised, so that the
+    card is still busy when ``run()`` starts, and ``PRIMER_LAUNCHES``
+    synchronised ones come last; the readers below leave their events
+    out."""
     activities = [torch.profiler.ProfilerActivity.CUDA]
     if cpu:
         activities.append(torch.profiler.ProfilerActivity.CPU)
 
-    def spin():
-        for _ in range(PRIMER_LAUNCHES):
+    def spin(count: int):
+        for _ in range(count):
             torch.cuda._sleep(100_000)
-        torch.cuda.synchronize()
 
     with torch.profiler.profile(activities=activities) as prof:
-        spin()
+        spin(lead)
         out = run()
         torch.cuda.synchronize()
-        spin()
+        spin(PRIMER_LAUNCHES)
+        torch.cuda.synchronize()
     return out, prof
 
 
@@ -1008,6 +1071,7 @@ def device_profile(torch, run, units: int) -> dict:
     ``run()``, profiler overhead included."""
 
     def timed() -> float:
+        torch.cuda.synchronize()        # the leading spins
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1036,14 +1100,14 @@ def consensus_launches(kernels) -> dict:
             for name, symbol in KERNEL_SYMBOL.items()}
 
 
-def device_launches(torch, run):
+def device_launches(torch, run, lead: int = PRIMER_LAUNCHES):
     """``(run(), counts)``: ``consensus_launches`` during ``run()``, from
     the kernel events of ``torch.profiler`` (CUDA activity only).  A graph
     replay's kernels are events like any other, so this counts the
     launches no wrapper sees.  The events are read from the Chrome trace,
     which the profiler writes from C++: building its Python events for
     the 200,000 kernels of a 40-step captured run takes over a minute."""
-    out, prof = profiled(torch, run, cpu=False)
+    out, prof = profiled(torch, run, cpu=False, lead=lead)
     path = ROOT / "build" / "launch_trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
@@ -1056,6 +1120,14 @@ def device_launches(torch, run):
     return out, consensus_launches(kernels)
 
 
+def replays(stepper, state, num_steps: int):
+    """``num_steps`` replays of a ``GraphStepper``'s graphs (all captured
+    already) from ``state``: ``run_recorded(scan=True)``'s steps without
+    its synchronise and clock before them (see ``profiled``)."""
+    stepper.load(state)
+    stepper.advance(num_steps)
+
+
 def counted_launches(torch, ops, run, expected):
     """``(run(), counts, windows)``: the consensus kernels the card ran
     during ``run()`` (``device_launches``), with the wrapper counts set to
@@ -1066,12 +1138,15 @@ def counted_launches(torch, ops, run, expected):
     ``expected(wrapper counts)`` and none exceeds it, ``run()`` (which
     must repeat the same work) is profiled again, ``LAUNCH_WINDOWS``
     times in all at most; each kernel's count is its largest over the
-    windows, all of which are returned."""
+    windows, all of which are returned.  A loss can repeat in windows of
+    the same work (PR 19: one record short in all three windows of one
+    count), so window i leads with ``i * LAUNCH_SHIFT`` more spins."""
     windows = []
-    for _ in range(LAUNCH_WINDOWS):
+    for i in range(LAUNCH_WINDOWS):
         for name in ops.LAUNCHES:
             ops.LAUNCHES[name] = 0
-        out, ran = device_launches(torch, run)
+        out, ran = device_launches(torch, run,
+                                   PRIMER_LAUNCHES + i * LAUNCH_SHIFT)
         windows.append(ran)
         want = expected(dict(ops.LAUNCHES))
         if ran == want or any(ran[k] > want[k] for k in KERNEL_SYMBOL):
@@ -1289,8 +1364,7 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     # the consensus kernels the card ran in 40 replays of those graphs,
     # alone in the profiled window (every graph is captured already)
     _, replayed, windows = counted_launches(
-        torch, ops, lambda: run_recorded(solver, state0, data, NUM_STEPS, 0,
-                                         None, scan=True),
+        torch, ops, lambda: replays(solver.stepper, state0, NUM_STEPS),
         lambda wrapper: want)
     check(all(v == 0 for v in ops.LAUNCHES.values()),
           f"wire {name}: a kernel was launched from the host between "
@@ -1407,6 +1481,264 @@ def run_wire(torch, ops) -> dict:
     rows = {name: run_wire_row(torch, ops, name, problem, x0, y0, data)
             for name in WIRE_ROWS}
     print(f"wire phase: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Two states (or lists of floats) equal bit for bit: every tensor's
+    bytes (NaN and inf included), every other leaf by value (NaN equal to
+    NaN)."""
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b), strict=True):
+        if not isinstance(x, torch.Tensor):
+            if x != y and not (x != x and y != y):
+                return False
+        elif x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.reshape(-1).view(torch.uint8),
+                y.reshape(-1).view(torch.uint8)):
+            return False
+    return True
+
+
+def traces_agree(a: list, b: list, rtol: float) -> bool:
+    """Both non-finite, or both finite within ``rtol`` of ``b``, at every
+    record."""
+    return all((not math.isfinite(x) and not math.isfinite(y))
+               or (math.isfinite(x) and math.isfinite(y)
+                   and abs(x - y) <= rtol * abs(y)) for x, y in zip(a, b))
+
+
+def json_value(v):
+    """A float as itself when finite, else its name (strict JSON)."""
+    return v if not isinstance(v, float) or math.isfinite(v) else str(v)
+
+
+def byzantine_config(name: str, backend: str, clean: bool = False):
+    """A ``SolverConfig`` of one Byzantine row on ``backend`` (without its
+    attack, rule and guard with ``clean``)."""
+    from repro_torch.solvers import (ByzantineConfig, GuardConfig,
+                                     SolverConfig)
+    from repro_torch.solvers.config import TopologyConfig
+    algo, p, byz, guard, _ = BYZANTINE_ROWS[name]
+    kw = dict(algo=algo, backend=backend, alpha=ALPHA, beta=ALPHA,
+              topology=TopologyConfig(p_connect=p))
+    if not clean:
+        kw.update(byzantine=ByzantineConfig(**byz),
+                  guard=GuardConfig(**(guard or {})))
+    return SolverConfig(**kw)
+
+
+def run_byzantine_row(torch, ops, name: str, setup: dict, eq11,
+                      clean: dict) -> dict:
+    """Phase 4d for one row (see the module docstring)."""
+    from repro_torch.consensus import cumulative_wire_bytes
+    from repro_torch.solvers import GraphStepper, make_solver, run_recorded
+    from repro_torch.solvers import solve
+    algo, _, byz, guard, want = BYZANTINE_ROWS[name]
+    data = setup["data"]
+    config = byzantine_config(name, "cuda")
+    latency = dict(consensus_mix=ROUND_LATENCY_MIXES, consensus_step=0)
+    warm = GraphStepper.WARMUP_STEPS
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    t0 = time.perf_counter()
+    res = solve(config, NUM_STEPS, **setup)
+    solve_wall = time.perf_counter() - t0
+    wrapper = dict(ops.LAUNCHES)
+    captures = {}
+    for kernel in KERNEL_SYMBOL:
+        eager_side = wrapper[kernel] - latency[kernel]
+        check(eager_side >= 0 and eager_side % (warm + 1) == 0,
+              f"byzantine {name}: {kernel} wrapper count {wrapper[kernel]} "
+              f"is not the warm-up steps and captures plus "
+              f"{latency[kernel]}")
+        captures[kernel] = eager_side // (warm + 1)
+
+    walls = dict(solve=solve_wall)
+    # the same run as graphs of the step and the eq.-11 metric, 8 + 32
+    t0 = time.perf_counter()
+    solver = make_solver(config)
+    state0 = solver.init(setup["problem"], None, setup["x0"], setup["y0"],
+                         data)
+    state8, head = solver.run_traced(state0, data, WIRE_EAGER_STEPS,
+                                     WIRE_EAGER_STEPS, eq11)
+    state40, tail = solver.run_traced(state8, data,
+                                      NUM_STEPS - WIRE_EAGER_STEPS,
+                                      NUM_STEPS - WIRE_EAGER_STEPS, eq11)
+    trace = head.tolist() + tail.tolist()[1:]
+    graphs = sorted(str(key) for key in solver.stepper.graphs)
+    walls["run_traced"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, replayed, windows = counted_launches(
+        torch, ops, lambda: replays(solver.stepper, state0, NUM_STEPS),
+        lambda wrapper: want)
+    walls["profiled_replays"] = time.perf_counter() - t0
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"byzantine {name}: a kernel was launched from the host between "
+          f"replays: {ops.LAUNCHES}")
+
+    # 8 eager steps on cuda: metric and state (guard counters included)
+    # bit for bit the captured ones
+    t0 = time.perf_counter()
+    eager = make_solver(config)
+    state_e = eager.init(setup["problem"], None, setup["x0"], setup["y0"],
+                         data)
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    state_e, trace_e, took = run_recorded(
+        eager, state_e, data, WIRE_EAGER_STEPS, WIRE_EAGER_STEPS,
+        lambda st: float(eq11(st)), scan=False)
+    eager_launches = dict(ops.LAUNCHES)
+    eager_equal = bits_equal(torch, state_e, state8) and bits_equal(
+        torch, trace_e, trace[:2])
+    solve_equal = bits_equal(torch, res.state, state40)
+    walls["eager"] = time.perf_counter() - t0
+
+    # dense, captured through solve: no consensus kernel
+    t0 = time.perf_counter()
+    for kernel in ops.LAUNCHES:
+        ops.LAUNCHES[kernel] = 0
+    res_d = solve(byzantine_config(name, "dense"), NUM_STEPS, **setup)
+    check(all(v == 0 for v in ops.LAUNCHES.values()),
+          f"byzantine {name}: the dense run launched a kernel: "
+          f"{ops.LAUNCHES}")
+    m40_dense = float(eq11(res_d.state))
+    walls["dense"] = time.perf_counter() - t0
+    comms = solver.communications_per_step
+    entries = sum(leaf[0].numel() for leaf in
+                  torch.utils._pytree.tree_leaves(res.state.x))
+    priced = cumulative_wire_bytes(config.compression, entries, NUM_STEPS,
+                                   comms, config.communication_interval)[-1]
+    mask = solver._engine.attack_schedule.mask.tolist()
+    honest_finite = [
+        bool(torch.isfinite(leaf[i]).all()) for i in range(len(mask))
+        if not mask[i] for st in (res.state, res_d.state)
+        for leaf in torch.utils._pytree.tree_leaves(st.x)]
+    rec = dict(
+        row=name, algo=algo, byzantine=byz, guard=guard, steps=NUM_STEPS,
+        byzantine_slots=[i for i, bad in enumerate(mask) if bad],
+        trace_captured=[json_value(v) for v in trace],
+        trace_eager=[json_value(v) for v in trace_e],
+        m40_dense=json_value(m40_dense),
+        m40_clean=clean["m40_cuda"], m40_clean_dense=clean["m40_dense"],
+        us_per_step_captured=res.us_per_step,
+        us_per_step_eager=1e6 * took / WIRE_EAGER_STEPS,
+        eager_steps=WIRE_EAGER_STEPS, graphs=graphs,
+        launches_replayed=replayed, launches_replay_windows=windows,
+        launches_captures=captures,
+        launches_warmup_steps={k: warm * v for k, v in captures.items()},
+        launches_round_latency=latency, launches_solve_wrapper=wrapper,
+        launches_eager_wrapper=eager_launches,
+        measured_wire_bytes=res.measured_wire_bytes,
+        measured_wire_bytes_dense=res_d.measured_wire_bytes,
+        priced_wire_bytes=priced, entries=entries, comms_per_step=comms,
+        wall_s=walls, eager_equal_bitwise=eager_equal,
+        solve_equal_traced_bitwise=solve_equal,
+        cuda_equal_dense_bitwise=bits_equal(torch, res.state, res_d.state),
+        honest_x_finite=all(honest_finite),
+        tripped_steps=[res.tripped_steps, res_d.tripped_steps],
+        last_good_step=[res.last_good_step, res_d.last_good_step])
+    print(f"byzantine {name}: " + json.dumps(rec) + " (launches_replayed: "
+          "the card's kernel events in 40 replays of the row's graphs; "
+          "trace_captured: run_traced's M_0, M_8, M_40; trace_eager: the "
+          "eager run's M_0, M_8; m40_clean: clean INTERACT on the complete "
+          "graph, captured; tripped_steps, last_good_step: captured solve, "
+          "dense solve; wall_s: host clock of each part of the row)",
+          flush=True)
+
+    check(len(trace) == 3 and math.isfinite(trace[0]),
+          f"byzantine {name}: trace {trace}")
+    check(eager_equal, f"byzantine {name}: captured and eager runs differ: "
+          f"{trace[:2]} against {trace_e}")
+    check(solve_equal, f"byzantine {name}: solve and run_traced differ")
+    check(res.measured_wire_bytes == priced
+          and res_d.measured_wire_bytes == priced,
+          f"byzantine {name}: measured {res.measured_wire_bytes} / "
+          f"{res_d.measured_wire_bytes} bytes, priced {priced}")
+    check(replayed == want, f"byzantine {name}: the 40 replayed steps "
+          f"launched {replayed}, not {want}")
+    m40 = trace[-1]
+    if name == "signflip1-weighted":
+        for v in (m40, m40_dense):
+            check(not math.isfinite(v)
+                  or v >= WEIGHTED_DIVERGE_FACTOR * clean["m40_cuda"],
+                  f"byzantine {name}: M_40 {v} is finite and below "
+                  f"{WEIGHTED_DIVERGE_FACTOR}x the clean "
+                  f"{clean['m40_cuda']}")
+    elif name == "signflip0-weighted":
+        check(bits_equal(torch, res_d.state, clean["dense_state"]),
+              f"byzantine {name}: dense is not the clean dense run")
+        rel = abs(m40 - clean["m40_cuda"]) / abs(clean["m40_cuda"])
+        rec["cuda_vs_clean_cuda_rel"] = rel
+        check(rel <= TRACE_RTOL, f"byzantine {name}: cuda M_40 {m40} and "
+              f"clean cuda {clean['m40_cuda']} differ by {rel:.3e}")
+    elif name == "signflip1-trimmed1":
+        # the same rule with no attacker, the reference's baseline
+        zero = solve(dataclasses.replace(config, byzantine=dataclasses.replace(
+            config.byzantine, num_byzantine=0)), NUM_STEPS, **setup)
+        m40_zero = float(eq11(zero.state))
+        rec.update(m40_zero_attackers=m40_zero,
+                   factor_vs_zero_attackers=m40 / m40_zero,
+                   factor_vs_clean=m40 / clean["m40_cuda"],
+                   reference_gate_factor=TRIMMED_GATE_FACTOR)
+        print(f"byzantine {name}: M_40 {m40} against {m40_zero} with no "
+              f"attacker ({m40 / m40_zero:.2f}x; the reference's gate, "
+              f"{TRIMMED_GATE_FACTOR}x, not gated) and {clean['m40_cuda']} "
+              f"clean", flush=True)
+        for v in (m40, m40_dense):
+            check(math.isfinite(v) and v < trace[0],
+                  f"byzantine {name}: M_40 {v} is not finite and below "
+                  f"M_0 {trace[0]}")
+    elif name == "signflip1-median-gt-dsgd":
+        check(traces_agree([m40], [m40_dense], TRACE_RTOL),
+              f"byzantine {name}: cuda M_40 {m40} and dense {m40_dense} "
+              "disagree")
+        check(all(honest_finite), f"byzantine {name}: an honest agent's x "
+              "is not finite")
+    elif name == "gaussian2-krum-svr":
+        check(len(graphs) == 2, f"byzantine {name}: graphs {graphs}")
+        check(traces_agree([m40], [m40_dense], TRACE_RTOL),
+              f"byzantine {name}: cuda M_40 {m40} and dense {m40_dense} "
+              "disagree")
+    elif name == "signflip1-weighted-guard":
+        check(res.tripped_steps == res_d.tripped_steps > 0
+              and res.last_good_step == res_d.last_good_step,
+              f"byzantine {name}: guard counters {rec['tripped_steps']}, "
+              f"{rec['last_good_step']} (captured, dense)")
+        check(all(bool(torch.isfinite(leaf).all()) for leaf in
+                  torch.utils._pytree.tree_leaves(res.state)
+                  if isinstance(leaf, torch.Tensor)),
+              f"byzantine {name}: the guarded final state is not finite")
+    return rec
+
+
+def run_byzantine(torch, ops) -> dict:
+    """Phase 4d: the clean baselines, then every Byzantine row on the
+    Section-6 instance."""
+    from repro_torch.core import convergence_metric_fn
+    from repro_torch.solvers import default_setup, make_solver, solve
+    problem, x0, y0, data = default_setup(0)
+    setup = dict(problem=problem, x0=x0, y0=y0, data=data)
+    t0 = time.perf_counter()
+    solver = make_solver(byzantine_config("signflip1-weighted", "cuda"))
+    solver.init(problem, None, x0, y0, data)
+    eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
+    base = {b: solve(byzantine_config("signflip1-weighted", b, clean=True),
+                     NUM_STEPS, **setup) for b in ("cuda", "dense")}
+    clean = dict(m40_cuda=float(eq11(base["cuda"].state)),
+                 m40_dense=float(eq11(base["dense"].state)),
+                 dense_state=base["dense"].state)
+    print(f"byzantine clean: M_40 cuda {clean['m40_cuda']} dense "
+          f"{clean['m40_dense']} (INTERACT on the complete graph, captured "
+          f"solve; us_per_step cuda {base['cuda'].us_per_step:.1f})",
+          flush=True)
+    check(math.isfinite(clean["m40_cuda"]) and traces_agree(
+        [clean["m40_cuda"]], [clean["m40_dense"]], TRACE_RTOL),
+        "byzantine clean: cuda and dense M_40 disagree")
+    rows = {name: run_byzantine_row(torch, ops, name, setup, eq11, clean)
+            for name in BYZANTINE_ROWS}
+    print(f"byzantine phase: {len(rows)} rows and the clean baselines in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
@@ -1556,6 +1888,9 @@ def main() -> int:
     # -- the compressed wire and the time-varying topologies --------------
     wire = run_wire(torch, ops)
 
+    # -- the Byzantine layer: attacks, robust combines, guards ------------
+    byzantine = run_byzantine(torch, ops)
+
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
                for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
@@ -1582,6 +1917,8 @@ def main() -> int:
             launches_runs_of=run_of,
             launches_wire={row: rec["launches_replayed"][name]
                            for row, rec in wire.items()},
+            launches_byzantine={row: rec["launches_replayed"][name]
+                                for row, rec in byzantine.items()},
             max_abs_err=err[name]["float32"],
             max_abs_err_bf16=err[name]["bfloat16"],
             ms=main["ms"], plain_ms=main["plain_ms"],

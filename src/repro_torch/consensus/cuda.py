@@ -5,20 +5,24 @@ Counterpart of ``repro.consensus.pallas``.  Wraps
 API: on the full-precision path both Step-1/3 products run in one
 ``consensus_step`` launch with the (m, m) mixing matrix in shared memory
 and the flattened parameters streaming through once; a time-varying
-topology feeds it the round's matrix.  On the wire path (compression or
-a communication interval) ``step1_step3`` composes the base class's two
-``mix_ef`` calls, each one ``consensus_mix`` launch of the compressed
-payload, as the reference's ``PallasEngine`` does.  The matrix is
-converted to a float32 tensor on the device once, here; a per-call
-matrix must be a contiguous float32 tensor on the same device (the
-kernel wrappers check).  alpha is a runtime kernel argument.  On CPU
-tensors the wrappers run the plain PyTorch versions of the kernels.
+topology feeds it the round's matrix.  On the wire path (compression, a
+communication interval or a Byzantine config) ``step1_step3`` composes
+the base class's two ``mix_ef`` calls, as the reference's
+``PallasEngine`` does: each one ``consensus_mix`` launch of the
+(compressed, attacked) payload under the ``weighted`` rule; a robust
+rule launches no consensus kernel (its combine is plain PyTorch, as in
+the reference).  The matrix is converted to a float32 tensor on the
+device once, here; a per-call matrix must be a contiguous float32
+tensor on the same device (the kernel wrappers check).  alpha is a
+runtime kernel argument.  On CPU tensors the wrappers run the plain
+PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.byzantine import ByzantineConfig
 from repro_torch.consensus.compress import CompressionConfig
 from repro_torch.consensus.engine import ConsensusEngine
 from repro_torch.core.consensus import MixingSpec
@@ -35,11 +39,14 @@ class CudaEngine(ConsensusEngine):
     def __init__(self, mixing: MixingSpec | np.ndarray,
                  device: torch.device | str,
                  compression: CompressionConfig | None = None,
-                 communication_interval: int = 1):
+                 communication_interval: int = 1,
+                 byzantine: ByzantineConfig | None = None,
+                 attack_seed: int = 0):
         mat = mixing.matrix if isinstance(mixing, MixingSpec) else mixing
         self.matrix = torch.as_tensor(np.asarray(mat), dtype=torch.float32,
                                       device=device).contiguous()
-        self._configure_wire(compression, communication_interval)
+        self._configure_wire(compression, communication_interval, byzantine,
+                             attack_seed)
 
     def mix(self, tree, *, matrix=None):
         return consensus_mix(self.matrix if matrix is None else matrix, tree)

@@ -44,9 +44,16 @@ the adaptive process computes its matrix on the device from the
 iterates.  An engine with ``engine.ledger`` set (``attach_ledger``)
 records the wire template of every stream it mixes.
 
+Byzantine options (``byzantine``, a ``ByzantineConfig``) ride the wire
+path: ``mix_ef`` notes the ledger, corrupts the attacking slots' payload
+(``_attack_payload``), compresses it, and combines it with the
+configured rule (``_combine``: ``mix`` for ``weighted``, else
+``robust_combine`` over the round matrix's support).  A noisy attack's
+round noise sits in static buffers that ``load_round(t)`` refills, like
+a topology stream's round buffer.
+
 Backends: ``dense`` (the (m, m) matmul reference) and ``cuda`` (the
-hand-written Hopper kernels).  The Byzantine rules of the JAX engine are
-a later slice.
+hand-written Hopper kernels).
 """
 from __future__ import annotations
 
@@ -55,6 +62,8 @@ from typing import Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.byzantine import (AttackSchedule, ByzantineConfig,
+                                   apply_attack, robust_combine)
 from repro_torch.consensus.compress import CompressionConfig, make_compressor
 from repro_torch.consensus.ledger import StreamRecord
 
@@ -78,10 +87,17 @@ class ConsensusEngine:
     topology_stream = None
     # measured-communication ledger, installed by ``attach_ledger``
     ledger = None
+    # the attack's mask and noise buffers (None without an attack)
+    attack_schedule = None
 
     def _configure_wire(self, compression: CompressionConfig | None = None,
-                        communication_interval: int = 1) -> None:
-        """Install the wire options (call from ``__init__``)."""
+                        communication_interval: int = 1,
+                        byzantine: ByzantineConfig | None = None,
+                        attack_seed: int = 0) -> None:
+        """Install the wire options (call from ``__init__``, after
+        ``self.matrix``): the compressor, the mix cadence and the
+        Byzantine configuration, validated against m.  The attack draws
+        from ``byzantine.resolve_seed(attack_seed)``."""
         self.compression = compression or CompressionConfig()
         self.compressor = make_compressor(self.compression)
         self.communication_interval = int(communication_interval)
@@ -91,12 +107,22 @@ class ConsensusEngine:
         if not 0.0 < self.compression.gamma <= 1.0:
             raise ValueError("compression.gamma must be in (0, 1], got "
                              f"{self.compression.gamma}")
+        self.byzantine = byzantine or ByzantineConfig()
+        m = int(self.matrix.shape[0])
+        self.byzantine.validate_for(m)
+        if self.byzantine.attack_active:
+            self.attack_schedule = AttackSchedule(
+                self.byzantine, m, self.byzantine.resolve_seed(attack_seed),
+                self.matrix.device)
 
     @property
     def wire_active(self) -> bool:
-        """Does this engine need the (t, ef) wire path at all?"""
+        """Does this engine need the (t, ef) wire path at all?  Attacks
+        and robust rules live in ``mix_ef`` too, which also takes the
+        ``cuda`` backend off its fused step."""
         return (self.compression.active
-                or self.communication_interval != 1)
+                or self.communication_interval != 1
+                or self.byzantine.active)
 
     def wire_schedule(self, t: int) -> tuple[bool, bool]:
         """``(warm-up, mixes)`` of the step from ``t``: whether it sends
@@ -115,11 +141,22 @@ class ConsensusEngine:
     # -- the round's matrix -------------------------------------------------
 
     def load_round(self, t: int) -> None:
-        """Make the step from ``t``'s matrix current: a realized stream
-        copies ``stream[t % T]`` into its round buffer.  Called outside
-        any capture, before the step runs or its graph replays."""
+        """Make the step from ``t``'s matrix and attack noise current: a
+        realized stream copies ``stream[t % T]`` into its round buffer, a
+        noisy attack draws step t's noise into its buffers.  Called
+        outside any capture, before the step runs or its graph
+        replays."""
         if self.topology is not None:
             self.topology.load(t)
+        if self.attack_schedule is not None:
+            self.attack_schedule.load(t)
+
+    def prefetch_rounds(self, t: int, num_steps: int) -> None:
+        """Draw the attack noise of steps ``t .. t + num_steps - 1`` ahead,
+        so ``load_round`` copies it on the device without waiting (a
+        no-op without a noisy attack)."""
+        if self.attack_schedule is not None:
+            self.attack_schedule.prefetch(t, num_steps)
 
     def topology_matrix(self, t, tree=None):
         """The round's mixing-matrix override, or None on the fixed path
@@ -148,6 +185,30 @@ class ConsensusEngine:
             op=self.name, entries=size,
             wire_bytes=int(self.compressor.bytes_on_wire(size)),
             full_bytes=4 * size, collectives=1))
+
+    # -- Byzantine layer: payload corruption, robust aggregation ----------
+
+    def _attack_payload(self, tree, t, stream: str):
+        """The payload the agents ship on ``stream`` at step ``t``: the
+        Byzantine slots' rows corrupted, honest rows bit for bit (the
+        tree itself without an attack on this stream)."""
+        sched = self.attack_schedule
+        if sched is None or stream not in sched.attack.streams:
+            return tree
+        leaves = pytree.tree_leaves(tree)
+        size = sum(int(l.numel()) for l in leaves) // int(leaves[0].shape[0])
+        noise = sched.noise(stream, self._require_t(t), size)
+        return apply_attack(sched.attack, tree, sched.mask, noise,
+                            sched.scale)
+
+    def _combine(self, tree, *, matrix=None):
+        """The configured aggregation: ``mix`` for ``weighted``, else the
+        robust rule over the support of the round's matrix."""
+        rule = self.byzantine.combine
+        if rule == "weighted":
+            return self.mix(tree, matrix=matrix)
+        return robust_combine(self.matrix if matrix is None else matrix,
+                              tree, rule, self.byzantine.resolve_trim())
 
     # -- the wire path: compression, warm-up, interval ---------------------
 
@@ -218,29 +279,36 @@ class ConsensusEngine:
         """The wire-aware combine: ``(mixed, ef_new)``.
 
         ``ef`` is this stream's wire state ``{"e", "ref"}`` (``None``
-        without error feedback).  Receivers combine the reconstructed
-        payload; the agent's own term mixes its clean value,
-        ``mix(payload) + M_ii (x - payload)``, then ``gamma`` damps.  On
-        a step between rounds nothing is sent: the local values stand
-        and the wire state stays.  ``matrix`` (or the attached topology's
-        round matrix for ``t``) overrides the fixed matrix.  With no wire
-        options this is ``(mix(tree), ef)``.
+        without error feedback).  In the reference's order: the ledger
+        notes the stream, the Byzantine slots corrupt what they ship
+        (``stream`` names it for stream-selective attacks), the payload
+        is compressed, and receivers combine the reconstructed payload
+        under the configured rule.  Under ``weighted`` the agent's own
+        term mixes its clean value, ``mix(payload) + M_ii (x -
+        payload)``; then ``gamma`` damps.  On a step between rounds
+        nothing is sent: the local values stand and the wire state stays
+        (the reference attacks there and discards the result).
+        ``matrix`` (or the attached topology's round matrix for ``t``)
+        overrides the fixed matrix.  With no wire options this is
+        ``(mix(tree), ef)``.
         """
         self._ledger_note(stream, tree)
         if self._skips(t):
             return tree, ef
         if matrix is None:
             matrix = self.topology_matrix(t, tree)
+        sent = self._attack_payload(tree, t, stream)
         if not self.compression.active:
-            return self.mix(tree, matrix=matrix), ef
-        payload, ef_new = self._compress_payload(tree, ef, t)
-        mixed = self.mix(payload, matrix=matrix)
-        d = self._self_weights(matrix)
-        mixed = pytree.tree_map(
-            lambda mx, xx, cc: (
-                _f32(mx) + d.reshape((-1,) + (1,) * (mx.dim() - 1))
-                * (_f32(xx) - _f32(cc))).to(mx.dtype),
-            mixed, tree, payload)
+            return self._combine(sent, matrix=matrix), ef
+        payload, ef_new = self._compress_payload(sent, ef, t)
+        mixed = self._combine(payload, matrix=matrix)
+        if self.byzantine.combine == "weighted":
+            d = self._self_weights(matrix)
+            mixed = pytree.tree_map(
+                lambda mx, xx, cc: (
+                    _f32(mx) + d.reshape((-1,) + (1,) * (mx.dim() - 1))
+                    * (_f32(xx) - _f32(cc))).to(mx.dtype),
+                mixed, tree, payload)
         return self._damp(mixed, tree), ef_new
 
     def bytes_on_wire(self, tree) -> int:
@@ -361,8 +429,8 @@ def make_engine(backend: str, mixing, device: torch.device | str,
     """Build a consensus backend by name on ``device``.
 
     ``mixing`` is a ``MixingSpec`` or a raw (m, m) matrix; every backend
-    accepts the wire options ``compression`` and
-    ``communication_interval``.
+    accepts the wire options ``compression``, ``communication_interval``,
+    ``byzantine`` and ``attack_seed``.
     """
     try:
         factory = BACKENDS[backend]

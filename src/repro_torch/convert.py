@@ -43,9 +43,14 @@ def state_from_numpy(state, device: torch.device | str,
     """A port state of class ``kind`` (``InteractState``, ``SvrState``,
     ``GtDsgdState``, ``DsgdState``) from any object with its fields:
     numpy pytrees, and ``t``.  The wire state ``ef`` comes across as its
-    nested dicts, or ``None``."""
+    nested dicts, the guard counters ``guard`` as a dict of 0-dim int32
+    tensors with its keys sorted (``{"last_good", "tripped"}``), each or
+    ``None``."""
     fields = {f: tree_from_numpy(getattr(state, f), device)
               for f in kind._fields if f != "t"}
+    if fields.get("guard") is not None:
+        fields["guard"] = {k: fields["guard"][k]
+                           for k in sorted(fields["guard"])}
     return kind(**fields, t=int(np.asarray(state.t)))
 
 

@@ -40,20 +40,22 @@ class GtDsgdState(NamedTuple):
     p_prev: object
     t: int
     ef: object = None  # wire state {"x", "u"} (compressed wire with EF)
+    guard: object = None  # guard counters {"last_good", "tripped"}
 
 
 def init_gt_dsgd_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
                        x0, y0, data: AgentData, draws: Draws,
-                       compression: CompressionConfig | None = None
-                       ) -> GtDsgdState:
+                       compression: CompressionConfig | None = None,
+                       guard: dict | None = None) -> GtDsgdState:
     """u_0 = p_0 and v_0 on the minibatch of ``draws``; ``compression``
-    adds the x and u wire state (``init_ef``)."""
+    adds the x and u wire state (``init_ef``), ``guard`` the guard's
+    counters."""
     m = data.inner_x.shape[0]
     x, y = broadcast_agents(x0, m), broadcast_agents(y0, m)
     p, v = vmap(partial(minibatch_grads, problem, hg_cfg))(x, y, data, draws)
     return GtDsgdState(x=x, y=y, u=p, v=v,
                        p_prev=pytree.tree_map(torch.clone, p), t=0,
-                       ef=init_ef(compression, x=x, u=p))
+                       ef=init_ef(compression, x=x, u=p), guard=guard)
 
 
 def gt_dsgd_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
@@ -72,7 +74,7 @@ def gt_dsgd_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
             engine, state.x, state.y, state.u, state.v, state.p_prev,
             alpha, beta, grads_fn, t=state.t, ef=state.ef))
     return GtDsgdState(x=x_new, y=y_new, u=u_new, v=v_new, p_prev=p_new,
-                       t=state.t + 1, ef=ef_new)
+                       t=state.t + 1, ef=ef_new, guard=state.guard)
 
 
 class DsgdState(NamedTuple):
@@ -80,14 +82,15 @@ class DsgdState(NamedTuple):
     y: object
     t: int
     ef: object = None  # wire state {"x"} (compressed wire with EF)
+    guard: object = None  # guard counters {"last_good", "tripped"}
 
 
 def init_dsgd_state(x0, y0, m: int,
-                    compression: CompressionConfig | None = None
-                    ) -> DsgdState:
+                    compression: CompressionConfig | None = None,
+                    guard: dict | None = None) -> DsgdState:
     x = broadcast_agents(x0, m)
     return DsgdState(x=x, y=broadcast_agents(y0, m), t=0,
-                     ef=init_ef(compression, x=x))
+                     ef=init_ef(compression, x=x), guard=guard)
 
 
 def dsgd_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
@@ -107,4 +110,5 @@ def dsgd_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
     x_new = pytree.tree_map(lambda mx, g: mx - alpha * g, x_mixed, p)
     y_new = pytree.tree_map(lambda y, g: y - beta * g, state.y, v)
     return DsgdState(x=x_new, y=y_new, t=state.t + 1,
-                     ef=None if state.ef is None else {"x": ef_x})
+                     ef=None if state.ef is None else {"x": ef_x},
+                     guard=state.guard)

@@ -39,6 +39,7 @@ class InteractState(NamedTuple):
     p_prev: object   # previous local hypergradient, like x
     t: int           # iteration counter
     ef: object = None  # wire state {"x", "u"} (compressed wire with EF)
+    guard: object = None  # guard counters {"last_good", "tripped"}
 
 
 def _per_agent_batch(data: AgentData):
@@ -63,13 +64,16 @@ def _all_agent_gradients(problem, hg_cfg, x, y, data: AgentData):
 
 def init_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
                x0, y0, data: AgentData,
-               compression: CompressionConfig | None = None) -> InteractState:
+               compression: CompressionConfig | None = None,
+               guard: dict | None = None) -> InteractState:
     """Algorithm-1 initialisation: u_0 = grad_bar f(x_0, y_0), v_0 = grad_y g.
 
     ``x0``/``y0`` are single-agent pytrees; every agent starts from the
     same point, so they are broadcast along the agent axis (as copies).
     ``compression`` adds the zero wire state of the x and u streams when
     it uses error feedback (``init_ef``); otherwise ``ef`` is ``None``.
+    ``guard`` is the divergence guard's counters
+    (``repro_torch.byzantine.init_guard``), ``None`` without a guard.
     """
     m = data.inner_x.shape[0]
     bcast = lambda tree: pytree.tree_map(
@@ -78,7 +82,7 @@ def init_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
     p, v = _all_agent_gradients(problem, hg_cfg, x, y, data)
     p_prev = pytree.tree_map(torch.clone, p)
     return InteractState(x=x, y=y, u=p, v=v, p_prev=p_prev, t=0,
-                         ef=init_ef(compression, x=x, u=p))
+                         ef=init_ef(compression, x=x, u=p), guard=guard)
 
 
 def interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
@@ -96,7 +100,7 @@ def interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
             engine, state.x, state.y, state.u, state.v, state.p_prev,
             alpha, beta, grads_fn, t=state.t, ef=state.ef))
     return InteractState(x=x_new, y=y_new, u=u_new, v=v_new, p_prev=p_new,
-                         t=state.t + 1, ef=ef_new)
+                         t=state.t + 1, ef=ef_new, guard=state.guard)
 
 
 def theorem1_step_sizes(mu_g: float, L_g: float, lam: float, m: int,

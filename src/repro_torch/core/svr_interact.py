@@ -106,6 +106,7 @@ class SvrState(NamedTuple):
     y_prev: object
     t: int           # iteration counter
     ef: object = None  # wire state {"x", "u"} (compressed wire with EF)
+    guard: object = None  # guard counters {"last_good", "tripped"}
 
 
 def _full_grads(problem, hg_cfg, x, y, data: AgentData, k):
@@ -138,16 +139,19 @@ def broadcast_agents(tree, m: int):
 
 def init_svr_state(problem: BilevelProblem, hg_cfg: HypergradConfig,
                    x0, y0, data: AgentData, draws: Draws,
-                   compression: CompressionConfig | None = None) -> SvrState:
+                   compression: CompressionConfig | None = None,
+                   guard: dict | None = None) -> SvrState:
     """u_0 = p_0 = grad_bar f(x_0, y_0), v_0 = grad_y g, full batch;
     ``draws.k`` is each agent's Neumann draw (the indices are unused).
-    ``compression`` adds the x and u wire state (``init_ef``)."""
+    ``compression`` adds the x and u wire state (``init_ef``), ``guard``
+    the guard's counters."""
     m = data.inner_x.shape[0]
     x, y = broadcast_agents(x0, m), broadcast_agents(y0, m)
     p, v = vmap(partial(_full_grads, problem, hg_cfg))(x, y, data, draws.k)
     copy = lambda tree: pytree.tree_map(torch.clone, tree)
     return SvrState(x=x, y=y, u=p, v=v, p_prev=copy(p), x_prev=copy(x),
-                    y_prev=copy(y), t=0, ef=init_ef(compression, x=x, u=p))
+                    y_prev=copy(y), t=0, ef=init_ef(compression, x=x, u=p),
+                    guard=guard)
 
 
 def is_refresh(t: int, q: int) -> bool:
@@ -189,4 +193,4 @@ def svr_interact_step(problem: BilevelProblem, hg_cfg: HypergradConfig,
             alpha, beta, grads_fn, t=state.t, ef=state.ef))
     return SvrState(x=x_new, y=y_new, u=u_new, v=v_new, p_prev=p_new,
                     x_prev=state.x, y_prev=state.y, t=state.t + 1,
-                    ef=ef_new)
+                    ef=ef_new, guard=state.guard)

@@ -7,6 +7,7 @@
 
 ``algo`` is one of "interact", "svr-interact", "gt-dsgd", "d-sgd".
 """
+from repro_torch.byzantine import ByzantineConfig, GuardConfig
 from repro_torch.solvers.api import (
     EagerStepper,
     GraphStepper,
@@ -27,8 +28,10 @@ from repro_torch.solvers import interact as _interact  # noqa: F401
 from repro_torch.solvers import svr_interact as _svr  # noqa: F401
 
 __all__ = [
+    "ByzantineConfig",
     "EagerStepper",
     "GraphStepper",
+    "GuardConfig",
     "SolveResult",
     "SolverBase",
     "SolverConfig",

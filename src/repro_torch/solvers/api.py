@@ -25,7 +25,13 @@ Randomness.  The stochastic solvers draw each step's minibatch indices
 and Neumann k on the host (``repro_torch.core.svr_interact.Sampler``,
 seeded from ``SolverConfig.seed`` unless ``init`` is given a
 generator); a step takes them as a ``Draws`` tuple, which callers may
-also hand over themselves.
+also hand over themselves.  An attack's noise is drawn on the host too
+(``repro_torch.byzantine.attacks``).
+
+Host state a step reads from the device.  Before each eager step and
+each replay ``load_step(t)`` copies what the host's t decides into
+static device buffers: the round's topology matrix and attack noise
+(``engine.load_round``) and, with a guard, the step counter.
 
 ``solve`` and ``default_setup`` run on the CUDA card unless
 ``device="cpu"`` is passed, and raise when no card is present and no
@@ -40,6 +46,7 @@ from typing import Any, Callable
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.byzantine import guard_param_step
 from repro_torch.consensus.engine import make_engine
 from repro_torch.consensus.ledger import attach_ledger, time_round_us
 from repro_torch.core.svr_interact import Draws, Sampler, step_draws
@@ -136,6 +143,7 @@ class SolverBase:
         self._hg_cfg = None
         self._sampler = None
         self._stepper = None
+        self._counter = None
 
     # -- subclass hooks ---------------------------------------------------
     def _init_state(self, problem, hg_cfg, x0, y0, data):
@@ -173,6 +181,7 @@ class SolverBase:
             self.config.backend, spec, device,
             compression=self.config.compression,
             communication_interval=self.config.communication_interval,
+            byzantine=self.config.byzantine, attack_seed=self.config.seed,
             **dict(self.config.backend_opts))
         if not self.config.topology_process.is_static:
             from repro_torch.topology import attach_topology
@@ -180,6 +189,14 @@ class SolverBase:
                             seed=self.config.seed)
         self._engine = engine
         self._step_fn = self._make_step(problem, hg_cfg, self._engine, n)
+        self._counter = None
+        if self.config.guard.active:
+            # the incoming t on the device, for the guard's last_good
+            self._counter = torch.zeros((), dtype=torch.int32,
+                                        device=device)
+            self._step_fn = guard_param_step(self._step_fn,
+                                             self.config.guard,
+                                             self._counter)
         self._problem, self._hg_cfg = problem, hg_cfg
         self._stepper = None
         return self
@@ -219,6 +236,15 @@ class SolverBase:
         return self._sampler.draw(num_steps, device)
 
     # -- stepping ---------------------------------------------------------
+    def load_step(self, t: int) -> None:
+        """Fill the device buffers the step from ``t`` reads: the round's
+        matrix and attack noise (``engine.load_round``) and the guard's
+        step counter.  Called outside any capture, before the step runs
+        or its graph replays."""
+        self._engine.load_round(t)
+        if self._counter is not None:
+            self._counter.fill_(int(t))
+
     def step(self, state, data, draws: Draws | None = None):
         """One iteration; a stochastic solver draws when ``draws`` is
         ``None``."""
@@ -226,7 +252,7 @@ class SolverBase:
             raise RuntimeError("call init()/build() before step()")
         if draws is None and self.uses_draws:
             draws = step_draws(self.draw(1, _state_device(state)), 0)
-        self._engine.load_round(state.t)
+        self.load_step(state.t)
         return self._step_fn(state, data, draws)
 
     def run(self, state, data, num_steps: int):
@@ -357,9 +383,12 @@ class GraphStepper:
     The state lives in static buffers: ``load`` copies a state in and
     ``state()`` copies it out.  Each graph runs one step from the buffers
     and writes the new state back into them, so a replay needs no host
-    work beyond copying that step's draws into the draw buffers and its
-    topology matrix into the engine's round buffer
-    (``engine.load_round``); t is kept on the host and picks the graph
+    work beyond copying that step's draws into the draw buffers and what
+    the host's t decides into the solver's static buffers
+    (``solver.load_step``: the round's matrix and attack noise, the
+    guard's step counter), all from the device (``advance`` moves a
+    run's draws and attack noise there first, in one copy each, so no
+    replay waits for the host); t is kept on the host and picks the graph
     (``solver.step_variant``).  A
     graph is captured the first time a step needs it (``prepare``
     captures every one a run needs before it starts), after
@@ -412,7 +441,7 @@ class GraphStepper:
         if graph is not None:
             return graph
         step, at_t = self.solver._step_fn, self.static._replace(t=t)
-        self.solver._engine.load_round(t)
+        self.solver.load_step(t)
         self._warm(lambda: step(_clone(at_t), self.data, self.draws))
         self.eager_steps += self.WARMUP_STEPS
         graph = torch.cuda.CUDAGraph()
@@ -449,12 +478,14 @@ class GraphStepper:
     def advance(self, num_steps: int) -> None:
         """``num_steps`` steps, on the solver's next draws."""
         draws = self.solver.draw(num_steps, self.device)
+        self.prepare(num_steps)
+        self.solver._engine.prefetch_rounds(self.t, num_steps)
         for i in range(num_steps):
             graph = self.capture(self.t)
             if draws is not None:
                 for buf, d in zip(self.draws, draws):
                     buf.copy_(d[i])
-            self.solver._engine.load_round(self.t)
+            self.solver.load_step(self.t)
             graph.replay()
             self.t += 1
             self.replays += 1
@@ -515,6 +546,11 @@ class SolveResult:
     measured_wire_bytes: float | None = None
     # median wall-clock of one warmed consensus combine of the final x
     round_latency_us: float | None = None
+    # divergence-guard counters (SolverConfig.guard): steps that tripped
+    # a wire and were rolled back, and the step counter of the last
+    # accepted state; 0 / -1 without a guard
+    tripped_steps: int = 0
+    last_good_step: int = -1
 
 
 def default_setup(seed: int = 0, num_agents: int = 5, n_per_agent: int = 600,
@@ -594,6 +630,10 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
         counts = dict(hvp_per_step=per_call.hvp_count * calls,
                       grad_per_step=per_call.grad_count * calls,
                       hess_per_step=per_call.hess_count * calls)
+    guard = getattr(state, "guard", None)
+    if guard is not None:
+        counts.update(tripped_steps=int(guard["tripped"]),
+                      last_good_step=int(guard["last_good"]))
     ledger.commit_steps(num_steps)
     engine = solver._engine
     ledger.observe_latency(time_round_us(engine.mix, state.x))

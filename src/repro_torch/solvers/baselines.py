@@ -7,6 +7,7 @@ pays for it in convergence (Fig. 2).
 """
 from __future__ import annotations
 
+from repro_torch.byzantine import init_guard
 from repro_torch.core.baselines import (dsgd_step, gt_dsgd_step,
                                         init_dsgd_state, init_gt_dsgd_state)
 from repro_torch.core.svr_interact import step_draws
@@ -24,7 +25,9 @@ class GtDsgdSolver(SolverBase):
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         draws = step_draws(self.draw(1, data.inner_x.device), 0)
         return init_gt_dsgd_state(problem, hg_cfg, x0, y0, data, draws,
-                                  compression=self.config.compression)
+                                  compression=self.config.compression,
+                                  guard=init_guard(self.config.guard,
+                                                   data.inner_x.device))
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta
@@ -48,7 +51,9 @@ class DsgdSolver(SolverBase):
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         return init_dsgd_state(x0, y0, data.inner_x.shape[0],
-                               compression=self.config.compression)
+                               compression=self.config.compression,
+                               guard=init_guard(self.config.guard,
+                                                data.inner_x.device))
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta

@@ -1,8 +1,8 @@
 """`SolverConfig`: the configuration object behind every solver.
 
 Counterpart of ``repro.solvers.config`` with the fields the port
-honours.  Byzantine rules, guards and the sweep's ``static_key`` are
-later slices and have no field here yet.
+honours.  The sweep's ``static_key`` / ``BATCH_FIELDS`` grouping comes
+with the batched sweeps, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import dataclasses
 import math
 from typing import Any, Mapping
 
+from repro_torch.byzantine.config import ByzantineConfig, GuardConfig
 from repro_torch.consensus.compress import CompressionConfig
 from repro_torch.core.consensus import (MixingSpec, erdos_renyi_adjacency,
                                         laplacian_mixing, ring_mixing,
@@ -77,9 +78,16 @@ class SolverConfig:
         (``TopologyProcessConfig``: static / link-failure / straggler /
         random-gossip / adaptive), on top of ``topology`` / ``mixing``;
         the default static process changes nothing.
+      byzantine: attack injection and robust aggregation
+        (``ByzantineConfig``: attack kind, attacker count, scale, combine
+        rule); the default, no attack and ``weighted``, changes nothing.
+      guard: divergence trip-wires (``GuardConfig``: NaN/Inf and an
+        iterate-norm bound, rollback to the last good state); the
+        counters come back as ``SolveResult.tripped_steps`` /
+        ``last_good_step``.  Off by default.
       seed: seed of the default Section-6 instance ``solve`` builds, of
         the stochastic solvers' sampling generator, and the fallback seed
-        of the topology process.
+        of the topology process and of the attack schedule.
     """
 
     algo: str = "interact"
@@ -96,6 +104,8 @@ class SolverConfig:
     compression: CompressionConfig = CompressionConfig()
     communication_interval: int = 1
     topology_process: TopologyProcessConfig = TopologyProcessConfig()
+    byzantine: ByzantineConfig = ByzantineConfig()
+    guard: GuardConfig = GuardConfig()
     seed: int = 0
 
     def mixing_spec(self, m: int | None = None) -> MixingSpec:

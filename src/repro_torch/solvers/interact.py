@@ -6,6 +6,7 @@ Full local gradients every iteration: n IFO calls per agent per step
 """
 from __future__ import annotations
 
+from repro_torch.byzantine import init_guard
 from repro_torch.core.interact import init_state, interact_step
 from repro_torch.solvers.api import SolverBase, register_solver
 
@@ -18,7 +19,9 @@ class InteractSolver(SolverBase):
 
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         return init_state(problem, hg_cfg, x0, y0, data,
-                          compression=self.config.compression)
+                          compression=self.config.compression,
+                          guard=init_guard(self.config.guard,
+                                           data.inner_x.device))
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta

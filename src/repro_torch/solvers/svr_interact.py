@@ -7,6 +7,7 @@ O(sqrt(n)) regime at the paper's q = |S| = ceil(sqrt(n)) defaults).
 """
 from __future__ import annotations
 
+from repro_torch.byzantine import init_guard
 from repro_torch.core.svr_interact import (init_svr_state, is_refresh,
                                            step_draws, svr_interact_step)
 from repro_torch.solvers.api import SolverBase, register_solver
@@ -23,7 +24,9 @@ class SvrInteractSolver(SolverBase):
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         draws = step_draws(self.draw(1, data.inner_x.device), 0)
         return init_svr_state(problem, hg_cfg, x0, y0, data, draws,
-                              compression=self.config.compression)
+                              compression=self.config.compression,
+                              guard=init_guard(self.config.guard,
+                                               data.inner_x.device))
 
     def _make_step(self, problem, hg_cfg, engine, n):
         alpha, beta = self.config.alpha, self.config.beta

@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _WALK], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 52          # every module was imported
+    assert int(out[0]) >= 57          # every module was imported
     assert out[1] == "[]", out
 
 
@@ -147,6 +147,11 @@ def test_registries():
     assert available_backends() == ("cg", "cholesky", "neumann")
     with pytest.raises(ValueError, match="not available in the port"):
         HypergradConfig(backend="cg-linearized").resolve_backend()
+    from repro_torch.byzantine import attack_names, combine_rule_names
+    assert attack_names() == ("gaussian", "inner-outer-split", "same-value",
+                              "sign-flip")
+    assert combine_rule_names() == ("coordinate-median", "krum-like",
+                                    "trimmed-mean", "weighted")
     from repro_torch.consensus import BACKENDS, make_engine
     assert sorted(BACKENDS) == ["cuda", "dense"]
     with pytest.raises(ValueError, match="unknown consensus backend"):

@@ -52,6 +52,14 @@ active (three graphs: warm-up, silent and compressed rounds; a graph key
 without the schedule would replay the first), and the other rows of
 chip_smoke.py's ``wire`` phase.  Both consensus kernels take a per-call
 matrix whose contents change between replays of one graph.
+
+The Byzantine layer, captured against eager bit for bit (guard counters
+included) on each row of chip_smoke.py's ``byzantine`` phase: attacks
+before a weighted or a robust combine, gaussian noise refilled before
+each replay, and the guard.  A guarded run that never trips must end
+with ``last_good`` at its last step, and one that trips must count the
+trips and keep the last good step as eager does: a graph that baked the
+host's t in would hold the capture's step.
 """
 import dataclasses
 
@@ -68,8 +76,10 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.core import convergence_metric_fn  # noqa: E402
 from repro_torch.consensus import CompressionConfig  # noqa: E402
 from repro_torch.hypergrad import HypergradConfig  # noqa: E402
-from repro_torch.solvers import (SolverConfig, default_setup,  # noqa: E402
+from repro_torch.solvers import (ByzantineConfig,  # noqa: E402
+                                 GuardConfig, SolverConfig, default_setup,
                                  make_solver, run_recorded)
+from repro_torch.solvers.config import TopologyConfig  # noqa: E402
 from repro_torch.topology import TopologyProcessConfig  # noqa: E402
 
 FLASH_TOL = 2e-5             # float32
@@ -506,3 +516,75 @@ def test_kernels_read_a_matrix_that_changes_between_replays(hopper):
         want = mix_ref.consensus_step_ref(mat, x, u, p, pp, alpha=0.3)
         torch.testing.assert_close(x_out, want[0], atol=tol, rtol=tol)
         torch.testing.assert_close(u_out, want[1], atol=tol, rtol=tol)
+
+
+# chip_smoke.py's byzantine rows: (algo, ER edge probability, options)
+SIGNFLIP1 = dict(kind="sign-flip", num_byzantine=1, scale=25.0)
+BYZANTINE_CASES = {
+    "signflip1-weighted": ("interact", 1.0, dict(
+        byzantine=ByzantineConfig(**SIGNFLIP1))),
+    "signflip0-weighted": ("interact", 1.0, dict(
+        byzantine=ByzantineConfig("sign-flip", 0, 25.0))),
+    "signflip1-trimmed1": ("interact", 1.0, dict(
+        byzantine=ByzantineConfig(**SIGNFLIP1, combine="trimmed-mean",
+                                  trim=1))),
+    "signflip1-median-gt-dsgd": ("gt-dsgd", 0.5, dict(
+        byzantine=ByzantineConfig(**SIGNFLIP1,
+                                  combine="coordinate-median"))),
+    "gaussian2-krum-svr": ("svr-interact", 1.0, dict(
+        byzantine=ByzantineConfig("gaussian", 2, 25.0,
+                                  combine="krum-like"))),
+    "signflip1-weighted-guard": ("interact", 1.0, dict(
+        byzantine=ByzantineConfig(**SIGNFLIP1),
+        guard=GuardConfig(nan=True, max_norm=1e3))),
+}
+
+
+def _bitwise(a, b) -> bool:
+    """Every tensor of two states equal bit for bit (NaN where NaN), and
+    every other leaf equal."""
+    for x, y in zip(torch.utils._pytree.tree_leaves(a),
+                    torch.utils._pytree.tree_leaves(b)):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+        elif not bool(((x == y) | (x.isnan() & y.isnan())).all()):
+            return False
+    return True
+
+
+def _byzantine_runs(hopper, algo, p, opts, steps):
+    problem, x0, y0, data, config = _section6(hopper, algo)
+    config = dataclasses.replace(
+        config, topology=TopologyConfig(p_connect=p), **opts)
+    runs = {}
+    for scan in (False, True):
+        solver = make_solver(config)
+        state = solver.init(problem, None, x0, y0, data)
+        runs[scan] = run_recorded(solver, state, data, steps, scan=scan)[0]
+        if scan:
+            assert solver.stepper.replays == steps
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BYZANTINE_CASES))
+def test_captured_byzantine_steps_equal_eager_steps(hopper, case):
+    runs = _byzantine_runs(hopper, *BYZANTINE_CASES[case], steps=6)
+    assert runs[True].t == runs[False].t == 6
+    assert _bitwise(runs[True], runs[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_norm,tripped", [(1e9, False), (1e3, True)])
+def test_guard_counters_follow_the_replays(hopper, max_norm, tripped):
+    opts = dict(byzantine=ByzantineConfig(**SIGNFLIP1),
+                guard=GuardConfig(nan=True, max_norm=max_norm))
+    runs = _byzantine_runs(hopper, "interact", 1.0, opts, steps=6)
+    guard = {k: int(v) for k, v in runs[True].guard.items()}
+    assert guard == {k: int(v) for k, v in runs[False].guard.items()}
+    if tripped:
+        assert guard["tripped"] > 0 and guard["last_good"] < 6
+        assert guard["tripped"] + guard["last_good"] == 6
+    else:
+        assert guard == {"last_good": 6, "tripped": 0}
