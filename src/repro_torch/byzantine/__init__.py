@@ -20,6 +20,7 @@ captured:
 from repro_torch.byzantine.attacks import (
     Attack,
     AttackSchedule,
+    GroupAttackSchedule,
     apply_attack,
     attack_names,
     byzantine_mask,
@@ -42,6 +43,7 @@ __all__ = [
     "AttackSchedule",
     "ByzantineConfig",
     "CombineRule",
+    "GroupAttackSchedule",
     "GuardConfig",
     "apply_attack",
     "attack_names",

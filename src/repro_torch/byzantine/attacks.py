@@ -44,6 +44,7 @@ from torch.utils import _pytree as pytree
 __all__ = [
     "Attack",
     "AttackSchedule",
+    "GroupAttackSchedule",
     "MASK_TAG",
     "NOISE_TAG",
     "STREAM_IDS",
@@ -151,17 +152,23 @@ class InnerOuterSplitAttack(SignFlipAttack):
     streams = ("u",)
 
 
-def byzantine_mask(seed: int, m: int, num_byzantine: int) -> np.ndarray:
+def byzantine_mask(seed: int, m: int, num_byzantine: int,
+                   num_active: int | None = None) -> np.ndarray:
     """(m,) bool: which slots attack, a fixed seeded subset.
 
     Slot i's score is the first uniform of ``default_rng([seed,
     MASK_TAG, i])``; the ``num_byzantine`` lowest-ranked slots attack
-    (rank = how many scores are below the slot's own).
+    (rank = how many scores are below the slot's own).  Slots from
+    ``num_active`` on (the ghosts of a padded network) score +inf and
+    never attack; a slot's score never depends on m, so the active
+    slots' mask is the unpadded network's.
     """
     scores = np.array([np.random.default_rng([seed, MASK_TAG, i]).random()
                        for i in range(m)])
+    if num_active is not None:
+        scores = np.where(np.arange(m) < num_active, scores, np.inf)
     rank = np.sum(scores[None, :] < scores[:, None], axis=1)
-    return rank < num_byzantine
+    return (rank < num_byzantine) & np.isfinite(scores)
 
 
 def round_noise(attack: Attack, seed: int, stream: str, t: int, m: int,
@@ -276,3 +283,113 @@ class AttackSchedule:
                     shape, dtype=torch.float32, device=self.mask.device)
             self._fill(stream, t)
         return self.buffers[stream]
+
+
+class _ExperimentAttack:
+    """One experiment's view of a ``GroupAttackSchedule`` inside the
+    group's vmapped step: its mask, scale and noise buffers (each one
+    experiment's slice there), behind ``AttackSchedule``'s interface."""
+
+    def __init__(self, attack: Attack, mask, scale, noises: dict):
+        self.attack, self.mask, self.scale = attack, mask, scale
+        self.noises = noises
+
+    def noise(self, stream: str, t: int, size: int):
+        del t, size    # the group loads every stream before each step
+        return self.noises.get(stream)
+
+
+class GroupAttackSchedule:
+    """A padded sweep group's attack: each experiment's own attacker
+    count, scale, attack seed and active-agent bound.
+
+    The group shares the attack's kind and combine rule; the values are
+    per-experiment operands: ``mask`` (B, m) bool, ``scale`` (B,) float32
+    and each stream's noise buffer (B, m, D) or (B, D) float32, refilled
+    with step t's draws of every experiment by ``load(t)`` before each
+    step (``prefetch`` draws a run's steps ahead, in one copy).
+    ``operands()`` hands them to the vmapped step and ``view`` makes one
+    experiment's schedule from its slices there.
+
+    ``params`` lists every experiment's ``(seed, num_byzantine, scale,
+    num_active)``; the buffers hold the experiments ``rows`` names, all
+    of them for the group, one for a sequential replay of a single row
+    (``select``), so the same buffers serve every row.
+    """
+
+    def __init__(self, kind: str, params: list[tuple[int, int, float, int]],
+                 m: int, size: int, device: torch.device | str,
+                 rows: list[int] | None = None):
+        self.attack = make_attack(kind)
+        self.params = [(int(s), int(nb), float(sc), int(na))
+                       for s, nb, sc, na in params]
+        self.m, self.size = int(m), int(size)
+        rows = list(range(len(params))) if rows is None else list(rows)
+        b = len(rows)
+        self.mask = torch.empty((b, self.m), dtype=torch.bool, device=device)
+        self.scale = torch.empty((b,), dtype=torch.float32, device=device)
+        shape = None
+        if self.attack.noise == "slot":
+            shape = (b, self.m, self.size)
+        elif self.attack.noise == "shared":
+            shape = (b, self.size)
+        self.buffers = ({} if shape is None else
+                        {stream: torch.empty(shape, dtype=torch.float32,
+                                             device=device)
+                         for stream in self.attack.streams})
+        self.select(rows)
+
+    def select(self, rows: list[int]) -> None:
+        """Fill the buffers for the experiments ``rows`` (as many as the
+        buffers hold) from the next ``load`` on; masks and scales now."""
+        if len(rows) != self.mask.shape[0]:
+            raise ValueError(f"the buffers hold {self.mask.shape[0]} "
+                             f"experiments, not {len(rows)}")
+        self.rows = list(rows)
+        picked = [self.params[r] for r in self.rows]
+        self.mask.copy_(torch.as_tensor(np.stack([
+            byzantine_mask(seed, self.m, nb, na)
+            for seed, nb, _, na in picked])))
+        self.scale.copy_(torch.tensor([sc for _, _, sc, _ in picked],
+                                      dtype=torch.float32))
+        self.ahead: dict[str, tuple[int, torch.Tensor]] = {}
+
+    def draw(self, stream: str, t: int) -> np.ndarray:
+        """Step ``t``'s draws for ``stream``, stacked over ``rows``."""
+        return np.stack([round_noise(self.attack, self.params[r][0], stream,
+                                     t, self.m, self.size)
+                         for r in self.rows])
+
+    def prefetch(self, t: int, num_steps: int) -> None:
+        """Draw steps ``t .. t + num_steps - 1`` ahead; one copy each."""
+        self.ahead = {
+            stream: (int(t), torch.from_numpy(np.stack(
+                [self.draw(stream, s) for s in range(int(t),
+                                                     int(t) + num_steps)]
+            )).to(buf.device))
+            for stream, buf in self.buffers.items()}
+
+    def load(self, t: int) -> None:
+        """Refill every stream's buffer with step ``t``'s draws."""
+        t = int(t)
+        for stream, buf in self.buffers.items():
+            ahead = self.ahead.get(stream)
+            if ahead is not None and 0 <= t - ahead[0] < ahead[1].shape[0]:
+                buf.copy_(ahead[1][t - ahead[0]])
+            else:
+                buf.copy_(torch.from_numpy(self.draw(stream, t)))
+
+    def operands(self) -> dict:
+        """The per-experiment tensors the group's vmapped step takes."""
+        ops = {"mask": self.mask, "scale": self.scale}
+        ops.update({f"noise_{s}": buf for s, buf in self.buffers.items()})
+        return ops
+
+    @staticmethod
+    def view(attack: Attack, ops: dict) -> _ExperimentAttack:
+        """One experiment's schedule of ``attack`` from its slices of
+        ``operands()``."""
+        return _ExperimentAttack(
+            attack, ops["mask"], ops["scale"],
+            {k[len("noise_"):]: v for k, v in ops.items()
+             if k.startswith("noise_")})

@@ -57,18 +57,20 @@ def _tripped(cfg, state) -> torch.Tensor:
 
 
 def guard_param_step(step, cfg, counter: torch.Tensor):
-    """Wrap ``step(state, data, draws)`` with the guard.
+    """Wrap ``step(state, data, draws, *params)`` with the guard (a
+    parameterised step takes ``alpha`` and ``beta`` after the draws).
 
     A tripped step rolls every field but ``t`` and ``guard`` back to the
     incoming state (the last good one, by induction), the wire state
     ``ef`` included; ``tripped`` counts the trips and ``last_good`` holds
     the step counter of the last accepted state.  ``counter`` is the
     0-dim int32 device tensor the caller fills with the incoming state's
-    t before each step.
+    t before each step; a sweep group's experiments share one, as they
+    share t, and each rolls back by its own ``torch.where``.
     """
 
-    def guarded(state, data, draws=None):
-        new = step(state, data, draws)
+    def guarded(state, data, draws=None, *params):
+        new = step(state, data, draws, *params)
         if getattr(new, "guard", None) is None:
             raise ValueError(
                 "GuardConfig is active but the solver state carries no "

@@ -10,8 +10,8 @@ import torch
 
 from repro_torch.byzantine import ByzantineConfig
 from repro_torch.consensus.compress import CompressionConfig
-from repro_torch.consensus.engine import ConsensusEngine
-from repro_torch.core.consensus import MixingSpec, mix_pytree
+from repro_torch.consensus.engine import ConsensusEngine, as_matrix
+from repro_torch.core.consensus import MixingSpec, mix_pytree, pad_mixing
 
 __all__ = ["DenseEngine"]
 
@@ -20,17 +20,22 @@ class DenseEngine(ConsensusEngine):
 
     name = "dense"
 
-    def __init__(self, mixing: MixingSpec | np.ndarray,
+    def __init__(self, mixing: MixingSpec | np.ndarray | torch.Tensor,
                  device: torch.device | str,
                  compression: CompressionConfig | None = None,
                  communication_interval: int = 1,
                  byzantine: ByzantineConfig | None = None,
                  attack_seed: int = 0):
-        mat = mixing.matrix if isinstance(mixing, MixingSpec) else mixing
-        self.matrix = torch.as_tensor(np.asarray(mat), dtype=torch.float32,
-                                      device=device)
+        self.matrix = as_matrix(mixing, device)
         self._configure_wire(compression, communication_interval, byzantine,
                              attack_seed)
+
+    @classmethod
+    def padded(cls, mixing: MixingSpec | np.ndarray, pad_to: int,
+               device: torch.device | str, **wire_opts) -> "DenseEngine":
+        """A dense engine over the ghost-padded (pad_to, pad_to) matrix
+        (``repro_torch.core.consensus.pad_mixing``)."""
+        return cls(pad_mixing(mixing, pad_to), device, **wire_opts)
 
     def mix(self, tree, *, matrix=None):
         return mix_pytree(self.matrix if matrix is None else matrix, tree)

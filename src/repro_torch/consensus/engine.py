@@ -59,6 +59,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
@@ -89,6 +90,10 @@ class ConsensusEngine:
     ledger = None
     # the attack's mask and noise buffers (None without an attack)
     attack_schedule = None
+    # active agents of a ghost-padded network, set on each experiment's
+    # engine in a padded sweep group (whose attack masks,
+    # ``GroupAttackSchedule``, never pick a slot from here on); None: all m
+    num_active = None
 
     def _configure_wire(self, compression: CompressionConfig | None = None,
                         communication_interval: int = 1,
@@ -318,9 +323,9 @@ class ConsensusEngine:
         size = sum(int(l.numel()) for l in pytree.tree_leaves(tree))
         return self.compressor.bytes_on_wire(size)
 
-    def step1_step3(self, x, u, p, p_prev, alpha: float, *, t=None, ef=None,
+    def step1_step3(self, x, u, p, p_prev, alpha, *, t=None, ef=None,
                     matrix=None):
-        """Fused eq. (6) + eq. (10).
+        """Fused eq. (6) + eq. (10); ``alpha`` a float or a 0-dim tensor.
 
         Returns ``(x_new, u_new)`` on the full-precision path (``ef is
         None`` and no wire options), ``(x_new, u_new, ef_new)`` on the
@@ -360,9 +365,20 @@ class ConsensusEngine:
         return x_new, u_new, ef_new
 
 
+def as_matrix(mixing, device: torch.device | str) -> torch.Tensor:
+    """A backend's mixing matrix as a float32 tensor on ``device``:
+    ``mixing`` is a ``MixingSpec``, a numpy matrix, or a tensor (kept as
+    it is when already float32 there, so a batched one stays batched)."""
+    mat = getattr(mixing, "matrix", mixing)
+    if isinstance(mat, torch.Tensor):
+        return mat.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(mat), dtype=torch.float32,
+                           device=device)
+
+
 def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
-                                alpha: float, beta: float,
-                                grads_fn: Callable, *, t=None, ef=None):
+                                alpha, beta, grads_fn: Callable, *, t=None,
+                                ef=None):
     """One INTERACT iteration skeleton.
 
       Step 1: x_new = mix(x) - alpha u ;  y_new = y - beta v
@@ -428,8 +444,9 @@ def make_engine(backend: str, mixing, device: torch.device | str,
                 **opts) -> ConsensusEngine:
     """Build a consensus backend by name on ``device``.
 
-    ``mixing`` is a ``MixingSpec`` or a raw (m, m) matrix; every backend
-    accepts the wire options ``compression``, ``communication_interval``,
+    ``mixing`` is a ``MixingSpec``, a raw (m, m) numpy matrix or a float32
+    tensor (under ``vmap``, one per experiment); every backend accepts the
+    wire options ``compression``, ``communication_interval``,
     ``byzantine`` and ``attack_seed``.
     """
     try:

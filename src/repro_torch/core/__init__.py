@@ -14,6 +14,7 @@ from repro_torch.core.bilevel import (
     init_head,
     init_mlp_backbone,
     make_synthetic_agents,
+    pad_agent_data,
 )
 from repro_torch.core.consensus import (
     MixingSpec,
@@ -21,10 +22,12 @@ from repro_torch.core.consensus import (
     laplacian_mixing,
     metropolis_mixing,
     mix_pytree,
+    pad_mixing,
     ring_mixing,
     second_eigenvalue,
     torus_adjacency,
     torus_mixing,
+    validate_mixing,
 )
 from repro_torch.core.interact import (
     InteractState,
@@ -43,6 +46,8 @@ from repro_torch.core.metrics import (
     MetricReport,
     convergence_metric,
     convergence_metric_fn,
+    masked_convergence_metric,
+    masked_convergence_metric_fn,
     solve_inner,
 )
 

@@ -32,6 +32,7 @@ __all__ = [
     "init_head",
     "init_mlp_backbone",
     "make_synthetic_agents",
+    "pad_agent_data",
 ]
 
 
@@ -150,6 +151,23 @@ def init_head(generator: torch.Generator, hidden: int, num_classes: int,
     w = scale * torch.randn(hidden, num_classes,
                             generator=generator) / np.sqrt(hidden)
     return (w.to(device), torch.zeros(num_classes, device=device))
+
+
+def pad_agent_data(data: AgentData, pad_to: int) -> AgentData:
+    """Ghost-pad the agent axis to ``pad_to`` by tiling the real agents'
+    data: ghost agent i >= m sees a copy of agent ``i % m``'s dataset.
+
+    Real, finite samples keep the ghosts' (discarded) computations finite,
+    so no ``0 * NaN`` reaches an active row through a padded combine.
+    Active agents' rows are untouched.
+    """
+    m = data.inner_x.shape[0]
+    if pad_to < m:
+        raise ValueError(f"cannot pad {m} agents down to {pad_to}")
+    if pad_to == m:
+        return data
+    idx = torch.arange(pad_to, device=data.inner_x.device) % m
+    return AgentData(*(leaf[idx] for leaf in data))
 
 
 def make_synthetic_agents(

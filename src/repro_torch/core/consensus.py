@@ -23,10 +23,12 @@ __all__ = [
     "laplacian_mixing",
     "metropolis_mixing",
     "mix_pytree",
+    "pad_mixing",
     "ring_mixing",
     "second_eigenvalue",
     "torus_adjacency",
     "torus_mixing",
+    "validate_mixing",
 ]
 
 
@@ -148,12 +150,52 @@ def torus_mixing(rows: int, cols: int) -> MixingSpec:
     return metropolis_mixing(torus_adjacency(rows, cols))
 
 
+def pad_mixing(mixing, pad_to: int) -> np.ndarray:
+    """Pad a mixing matrix to ``pad_to`` agents with ghost self-loops.
+
+    Ghost agents (rows and columns from the original m on) get identity
+    rows: they mix only with themselves and no active row puts weight on
+    them.  The padded matrix stays doubly stochastic and symmetric, every
+    active agent's combine gains only exact ``0.0 * x_ghost`` terms, and
+    ghost agents are fixed points of the combine, which is what lets a
+    padded sweep group run networks of several sizes as one batch.
+
+    ``mixing`` is a ``MixingSpec`` or a raw (m, m) matrix; returns the
+    (pad_to, pad_to) padded matrix (a copy; the input is untouched).
+    """
+    mat = (mixing.matrix if isinstance(mixing, MixingSpec)
+           else np.asarray(mixing))
+    m = mat.shape[0]
+    if pad_to < m:
+        raise ValueError(f"cannot pad {m} agents down to {pad_to}")
+    out = np.eye(pad_to, dtype=mat.dtype)
+    out[:m, :m] = mat
+    return out
+
+
 def second_eigenvalue(mat: np.ndarray) -> float:
     """lambda = max{|lambda_2|, |lambda_m|} of a symmetric stochastic M."""
     eig = np.sort(np.linalg.eigvalsh(mat))
     if eig.shape[0] == 1:
         return 0.0
     return float(max(abs(eig[0]), abs(eig[-2])))
+
+
+def validate_mixing(mat: np.ndarray, adj: np.ndarray | None = None,
+                    atol: float = 1e-8) -> None:
+    """Raise unless ``mat`` has the Section-4.1 properties: (a) doubly
+    stochastic, (b) symmetric, (c) weight only on the edges of ``adj``."""
+    ones = np.ones(mat.shape[0])
+    if not np.allclose(mat @ ones, ones, atol=atol):
+        raise ValueError("rows do not sum to 1")
+    if not np.allclose(mat.T @ ones, ones, atol=atol):
+        raise ValueError("columns do not sum to 1")
+    if not np.allclose(mat, mat.T, atol=atol):
+        raise ValueError("matrix not symmetric")
+    if adj is not None:
+        off = ~np.eye(mat.shape[0], dtype=bool)
+        if np.any((np.abs(mat) > atol) & off & (adj <= 0)):
+            raise ValueError("nonzero weight on a non-edge")
 
 
 def mix_pytree(matrix: torch.Tensor, tree):

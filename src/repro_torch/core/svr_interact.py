@@ -62,14 +62,23 @@ class Sampler:
     Each step draws, in this order, the inner indices, the outer indices
     and k; so a step's draws do not depend on how many steps are drawn
     at once.
+
+    Padded form (``pad_to``, a padded sweep group): the draws are made
+    for the m active agents alone, then ghost row i takes a copy of row
+    ``i % m``.  The active rows are then an unpadded run's draws, and no
+    ghost draw reaches an active row.
     """
 
     def __init__(self, generator: torch.Generator, m: int, n_inner: int,
-                 n_outer: int, batch_size: int, neumann_k: int):
+                 n_outer: int, batch_size: int, neumann_k: int,
+                 pad_to: int | None = None):
         self.generator = generator
         self.m, self.batch_size = m, batch_size
         self.n_inner, self.n_outer = n_inner, n_outer
         self.neumann_k = max(neumann_k, 1)
+        if pad_to is not None and pad_to < m:
+            raise ValueError(f"cannot pad {m} agents down to {pad_to}")
+        self.rows = m if pad_to is None else pad_to
 
     def draw(self, num_steps: int, device: torch.device | str) -> Draws:
         """``num_steps`` steps' draws stacked on a leading axis, on
@@ -80,15 +89,19 @@ class Sampler:
                        torch.randint(0, self.neumann_k, (self.m,),
                                      generator=gen))
                  for _ in range(num_steps)]
-        return Draws(*(torch.stack(f).to(device) for f in zip(*steps)))
+        stacked = [torch.stack(f) for f in zip(*steps)]
+        if self.rows != self.m:
+            ghost = torch.arange(self.rows) % self.m
+            stacked = [f[:, ghost] for f in stacked]
+        return Draws(*(f.to(device) for f in stacked))
 
     def zeros(self, device: torch.device | str) -> Draws:
         """One step's draws, all 0: the input of warm-up steps, whose
         results are discarded."""
-        idx = torch.zeros(self.m, self.batch_size, dtype=torch.int64,
+        idx = torch.zeros(self.rows, self.batch_size, dtype=torch.int64,
                           device=device)
         return Draws(idx, idx.clone(),
-                     torch.zeros(self.m, dtype=torch.int64, device=device))
+                     torch.zeros(self.rows, dtype=torch.int64, device=device))
 
 
 def step_draws(draws: Draws, i: int) -> Draws:

@@ -1,4 +1,4 @@
-"""Time this tree's consensus_mix and WKV6 kernels against another
+"""Time this tree's consensus kernels and WKV6 against another
 checkout's, in turns on one card.
 
     git archive <commit> | tar -x -C build/other     # any git-ignored dir
@@ -8,8 +8,9 @@ Builds both trees' ``consensus_step.cu`` and ``wkv6.cu`` (nvcc, in
 parallel), prints each redesigned kernel's registers and spills, then
 times both trees' kernels at the shapes below in the order other, this,
 this, other (medians of warmed CUDA-event timings; the Section-6 shape
-by CUDA-graph replay), beside ``torch.matmul`` for the mix and the
-least time the card could take.  Each line is one JSON object; the last
+by CUDA-graph replay): consensus_mix beside ``torch.matmul``,
+consensus_step (unbatched, alpha by value) beside the ``addmm`` pair,
+and WKV6, each with the least time the card could take.  Each line is one JSON object; the last
 is the card's name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -33,6 +34,8 @@ ROOT = Path(__file__).resolve().parents[3]
 MIX_SHAPES = [(16, 4194304, torch.float32, False, 5),
               (16, 4194304, torch.bfloat16, False, 5),
               (5, 760, torch.float32, True, 200)]
+# (m, D, by graph replay, calls a timing), float32
+STEP_SHAPES = [(16, 4194304, False, 5), (5, 760, True, 200)]
 # (b, s, h, N, dtype): rwkv6-3b's prefill in both dtypes
 WKV_SHAPES = [(4, 1024, 40, 64, torch.bfloat16),
               (4, 1024, 40, 64, torch.float32)]
@@ -64,6 +67,9 @@ def _load_other(other: Path) -> tuple[ctypes.CDLL, bool, ctypes.CDLL]:
     has_vec = "int dtype, int vec" in sources[0].read_text()
     mix.repro_consensus_mix.argtypes = (
         [ptr] * 3 + [i32, i64, i32] + ([i32] if has_vec else []) + [ptr])
+    mix.repro_consensus_step.argtypes = [ptr] * 7 + [i32, i64,
+                                                     ctypes.c_float, i32,
+                                                     ptr]
     wkv = ctypes.CDLL(str(libs[1]))
     wkv.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
     return mix, has_vec, wkv
@@ -116,6 +122,30 @@ def main(argv: list[str]) -> int:
                                                 x.element_size())[0],
             max_abs_diff=float((got.float() - out.float()).abs().max()))),
             flush=True)
+    for m, d, graph, inner in STEP_SHAPES:
+        M = torch.rand(m, m, generator=gen, device=dev) + 0.05
+        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+        x, u, p, pp = (torch.randn(m, d, generator=gen, device=dev)
+                       for _ in range(4))
+        xo, uo = torch.empty_like(x), torch.empty_like(u)
+        alpha = chip_smoke.ALPHA
+        args = (M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
+                pp.data_ptr(), xo.data_ptr(), uo.data_ptr(), m, d, alpha, 0)
+        fns = {"other": lambda: other_mix.repro_consensus_step(*args,
+                                                               stream()),
+               "this": lambda: mix_ops.consensus_step_kernel(
+                   M, x, u, p, pp, alpha=alpha),
+               "addmm": lambda: (torch.addmm(u, M, x, beta=-alpha),
+                                 torch.addmm(p - pp, M, u))}
+        fns["other"]()
+        got = fns["this"]()
+        torch.cuda.synchronize()
+        ms = _turns(fns, inner=inner, graph=graph)
+        print(json.dumps(dict(
+            kernel="consensus_step", shape=[m, d], dtype="float32", ms=ms,
+            bound_ms=chip_smoke.bound_ms("consensus_step", m, d, 4)[0],
+            max_abs_diff=max(float((got[0] - xo).abs().max()),
+                             float((got[1] - uo).abs().max())))), flush=True)
     for b, s, h, n, dtype in WKV_SHAPES:
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)

@@ -9,6 +9,17 @@
 // bfloat16.  Sums run in float32 with plain FMA (no tensor cores) and the
 // outputs are written in the input dtype.
 //
+// Batched form (a sweep group of B experiments, one launch for all):
+// every stream is (B, m, D) contiguous, experiment b at b * m * D; M is
+// (B, m, m) with a batch stride of m * m (one matrix per experiment) or
+// (1, m, m) with a stride of 0 (one matrix shared by the group); alpha is
+// read per experiment from a float32 device array of length B.  The grid's
+// y axis is the experiment: blockIdx.y = b offsets every pointer and stages
+// experiment b's matrix.  An unbatched call is B = 1 with a stride of 0 and
+// alpha passed by value; it runs the kBatched = false instantiation, which
+// compiles the offsets and the alpha read away, so its code is the
+// unbatched kernels' as they were.
+//
 // Replaces the Pallas TPU kernels of the JAX package:
 //   src/repro/kernels/consensus_step/kernel.py  consensus_step_kernel
 //                                               (body _consensus_kernel)
@@ -82,20 +93,38 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Experiment blockIdx.y's slice of a (B, m, D) stream.
+template <typename P>
+__device__ __forceinline__ P* experiment(P* base, int64_t stride) {
+  return base + static_cast<int64_t>(blockIdx.y) * stride;
+}
+
 __device__ __forceinline__ void stage_matrix(const float* __restrict__ M,
                                              float* sM, int m) {
   for (int k = threadIdx.x; k < m * m; k += blockDim.x) sM[k] = M[k];
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
     consensus_step_kernel(const float* __restrict__ M,
                           const T* __restrict__ x, const T* __restrict__ u,
                           const T* __restrict__ p, const T* __restrict__ pp,
                           T* __restrict__ xo, T* __restrict__ uo, int m,
-                          int64_t D, float alpha) {
+                          int64_t D, float alpha, int64_t m_stride,
+                          const float* __restrict__ alphas) {
   extern __shared__ float sM[];
+  if constexpr (kBatched) {
+    const int64_t stride = static_cast<int64_t>(m) * D;
+    x = experiment(x, stride);
+    u = experiment(u, stride);
+    p = experiment(p, stride);
+    pp = experiment(pp, stride);
+    xo = experiment(xo, stride);
+    uo = experiment(uo, stride);
+    alpha = alphas[blockIdx.y];
+    M = experiment(M, m_stride);
+  }
   stage_matrix(M, sM, m);
   const int64_t d = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (d >= D) return;
@@ -214,12 +243,17 @@ constexpr int kChunk = 4;  // input rows loaded together when m > kRows
 // latencies overlap; then the output rows, kOut at a time, from the
 // packed rows in registers.  Otherwise passes of kRows output rows over
 // input rows kChunk at a time.
-template <typename T, int kV, bool kOnePass>
+template <typename T, int kV, bool kOnePass, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
     consensus_mix_kernel(const float* __restrict__ M,
                          const T* __restrict__ x, T* __restrict__ out, int m,
-                         int64_t D) {
+                         int64_t D, int64_t m_stride) {
   extern __shared__ float sM[];
+  if constexpr (kBatched) {
+    x = experiment(x, static_cast<int64_t>(m) * D);
+    out = experiment(out, static_cast<int64_t>(m) * D);
+    M = experiment(M, m_stride);
+  }
   const int64_t d =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kV;
   const bool live = d < D;
@@ -306,56 +340,79 @@ cudaError_t reserve_shared(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-unsigned num_blocks(int64_t D) {
-  return static_cast<unsigned>((D + kThreads - 1) / kThreads);
+// Blocks along D (x) and experiments (y); 65535 experiments at most.
+dim3 grid(int64_t D, int B) {
+  return dim3(static_cast<unsigned>((D + kThreads - 1) / kThreads),
+              static_cast<unsigned>(B));
 }
 
+// Every launch of a batch: B in 1..65535, M's batch stride 0 or m * m.
+bool bad_batch(int B, int m, long long m_stride) {
+  return B < 1 || B > 65535 ||
+         (m_stride != 0 && m_stride != static_cast<long long>(m) * m);
+}
+
+// alphas == nullptr: the unbatched kernel (B = 1, alpha by value).
 template <typename T>
 cudaError_t launch_step(const void* M, const void* x, const void* u,
                         const void* p, const void* pp, void* xo, void* uo,
-                        int m, int64_t D, float alpha, cudaStream_t stream) {
+                        int m, int64_t D, float alpha, int B,
+                        int64_t m_stride, const float* alphas,
+                        cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  cudaError_t err = reserve_shared(consensus_step_kernel<T>, smem);
+  auto kernel = alphas == nullptr ? consensus_step_kernel<T, false>
+                                  : consensus_step_kernel<T, true>;
+  cudaError_t err = reserve_shared(kernel, smem);
   if (err != cudaSuccess) return err;
-  consensus_step_kernel<T><<<num_blocks(D), kThreads, smem, stream>>>(
+  kernel<<<grid(D, B), kThreads, smem, stream>>>(
       static_cast<const float*>(M), static_cast<const T*>(x),
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<const T*>(pp), static_cast<T*>(xo), static_cast<T*>(uo), m,
-      D, alpha);
+      D, alpha, m_stride, alphas);
   return cudaGetLastError();
 }
 
+// B == 0: the unbatched kernel (one experiment, no offsets).
 template <typename T, int kV, bool kOnePass>
 cudaError_t launch_mix_kernel(const void* M, const void* x, void* out, int m,
-                              int64_t D, cudaStream_t stream) {
+                              int64_t D, int B, int64_t m_stride,
+                              cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  auto kernel = consensus_mix_kernel<T, kV, kOnePass>;
+  auto kernel = B == 0 ? consensus_mix_kernel<T, kV, kOnePass, false>
+                       : consensus_mix_kernel<T, kV, kOnePass, true>;
+  B = B == 0 ? 1 : B;
   cudaError_t err = reserve_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t units = (D + kV - 1) / kV;  // column groups, one a thread
-  kernel<<<num_blocks(units), kThreads, smem, stream>>>(
+  kernel<<<grid(units, B), kThreads, smem, stream>>>(
       static_cast<const float*>(M), static_cast<const T*>(x),
-      static_cast<T*>(out), m, D);
+      static_cast<T*>(out), m, D, m_stride);
   return cudaGetLastError();
 }
 
 // vec != 0 asks for 16-byte accesses; refused unless every row of x and
-// out starts on a 16-byte boundary, so no access is ever misaligned.
+// out starts on a 16-byte boundary, so no access is ever misaligned (the
+// experiments of a batch lie m * D elements apart, so the rows of every
+// experiment start on one when experiment 0's do).
 template <typename T>
 cudaError_t launch_mix(const void* M, const void* x, void* out, int m,
-                       int64_t D, int vec, cudaStream_t stream) {
+                       int64_t D, int B, int64_t m_stride, int vec,
+                       cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   if (vec) {
     const bool aligned = (D * sizeof(T)) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(out) % 16 == 0;
     if (!aligned) return cudaErrorMisalignedAddress;
-    return m <= kRows
-               ? launch_mix_kernel<T, kV, true>(M, x, out, m, D, stream)
-               : launch_mix_kernel<T, kV, false>(M, x, out, m, D, stream);
+    return m <= kRows ? launch_mix_kernel<T, kV, true>(M, x, out, m, D, B,
+                                                        m_stride, stream)
+                      : launch_mix_kernel<T, kV, false>(M, x, out, m, D, B,
+                                                         m_stride, stream);
   }
-  return m <= kRows ? launch_mix_kernel<T, 1, true>(M, x, out, m, D, stream)
-                    : launch_mix_kernel<T, 1, false>(M, x, out, m, D, stream);
+  return m <= kRows ? launch_mix_kernel<T, 1, true>(M, x, out, m, D, B,
+                                                     m_stride, stream)
+                    : launch_mix_kernel<T, 1, false>(M, x, out, m, D, B,
+                                                      m_stride, stream);
 }
 
 }  // namespace
@@ -368,9 +425,31 @@ extern "C" int repro_consensus_step(const void* M, const void* x,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_step<float>(M, x, u, p, pp, xo, uo, m, D, alpha, s);
+    return launch_step<float>(M, x, u, p, pp, xo, uo, m, D, alpha, 1, 0,
+                              nullptr, s);
   if (dtype == 1)
-    return launch_step<__nv_bfloat16>(M, x, u, p, pp, xo, uo, m, D, alpha, s);
+    return launch_step<__nv_bfloat16>(M, x, u, p, pp, xo, uo, m, D, alpha, 1,
+                                      0, nullptr, s);
+  return cudaErrorInvalidValue;
+}
+
+// B experiments in one launch: streams (B, m, D), M (B, m, m) with
+// m_stride = m * m or (1, m, m) with m_stride = 0, alphas (B,) float32 on
+// the device.
+extern "C" int repro_consensus_step_batched(
+    const void* M, const void* x, const void* u, const void* p,
+    const void* pp, void* xo, void* uo, int m, long long D, int B,
+    long long m_stride, const void* alphas, int dtype, void* stream) {
+  if (bad_batch(B, m, m_stride) || alphas == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(alphas);
+  if (dtype == 0)
+    return launch_step<float>(M, x, u, p, pp, xo, uo, m, D, 0.f, B, m_stride,
+                              a, s);
+  if (dtype == 1)
+    return launch_step<__nv_bfloat16>(M, x, u, p, pp, xo, uo, m, D, 0.f, B,
+                                      m_stride, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -380,8 +459,24 @@ extern "C" int repro_consensus_mix(const void* M, const void* x, void* out,
                                    int m, long long D, int dtype, int vec,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_mix<float>(M, x, out, m, D, vec, s);
-  if (dtype == 1) return launch_mix<__nv_bfloat16>(M, x, out, m, D, vec, s);
+  if (dtype == 0) return launch_mix<float>(M, x, out, m, D, 0, 0, vec, s);
+  if (dtype == 1)
+    return launch_mix<__nv_bfloat16>(M, x, out, m, D, 0, 0, vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// B experiments in one launch: x and out (B, m, D), M as for
+// repro_consensus_step_batched.
+extern "C" int repro_consensus_mix_batched(const void* M, const void* x,
+                                           void* out, int m, long long D,
+                                           int B, long long m_stride,
+                                           int dtype, int vec, void* stream) {
+  if (bad_batch(B, m, m_stride)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_mix<float>(M, x, out, m, D, B, m_stride, vec, s);
+  if (dtype == 1)
+    return launch_mix<__nv_bfloat16>(M, x, out, m, D, B, m_stride, vec, s);
   return cudaErrorInvalidValue;
 }
 

@@ -5,6 +5,23 @@ Counterpart of ``repro.kernels.consensus_step.ops`` (pytree level) and
 on nothing else: a CPU tensor goes to the plain version in ``ref.py``, a
 CUDA tensor launches the kernel of ``csrc/consensus_step.cu`` or raises.
 ``LAUNCHES`` counts kernel launches, one per launch, and nothing else.
+
+Batched forms.  ``consensus_step_batched_kernel`` and
+``consensus_mix_batched_kernel`` take B experiments' (B, m, D) streams
+and one matrix per experiment, (B, m, m), or one for all, (1, m, m), and
+run them in one launch (the kernel's grid y axis is the experiment);
+the step reads each experiment's alpha from a (B,) float32 tensor.
+
+Under ``torch.func.vmap``.  The (m, D) wrappers read ``data_ptr()``,
+which a batched tensor does not have, so the pytree functions reach the
+kernels through two custom operators, ``repro_torch::consensus_mix`` and
+``repro_torch::consensus_step`` (the step's alpha a 0-dim tensor).  Their
+vmap rules gather the batch onto the leading axis and call the batched
+wrapper once, so a sweep group of B experiments launches each kernel
+once a step; unbatched, the mix operator calls the (m, D) wrapper and the
+step operator the batched kernel with B = 1.  On the CPU both reach the
+plain versions.  ``consensus_step`` with a Python float alpha calls the
+(m, D) wrapper directly, as it always has.
 """
 from __future__ import annotations
 
@@ -16,12 +33,15 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.consensus_step.ref import (consensus_mix_ref,
-                                                    consensus_step_ref)
+from repro_torch.kernels.consensus_step.ref import (
+    consensus_mix_batched_ref, consensus_mix_ref, consensus_step_batched_ref,
+    consensus_step_ref)
 
 __all__ = ["LAUNCHES", "MAX_SHARED_BYTES", "SOURCE", "consensus_mix",
-           "consensus_mix_kernel", "consensus_step", "consensus_step_kernel",
-           "flatten_agents", "load", "mix_takes_16_byte_path"]
+           "consensus_mix_batched_kernel", "consensus_mix_kernel",
+           "consensus_step", "consensus_step_batched_kernel",
+           "consensus_step_kernel", "flatten_agents", "load",
+           "mix_takes_16_byte_path"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "consensus_step.cu"
 
@@ -43,6 +63,12 @@ def load() -> ctypes.CDLL:
     lib.repro_consensus_step.restype = i32
     lib.repro_consensus_mix.argtypes = [ptr] * 3 + [i32, i64, i32, i32, ptr]
     lib.repro_consensus_mix.restype = i32
+    lib.repro_consensus_step_batched.argtypes = [ptr] * 7 + [
+        i32, i64, i32, i64, ptr, i32, ptr]
+    lib.repro_consensus_step_batched.restype = i32
+    lib.repro_consensus_mix_batched.argtypes = [ptr] * 3 + [
+        i32, i64, i32, i64, i32, i32, ptr]
+    lib.repro_consensus_mix_batched.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,10 +98,40 @@ def _check(M: torch.Tensor, streams: tuple[torch.Tensor, ...]) -> None:
             raise ValueError("operands must be contiguous")
 
 
+def _check_batched(M: torch.Tensor, streams: tuple[torch.Tensor, ...],
+                   alpha: torch.Tensor | None = None) -> None:
+    x = streams[0]
+    if x.dim() != 3:
+        raise ValueError(f"batched streams must be (B, m, D), got "
+                         f"{tuple(x.shape)}")
+    B, m = x.shape[0], x.shape[1]
+    if M.dim() != 3 or M.shape[1:] != (m, m) or M.shape[0] not in (1, B):
+        raise ValueError(f"batched mixing matrices must be ({B}, {m}, {m}) "
+                         f"or (1, {m}, {m}), got {tuple(M.shape)}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"a batch holds 1 to 65535 experiments, got {B}")
+    _check(M[0], tuple(s[0] for s in streams))
+    for s in streams:
+        if s.shape != x.shape:
+            raise ValueError(
+                f"streams must all be {tuple(x.shape)}, got "
+                f"{[tuple(t.shape) for t in streams]}")
+    for t in (M, *streams):
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if alpha is not None:
+        if (alpha.shape != (B,) or alpha.dtype != torch.float32
+                or alpha.device != x.device or not alpha.is_contiguous()):
+            raise ValueError(
+                f"alpha must be a contiguous ({B},) float32 tensor on "
+                f"{x.device}, got {tuple(alpha.shape)} {alpha.dtype} on "
+                f"{alpha.device}")
+
+
 def _launch_checks(M: torch.Tensor, x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"no consensus kernel for device {x.device}")
-    m = M.shape[0]
+    m = M.shape[-1]
     if m * m * 4 > MAX_SHARED_BYTES:
         raise ValueError(
             f"{m} agents: the {m}x{m} float32 mixing matrix ({m * m * 4} "
@@ -114,13 +170,46 @@ def consensus_step_kernel(M: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
     return x_out, u_out
 
 
+def consensus_step_batched_kernel(M: torch.Tensor, x: torch.Tensor,
+                                  u: torch.Tensor, p: torch.Tensor,
+                                  p_prev: torch.Tensor, alpha: torch.Tensor
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``consensus_step_kernel`` for B experiments in one launch: streams
+    (B, m, D), M (B, m, m) or (1, m, m) shared, alpha (B,) float32."""
+    _check_batched(M, (x, u, p, p_prev), alpha)
+    if x.device.type == "cpu":
+        return consensus_step_batched_ref(M, x, u, p, p_prev, alpha)
+    _launch_checks(M, x)
+    x_out, u_out = torch.empty_like(x), torch.empty_like(u)
+    _launch_step_batched(M, x, u, p, p_prev, alpha, x_out, u_out)
+    return x_out, u_out
+
+
+def _launch_step_batched(M, x, u, p, p_prev, alpha, x_out, u_out) -> None:
+    """One ``consensus_step`` launch over ``x``'s leading batch axis
+    (checked by the caller), writing ``x_out`` and ``u_out``."""
+    B, m, d = x.shape
+    if d == 0:
+        return
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_consensus_step_batched(
+            M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
+            p_prev.data_ptr(), x_out.data_ptr(), u_out.data_ptr(), m, d, B,
+            0 if M.shape[0] == 1 else m * m, alpha.data_ptr(),
+            _DTYPE_CODES[x.dtype], stream)
+    _raise_on_error(lib, err, "consensus_step")
+    LAUNCHES["consensus_step"] += 1
+
+
 def mix_takes_16_byte_path(x: torch.Tensor, out: torch.Tensor) -> bool:
     """Whether ``consensus_mix``'s kernel may move ``x`` and ``out`` in
     16-byte accesses: every row starts on a 16-byte boundary, i.e. a row
     is a multiple of 16 bytes and both base pointers are 16-byte aligned
     (a view with a storage offset may not be).  Otherwise it takes element
-    accesses."""
-    row_bytes = x.shape[1] * x.element_size()
+    accesses.  ``x`` is (m, D) or a batch (B, m, D)."""
+    row_bytes = x.shape[-1] * x.element_size()
     return (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
             and out.data_ptr() % 16 == 0)
 
@@ -147,6 +236,98 @@ def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def consensus_mix_batched_kernel(M: torch.Tensor, x: torch.Tensor
+                                 ) -> torch.Tensor:
+    """``consensus_mix_kernel`` for B experiments in one launch: x (B, m,
+    D), M (B, m, m) or (1, m, m) shared."""
+    _check_batched(M, (x,))
+    if x.device.type == "cpu":
+        return consensus_mix_batched_ref(M, x)
+    _launch_checks(M, x)
+    out = torch.empty_like(x)
+    B, m, d = x.shape
+    if d == 0:
+        return out
+    lib = load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.repro_consensus_mix_batched(
+            M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d, B,
+            0 if M.shape[0] == 1 else m * m, _DTYPE_CODES[x.dtype],
+            int(mix_takes_16_byte_path(x, out)), stream)
+    _raise_on_error(lib, err, "consensus_mix")
+    LAUNCHES["consensus_mix"] += 1
+    return out
+
+
+# -- the custom operators: what the pytree functions call, vmap or not ------
+
+@torch.library.custom_op("repro_torch::consensus_mix", mutates_args=())
+def _mix_op(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return consensus_mix_kernel(M, x)
+
+
+@_mix_op.register_fake
+def _(M, x):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("repro_torch::consensus_step", mutates_args=())
+def _step_op(M: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
+             p: torch.Tensor, p_prev: torch.Tensor, alpha: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    alpha = alpha.reshape(1).to(torch.float32)
+    _check_batched(M[None], tuple(t[None] for t in (x, u, p, p_prev)), alpha)
+    if x.device.type == "cpu":
+        return consensus_step_ref(M, x, u, p, p_prev, alpha=alpha[0])
+    _launch_checks(M, x)
+    x_out, u_out = torch.empty_like(x), torch.empty_like(u)
+    _launch_step_batched(M[None], x[None], u[None], p[None], p_prev[None],
+                         alpha, x_out[None], u_out[None])
+    return x_out, u_out
+
+
+@_step_op.register_fake
+def _(M, x, u, p, p_prev, alpha):
+    return torch.empty_like(x), torch.empty_like(u)
+
+
+def _batch_first(t: torch.Tensor, dim: int | None, size: int
+                 ) -> torch.Tensor:
+    """``t`` with its vmap batch axis ``dim`` leading (expanded to ``size``
+    when it has none), contiguous."""
+    if dim is None:
+        t = t.expand(size, *t.shape)
+    else:
+        t = t.movedim(dim, 0)
+    return t.contiguous()
+
+
+def _matrix_batch(M: torch.Tensor, dim: int | None) -> torch.Tensor:
+    """The (B, m, m) matrices of a batched ``M``, or (1, m, m) for one
+    matrix shared by the batch."""
+    return (M[None] if dim is None else M.movedim(dim, 0)).contiguous()
+
+
+@torch.library.register_vmap("repro_torch::consensus_mix")
+def _mix_vmap(info, in_dims, M, x):
+    out = consensus_mix_batched_kernel(
+        _matrix_batch(M, in_dims[0]),
+        _batch_first(x, in_dims[1], info.batch_size))
+    return out, 0
+
+
+@torch.library.register_vmap("repro_torch::consensus_step")
+def _step_vmap(info, in_dims, M, x, u, p, p_prev, alpha):
+    size = info.batch_size
+    streams = [_batch_first(t, d, size)
+               for t, d in zip((x, u, p, p_prev), in_dims[1:5])]
+    x_out, u_out = consensus_step_batched_kernel(
+        _matrix_batch(M, in_dims[0]), *streams,
+        _batch_first(alpha.to(torch.float32), in_dims[5], size))
+    return (x_out, u_out), (0, 0)
+
+
 def flatten_agents(tree):
     """(m, ...)-leaved pytree -> ((m, D) matrix, unravel).
 
@@ -171,14 +352,18 @@ def flatten_agents(tree):
 
 
 def consensus_mix(M: torch.Tensor, tree):
-    """Bare combine ``x_i <- sum_j M_ij x_j`` over a pytree (one launch)."""
+    """Bare combine ``x_i <- sum_j M_ij x_j`` over a pytree (one launch,
+    for all experiments under ``vmap``)."""
     X, unravel = flatten_agents(tree)
-    return unravel(consensus_mix_kernel(M, X))
+    return unravel(_mix_op(M, X))
 
 
 def consensus_step(M: torch.Tensor, x_tree, u_tree, p_tree, pprev_tree, *,
-                   alpha: float):
-    """``(x_tree', u_tree')`` after one fused eq. (6) + (10) update."""
+                   alpha: float | torch.Tensor):
+    """``(x_tree', u_tree')`` after one fused eq. (6) + (10) update.
+
+    ``alpha`` is a Python float or a 0-dim tensor (one per experiment
+    under ``vmap``, read by the kernel from the device)."""
     X, unravel_x = flatten_agents(x_tree)
     # u gets its own unravel: for mixed-dtype trees, x's unravel would
     # cast the tracker to x's leaf dtypes on the way back.
@@ -187,6 +372,9 @@ def consensus_step(M: torch.Tensor, x_tree, u_tree, p_tree, pprev_tree, *,
     PP, _ = flatten_agents(pprev_tree)
     dtype = functools.reduce(torch.promote_types,
                              [X.dtype, U.dtype, P.dtype, PP.dtype])
-    X_out, U_out = consensus_step_kernel(
-        M, X.to(dtype), U.to(dtype), P.to(dtype), PP.to(dtype), alpha=alpha)
+    X, U, P, PP = (t.to(dtype) for t in (X, U, P, PP))
+    if isinstance(alpha, torch.Tensor):
+        X_out, U_out = _step_op(M, X, U, P, PP, alpha)
+    else:
+        X_out, U_out = consensus_step_kernel(M, X, U, P, PP, alpha=alpha)
     return unravel_x(X_out), unravel_u(U_out)

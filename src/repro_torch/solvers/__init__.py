@@ -4,6 +4,7 @@
 
     result = solve(SolverConfig(algo="svr-interact", backend="cuda"), 40,
                    record_every=5)
+    grid = sweep(expand_grid(SolverConfig(), seed=range(8)), 40, 5)
 
 ``algo`` is one of "interact", "svr-interact", "gt-dsgd", "d-sgd".
 """
@@ -21,6 +22,8 @@ from repro_torch.solvers.api import (
     solve,
 )
 from repro_torch.solvers.config import SolverConfig, TopologyConfig
+from repro_torch.solvers.sweep import (SweepGroup, SweepResult, expand_grid,
+                                       sweep)
 
 # Importing the implementation modules populates the registry.
 from repro_torch.solvers import baselines as _baselines  # noqa: F401
@@ -35,11 +38,15 @@ __all__ = [
     "SolveResult",
     "SolverBase",
     "SolverConfig",
+    "SweepGroup",
+    "SweepResult",
     "TopologyConfig",
     "available_solvers",
     "default_setup",
+    "expand_grid",
     "make_solver",
     "register_solver",
     "run_recorded",
     "solve",
+    "sweep",
 ]

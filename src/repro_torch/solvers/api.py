@@ -40,6 +40,7 @@ device was named.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable
 
@@ -127,9 +128,10 @@ def _chunks(num_steps: int, record_every: int) -> list[int]:
 class SolverBase:
     """Shared plumbing: engine construction, sampling, stepping, warmup.
 
-    Subclasses implement ``_init_state`` and ``_make_step`` (the step
-    body over a bound ``ConsensusEngine``); stochastic ones set
-    ``uses_draws`` and SVR-INTERACT overrides ``branch``.
+    Subclasses implement ``_init_state`` and ``_make_param_step`` (the
+    step body over a bound ``ConsensusEngine``, alpha and beta its
+    arguments); stochastic ones set ``uses_draws`` and SVR-INTERACT
+    overrides ``branch``.
     """
 
     communications_per_step = 2  # Steps 1 and 3 each mix once
@@ -138,6 +140,7 @@ class SolverBase:
     def __init__(self, config: SolverConfig):
         self.config = config
         self._step_fn = None
+        self._param_step = None
         self._engine = None
         self._problem = None
         self._hg_cfg = None
@@ -149,9 +152,27 @@ class SolverBase:
     def _init_state(self, problem, hg_cfg, x0, y0, data):
         raise NotImplementedError
 
-    def _make_step(self, problem, hg_cfg, engine, n: int | None) -> Callable:
-        """Return ``step(state, data, draws) -> state``."""
+    def _make_param_step(self, problem, hg_cfg, engine,
+                         n: int | None) -> Callable:
+        """Return ``step(state, data, draws, alpha, beta) -> state``.
+
+        alpha and beta enter as arguments (floats, or 0-dim tensors: one
+        per experiment of a sweep group under ``vmap``), not as constants
+        closed over, so a sweep runs one step over a batch of step sizes.
+        """
         raise NotImplementedError
+
+    def _make_step(self) -> Callable:
+        """Return ``step(state, data, draws) -> state``: the parameterised
+        step ``build`` made (``_param_step``) with ``config.alpha`` and
+        ``config.beta`` bound."""
+        param = self._param_step
+        alpha, beta = self.config.alpha, self.config.beta
+
+        def step(state, data, draws=None):
+            return param(state, data, draws, alpha, beta)
+
+        return step
 
     def branch(self, t: int):
         """Which branch of the algorithm the step from iteration ``t``
@@ -188,7 +209,8 @@ class SolverBase:
             attach_topology(engine, self.config.topology_process, spec,
                             seed=self.config.seed)
         self._engine = engine
-        self._step_fn = self._make_step(problem, hg_cfg, self._engine, n)
+        self._param_step = self._make_param_step(problem, hg_cfg, engine, n)
+        self._step_fn = self._make_step()
         self._counter = None
         if self.config.guard.active:
             # the incoming t on the device, for the guard's last_good
@@ -244,6 +266,12 @@ class SolverBase:
         self._engine.load_round(t)
         if self._counter is not None:
             self._counter.fill_(int(t))
+
+    def prefetch_rounds(self, t: int, num_steps: int) -> None:
+        """Draw what ``load_step`` copies for steps ``t .. t + num_steps -
+        1`` ahead (``engine.prefetch_rounds``), so no replay waits for the
+        host."""
+        self._engine.prefetch_rounds(t, num_steps)
 
     def step(self, state, data, draws: Draws | None = None):
         """One iteration; a stochastic solver draws when ``draws`` is
@@ -393,7 +421,10 @@ class GraphStepper:
     graph is captured the first time a step needs it (``prepare``
     captures every one a run needs before it starts), after
     ``WARMUP_STEPS`` eager steps on a copy on a side stream.  A capture
-    that fails raises.
+    that fails raises.  Each capture starts with a garbage collection: a
+    dead reference cycle that holds a CUDA graph (a solver and its
+    stepper) would otherwise be collected during the capture, whose
+    graph reset is not allowed there and invalidates it.
 
     ``graphs``, ``replays`` and ``eager_steps`` (the warm-up steps) are
     kept for accounting: a kernel launched c times in the eager step is
@@ -426,11 +457,11 @@ class GraphStepper:
         """A copy of the current state."""
         return _clone(self.static)._replace(t=self.t)
 
-    def _warm(self, fn) -> None:
+    def _warm(self, fn, times: int) -> None:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            for _ in range(self.WARMUP_STEPS):
+            for _ in range(times):
                 fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
 
@@ -442,8 +473,10 @@ class GraphStepper:
             return graph
         step, at_t = self.solver._step_fn, self.static._replace(t=t)
         self.solver.load_step(t)
-        self._warm(lambda: step(_clone(at_t), self.data, self.draws))
+        self._warm(lambda: step(_clone(at_t), self.data, self.draws),
+                   self.WARMUP_STEPS)
         self.eager_steps += self.WARMUP_STEPS
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             _copy_state(self.static, step(at_t, self.data, self.draws))
@@ -457,12 +490,14 @@ class GraphStepper:
 
     def record(self, metric_fn) -> Callable[[], torch.Tensor]:
         """A graph of ``metric_fn`` on the static state (captured once per
-        ``metric_fn``); returns a call that replays it and returns a copy
-        of its value."""
+        ``metric_fn``, after one eager warm-up: the step's captures have
+        set up what its kernels need); returns a call that replays it and
+        returns a copy of its value."""
         held = self.metrics.get(id(metric_fn))
         if held is not None:
             return held[1]
-        self._warm(lambda: metric_fn(self.static))
+        self._warm(lambda: metric_fn(self.static), 1)
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             value = torch.as_tensor(metric_fn(self.static))
@@ -479,7 +514,7 @@ class GraphStepper:
         """``num_steps`` steps, on the solver's next draws."""
         draws = self.solver.draw(num_steps, self.device)
         self.prepare(num_steps)
-        self.solver._engine.prefetch_rounds(self.t, num_steps)
+        self.solver.prefetch_rounds(self.t, num_steps)
         for i in range(num_steps):
             graph = self.capture(self.t)
             if draws is not None:

@@ -29,10 +29,8 @@ class GtDsgdSolver(SolverBase):
                                   guard=init_guard(self.config.guard,
                                                    data.inner_x.device))
 
-    def _make_step(self, problem, hg_cfg, engine, n):
-        alpha, beta = self.config.alpha, self.config.beta
-
-        def step(state, data, draws):
+    def _make_param_step(self, problem, hg_cfg, engine, n):
+        def step(state, data, draws, alpha, beta):
             return gt_dsgd_step(problem, hg_cfg, engine, alpha, beta, state,
                                 data, draws)
 
@@ -55,10 +53,8 @@ class DsgdSolver(SolverBase):
                                guard=init_guard(self.config.guard,
                                                 data.inner_x.device))
 
-    def _make_step(self, problem, hg_cfg, engine, n):
-        alpha, beta = self.config.alpha, self.config.beta
-
-        def step(state, data, draws):
+    def _make_param_step(self, problem, hg_cfg, engine, n):
+        def step(state, data, draws, alpha, beta):
             return dsgd_step(problem, hg_cfg, engine, alpha, beta, state,
                              data, draws)
 

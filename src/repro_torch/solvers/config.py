@@ -1,14 +1,16 @@
 """`SolverConfig`: the configuration object behind every solver.
 
 Counterpart of ``repro.solvers.config`` with the fields the port
-honours.  The sweep's ``static_key`` / ``BATCH_FIELDS`` grouping comes
-with the batched sweeps, which the port does not have yet.
+honours, and the sweep's grouping contract: ``static_key`` and
+``BATCH_FIELDS`` (see ``repro_torch.solvers.sweep``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Any, Mapping
+
+import numpy as np
 
 from repro_torch.byzantine.config import ByzantineConfig, GuardConfig
 from repro_torch.consensus.compress import CompressionConfig
@@ -141,3 +143,58 @@ class SolverConfig:
         if self.batch_size is not None:
             return self.batch_size
         return self.resolve_q(n)
+
+    # -- static / batch split (the sweep's grouping contract) -------------
+    #
+    # Two configs share one sweep group, a batch of one vmapped step,
+    # exactly when everything the step's structure depends on matches:
+    # algorithm, network, backend and its options, hypergradient, batch
+    # and q, the wire, the topology process's structure, the Byzantine
+    # configuration and the guard.  ``seed``, ``alpha`` and ``beta``
+    # enter only as values (the draws' generator and two per-experiment
+    # scalars), so they are the batch axes.
+
+    BATCH_FIELDS = ("seed", "alpha", "beta")
+
+    def static_key(self, pad_to: int | None = None) -> tuple:
+        """Hashable fingerprint of every field but the ``BATCH_FIELDS``.
+
+        Configs with equal keys run in one group.  An explicit
+        ``MixingSpec`` is keyed by value (its matrix bytes), so two equal
+        networks built apart still share a group.  The topology process
+        contributes only its structure (kind, period, tau): its ``p`` and
+        seed change the stream's values, which a group takes per
+        experiment.
+
+        ``pad_to`` is the padded grouping (``sweep(..., pad_agents=
+        True)``): the network fields (``topology``, ``mixing``,
+        ``num_agents``) leave the key for the common padded size, and the
+        Byzantine config contributes only its structure (kind, combine
+        rule, trim); attacker count, scale and attack seed become
+        per-experiment values.  Unpadded groups key on the whole
+        Byzantine config and the resolved attack seed, so a seed grid
+        never shares one attack schedule.
+        """
+        opts = tuple(sorted(self.backend_opts.items()))
+        wire = (self.compression, self.communication_interval)
+        proc = self.topology_process.structural_key()
+        if pad_to is not None:
+            byz = self.byzantine.structural_key()
+            return (self.algo, self.batch_size, self.q, ("padded", pad_to),
+                    self.backend, opts, self.hypergrad, wire, proc, byz,
+                    self.guard)
+        mix = None
+        if self.mixing is not None:
+            mat = np.asarray(self.mixing.matrix)
+            mix = (mat.shape, mat.tobytes(), float(self.mixing.lam),
+                   tuple(self.mixing.neighbors), tuple(self.mixing.weights))
+        byz = (self.byzantine,
+               self.byzantine.resolve_seed(self.seed)
+               if self.byzantine.attack_active else None)
+        return (self.algo, self.batch_size, self.q, self.num_agents, mix,
+                self.topology, self.backend, opts, self.hypergrad, wire,
+                proc, byz, self.guard)
+
+    def batch_values(self) -> tuple[int, float, float]:
+        """The per-experiment values: ``(seed, alpha, beta)``."""
+        return (self.seed, self.alpha, self.beta)

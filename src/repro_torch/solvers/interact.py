@@ -23,10 +23,8 @@ class InteractSolver(SolverBase):
                           guard=init_guard(self.config.guard,
                                            data.inner_x.device))
 
-    def _make_step(self, problem, hg_cfg, engine, n):
-        alpha, beta = self.config.alpha, self.config.beta
-
-        def step(state, data, draws=None):
+    def _make_param_step(self, problem, hg_cfg, engine, n):
+        def step(state, data, draws, alpha, beta):
             return interact_step(problem, hg_cfg, engine, alpha, beta,
                                  state, data)
 

@@ -28,11 +28,10 @@ class SvrInteractSolver(SolverBase):
                               guard=init_guard(self.config.guard,
                                                data.inner_x.device))
 
-    def _make_step(self, problem, hg_cfg, engine, n):
-        alpha, beta = self.config.alpha, self.config.beta
+    def _make_param_step(self, problem, hg_cfg, engine, n):
         self._q = q = self.config.resolve_q(n)
 
-        def step(state, data, draws):
+        def step(state, data, draws, alpha, beta):
             return svr_interact_step(problem, hg_cfg, engine, alpha, beta,
                                      q, state, data, draws)
 

@@ -18,6 +18,8 @@ from repro_torch.topology.process import (
 )
 from repro_torch.topology.runtime import (
     AdaptiveTopology,
+    GroupStreamTopology,
+    RoundTopology,
     StreamTopology,
     adaptive_mixing,
     agents_matrix,
@@ -27,6 +29,8 @@ from repro_torch.topology.runtime import (
 
 __all__ = [
     "AdaptiveTopology",
+    "GroupStreamTopology",
+    "RoundTopology",
     "StreamTopology",
     "TopologyProcessConfig",
     "TopologyStream",

@@ -92,6 +92,13 @@ class TopologyProcessConfig:
         """Matrix computed from the iterates each step (no stream)."""
         return make_topology_process(self).state_dependent
 
+    def structural_key(self) -> tuple:
+        """What ``SolverConfig.static_key`` keys on: the kind, the period
+        and tau.  ``p`` and the seed change only the stream's values,
+        which a sweep group takes as a per-experiment operand, so a
+        failure-rate grid of one algorithm is one group."""
+        return (self.kind, self.period, self.tau)
+
     def resolve_seed(self, fallback: int) -> int:
         return fallback if self.seed is None else self.seed
 
@@ -132,6 +139,19 @@ class TopologyStream:
     def active_out_degree(self) -> np.ndarray:
         """(T, m) directed links each agent serves a round."""
         return self.edge_mask.sum(axis=2)
+
+    def padded(self, pad_to: int) -> "TopologyStream":
+        """Every matrix ghost-padded to ``pad_to`` agents with identity
+        rows, as ``repro_torch.core.consensus.pad_mixing`` pads one; ghost
+        links are never active."""
+        T, m = self.matrices.shape[:2]
+        if pad_to < m:
+            raise ValueError(f"cannot pad {m} agents down to {pad_to}")
+        mats = np.tile(np.eye(pad_to), (T, 1, 1))
+        mats[:, :m, :m] = self.matrices
+        mask = np.zeros((T, pad_to, pad_to), dtype=bool)
+        mask[:, :m, :m] = self.edge_mask
+        return TopologyStream(matrices=mats, edge_mask=mask)
 
 
 def adjacency_of(mixing: MixingSpec | np.ndarray,

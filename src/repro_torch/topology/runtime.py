@@ -17,6 +17,13 @@ hands the round's matrix to the combine as a per-call operand.
                       each step (``adaptive_mixing``); inside a graph it
                       is part of the graph.
 
+A sweep group whose experiments realize different streams (another
+failure rate or stream seed each) holds them in one
+``GroupStreamTopology``: (E, T, m, m) on the device and a (B, m, m)
+round buffer that ``load(t)`` fills for the whole group before each
+step; inside the group's vmapped step each experiment's engine reads
+its slice of it through a ``RoundTopology``.
+
 ``attach_topology`` installs the runtime ``SolverBase.build`` asks for.
 """
 from __future__ import annotations
@@ -35,6 +42,8 @@ from repro_torch.topology.process import (
 
 __all__ = [
     "AdaptiveTopology",
+    "GroupStreamTopology",
+    "RoundTopology",
     "StreamTopology",
     "adaptive_mixing",
     "agents_matrix",
@@ -100,8 +109,12 @@ class AdaptiveTopology:
     """State-dependent matrix: computed from the iterates each step."""
 
     def __init__(self, adjacency, tau: float, device: torch.device | str):
-        self.adjacency = torch.as_tensor(np.asarray(adjacency),
-                                         dtype=torch.float32, device=device)
+        if isinstance(adjacency, torch.Tensor):   # one per experiment, too
+            self.adjacency = adjacency.to(device=device, dtype=torch.float32)
+        else:
+            self.adjacency = torch.as_tensor(np.asarray(adjacency),
+                                             dtype=torch.float32,
+                                             device=device)
         self.tau = float(tau)
 
     def load(self, t: int) -> None:
@@ -116,6 +129,53 @@ class AdaptiveTopology:
                 "matrix= yourself")
         return adaptive_mixing(agents_matrix(tree), self.adjacency,
                                self.tau)
+
+
+class RoundTopology:
+    """One experiment's round matrix inside a sweep group's vmapped step:
+    its slice of the group's round buffer, loaded before the step."""
+
+    def __init__(self, round_matrix: torch.Tensor):
+        self.round = round_matrix
+
+    def load(self, t: int) -> None:
+        """Nothing to load: the group loads the buffer."""
+
+    def matrix_at(self, t, tree=None) -> torch.Tensor:
+        del t, tree
+        return self.round
+
+
+class GroupStreamTopology:
+    """The realized streams of a sweep group's experiments, one each.
+
+    ``matrices`` is every experiment's (T, m, m) stream, stacked on the
+    device; ``round`` the (B, m, m) buffer of the experiments ``rows``
+    names (all of them for the group, one for a sequential replay of a
+    single row, ``select``), which ``load(t)`` fills with their
+    ``stream[t % T]`` on the device.
+    """
+
+    def __init__(self, matrices, device: torch.device | str,
+                 rows: list[int] | None = None):
+        self.matrices = torch.as_tensor(np.stack(matrices),
+                                        dtype=torch.float32, device=device)
+        self.period = int(self.matrices.shape[1])
+        rows = list(range(self.matrices.shape[0])) if rows is None else rows
+        self.round = torch.empty((len(rows),) + self.matrices.shape[2:],
+                                 dtype=torch.float32, device=device)
+        self.select(rows)
+
+    def select(self, rows: list[int]) -> None:
+        """Load the experiments ``rows`` from the next ``load`` on."""
+        if len(rows) != self.round.shape[0]:
+            raise ValueError(f"the round buffer holds {self.round.shape[0]}"
+                             f" experiments, not {len(rows)}")
+        self.index = torch.as_tensor(list(rows), device=self.round.device)
+
+    def load(self, t: int) -> None:
+        """Copy step ``t``'s matrices into the round buffer."""
+        self.round.copy_(self.matrices[self.index, int(t) % self.period])
 
 
 def attach_topology(engine, config: TopologyProcessConfig, mixing,

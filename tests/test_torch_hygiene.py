@@ -37,7 +37,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n in ("jax", "repro") or n.startswith(("jax.", "repro.")))
-print(len(names), bad)
+print(len(names), bad, "repro_torch.solvers.sweep" in names)
 """
 
 
@@ -48,6 +48,7 @@ def test_port_imports_neither_jax_nor_repro():
                          check=True).stdout.split()
     assert int(out[0]) >= 57          # every module was imported
     assert out[1] == "[]", out
+    assert out[2] == "True", out      # the sweeps among them
 
 
 @pytest.fixture

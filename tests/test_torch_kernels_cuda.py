@@ -53,6 +53,18 @@ without the schedule would replay the first), and the other rows of
 chip_smoke.py's ``wire`` phase.  Both consensus kernels take a per-call
 matrix whose contents change between replays of one graph.
 
+Batched consensus kernels (the sweeps' form): B experiments' (B, m, D)
+streams in one launch, one matrix shared by the batch or one each, a
+distinct alpha per experiment, both dtypes, the 16-byte and the element
+path, one and two passes of 16 rows, against the batched plain versions
+at the consensus_mix tolerances; every call adds one launch to its
+wrapper's count.  A sweep group (``repro_torch.solvers.sweep``) replays
+its captured batched step bit-equal to the same group stepped eagerly:
+each algorithm on ``cuda`` (one consensus kernel launch a step for the
+whole group), an adaptive topology (a matrix per experiment), a padded
+``dense`` group with and without an attack, and a group of link-failure
+streams.
+
 The Byzantine layer, captured against eager bit for bit (guard counters
 included) on each row of chip_smoke.py's ``byzantine`` phase: attacks
 before a weighted or a robust combine, gaussian noise refilled before
@@ -80,6 +92,8 @@ from repro_torch.solvers import (ByzantineConfig,  # noqa: E402
                                  GuardConfig, SolverConfig, default_setup,
                                  make_solver, run_recorded)
 from repro_torch.solvers.config import TopologyConfig  # noqa: E402
+from repro_torch.solvers.sweep import (_GroupSolver,  # noqa: E402
+                                       _padded_parts, _plain_parts)
 from repro_torch.topology import TopologyProcessConfig  # noqa: E402
 
 FLASH_TOL = 2e-5             # float32
@@ -364,6 +378,109 @@ def test_consensus_mix_kernel_matches_plain_version(hopper, m, d, dtype,
         tol = MIX_TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+# batched consensus kernels: (experiments, agents); 17 takes two passes
+BATCH_CASES = [(b, m) for b in (1, 3, 8) for m in (4, 5, 16, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["16-byte", "element"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shared", [True, False],
+                         ids=["shared-M", "per-experiment-M"])
+@pytest.mark.parametrize("b,m", BATCH_CASES)
+def test_batched_consensus_kernels_match_plain_versions(hopper, b, m,
+                                                        shared, dtype,
+                                                        path):
+    gen = torch.Generator(device=hopper).manual_seed(b * 101 + m)
+    d, offset = 760, (0 if path == "16-byte" else 1)
+    M = torch.rand(1 if shared else b, m, m, generator=gen,
+                   device=hopper) + 0.05
+    M = (M / M.sum(dim=-1, keepdim=True)).contiguous()
+    streams = []
+    for _ in range(4):
+        buf = torch.randn(b * m * d + offset, generator=gen, device=hopper)
+        streams.append(buf.to(dtype)[offset:].view(b, m, d))
+    x, u, p, pp = streams
+    assert mix_ops.mix_takes_16_byte_path(x, torch.empty_like(x)) == (
+        path == "16-byte")
+    alpha = torch.linspace(0.05, 0.4, b, device=hopper)
+    before = dict(mix_ops.LAUNCHES)
+    got = mix_ops.consensus_step_batched_kernel(M, x, u, p, pp, alpha)
+    mixed = mix_ops.consensus_mix_batched_kernel(M, x)
+    assert mix_ops.LAUNCHES["consensus_step"] == before["consensus_step"] + 1
+    assert mix_ops.LAUNCHES["consensus_mix"] == before["consensus_mix"] + 1
+    tol = MIX_TOL[dtype]
+    want = mix_ref.consensus_step_batched_ref(M, x, u, p, pp, alpha)
+    for g, w in zip(got + (mixed,),
+                    want + (mix_ref.consensus_mix_batched_ref(M, x),)):
+        assert g.dtype == dtype and g.shape == (b, m, d)
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+# sweep groups stepped captured and eagerly: (algo, backend, options,
+# padded)
+GROUP_CASES = {
+    "interact": ("interact", "cuda", {}, False),
+    "svr-interact": ("svr-interact", "cuda", {}, False),
+    "gt-dsgd": ("gt-dsgd", "cuda", {}, False),
+    "d-sgd": ("d-sgd", "cuda", {}, False),
+    "adaptive": ("interact", "cuda", dict(
+        topology_process=TopologyProcessConfig("adaptive")), False),
+    "link-failure-streams": ("gt-dsgd", "dense", dict(
+        topology_process=TopologyProcessConfig("link-failure", p=0.3,
+                                               period=3)), False),
+    "padded": ("interact", "dense", {}, True),
+    "padded-gaussian": ("gt-dsgd", "dense", dict(
+        byzantine=ByzantineConfig("gaussian", num_byzantine=1, scale=2.0)),
+        True),
+}
+
+
+def _group_parts(device, algo, backend, opts, padded, steps):
+    problem, x0, y0, data = default_setup(0, n_per_agent=100, device=device)
+    start = lambda i: (x0, y0)
+    if padded:
+        datas = {5: data, 3: default_setup(0, num_agents=3, n_per_agent=100,
+                                           device=device)[3]}
+        configs = [SolverConfig(algo=algo, backend=backend, q=3, seed=s,
+                                num_agents=m, topology=TopologyConfig(kind),
+                                **opts)
+                   for m, kind, s in ((3, "ring", 0), (5, "erdos-renyi", 1))]
+        return _padded_parts(configs, [0, 1], [3, 5], 5, problem,
+                             lambda m, idx: datas[m], start, None, 3, steps,
+                             device)
+    configs = [SolverConfig(algo=algo, backend=backend, q=3, seed=s,
+                            alpha=a, **opts)
+               for s, a in ((0, 0.3), (1, 0.1), (2, 0.2))]
+    return _plain_parts(configs, [0, 1, 2], 5, problem,
+                        lambda m, idx: data, start, None, 3, steps, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_captured_group_steps_equal_eager_group_steps(hopper, case):
+    algo, backend, opts, padded = GROUP_CASES[case]
+    parts, data = _group_parts(hopper, algo, backend, opts, padded, 6)
+    captured = _GroupSolver(parts, None, hopper)
+    state_c, trace_c = captured.run_traced(captured.initial_state(), data,
+                                           6, 3, captured.metric)
+    assert captured.stepper.replays == 6
+    assert len(captured.stepper.graphs) == (2 if algo == "svr-interact"
+                                            else 1)
+    eager = _GroupSolver(parts, None, hopper)
+    for name in mix_ops.LAUNCHES:
+        mix_ops.LAUNCHES[name] = 0
+    state_e, trace_e, _ = run_recorded(eager, eager.initial_state(), data,
+                                       6, 3, eager.metric, scan=False)
+    if backend == "cuda":   # the warm-up step and 6 steps, one launch each
+        kernel = "consensus_mix" if algo == "d-sgd" else "consensus_step"
+        assert mix_ops.LAUNCHES[kernel] == 7
+        assert sum(mix_ops.LAUNCHES.values()) == 7
+    assert state_c.t == state_e.t == 6
+    assert _bitwise(state_c, state_e)
+    assert torch.equal(trace_c, torch.stack(trace_e))
 
 
 @pytest.mark.cuda
