@@ -140,6 +140,26 @@
    every padded row within ``TRACE_RTOL`` of its unpadded row (bit for
    bit reported, not gated).  These two checks record eq. 11 at
    ``CHECK_INNER_STEPS`` = 30 inner steps, for time.
+4f. Resilience (``repro_torch.resilience``, ``repro_torch.checkpoint``),
+   on the same instance, INTERACT on ``cuda``, captured, 40 steps, eq. 11
+   (at ``CHECK_INNER_STEPS``) every 10, a snapshot every 7: the chunked
+   ``run_traced`` bit for bit the unchunked one (trace and state), with
+   its host-clock us per step beside the unchunked one's and the time and
+   bytes of a snapshot; a run killed at 18 (the boundary at 21 lost) and
+   resumed in a fresh solver (``resume_run``: new graphs captured from
+   t = 14) bit for bit the uninterrupted run, whose kernel events from
+   start to end (``counted_launches``) are ``consensus_step`` once in
+   each replay, the 7 lost ones included, and in each capture's warm-up
+   steps, with no wrapper count between replays; the same kill resumed
+   eagerly, bit for bit too; a chaos campaign of SVR-INTERACT with every
+   fault kind (``CHAOS_FAULTS``): its counters as planned, its trace and
+   state bit for bit the uninterrupted run's, and the host generator
+   restored from its last snapshot (35) equal to the uninterrupted run's
+   there; the guarded sign-flip row (``BYZANTINE_ROWS``) under
+   ``chaos_run``: guard trips rolled back, then accepted, the guard's
+   counters and state those of the uncheckpointed captured run; and a
+   Figure-2 INTERACT group of 2 seeds swept with ``resume_dir`` twice,
+   the second call loading the group, bit for bit.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -316,6 +336,30 @@ PADDED_GRID = dict(num_agents=(4, 8), topology=("ring", "erdos-renyi"),
 # other, so they record the eq.-11 metric at 30 inner steps (not 300):
 # its graphs and eager warm-ups cost a tenth
 CHECK_INNER_STEPS = 30
+# The resilience phase (4f): a run of NUM_STEPS steps recording every 10,
+# snapshotted every 7 steps (boundaries fall between the records), killed
+# at step 18 (the boundary after it, 21, is lost: 7 steps back to 14);
+# its checks compare runs of the same steps, so eq. 11 at
+# CHECK_INNER_STEPS.  The SVR-INTERACT campaign fires every fault kind:
+# two transient write failures at 7, garbage in the snapshot at 14, a
+# kill at 18 (lost back to 7), NaN at 24 (caught at 28, back to 21), a
+# truncated snapshot at 35, a kill at 38 (lost back to 28), the final
+# snapshot deleted; so 3 restarts, 2 kills, 1 caught NaN, and 61 wasted
+# steps (``ChaosReport``'s count: the steps each failed attempt took from
+# where it started, 21 + 21 + 19).
+RESILIENCE_RECORD_EVERY = 10
+CHECKPOINT_EVERY = 7
+KILL_AT = 18
+SNAPSHOT_REPS = 5
+CHAOS_FAULTS = (("write-failure", dict(step=7, count=2)),
+                ("corrupt-checkpoint", dict(step=14, mode="garbage")),
+                ("kill", dict(step=18)), ("nan-payload", dict(step=24)),
+                ("corrupt-checkpoint", dict(step=33, mode="truncate")),
+                ("kill", dict(step=38)), ("stale-checkpoint", dict(step=36)))
+CHAOS_WANT = dict(completed=True, restarts=3, kills=2, nonfinite_faults=1,
+                  write_retries=2, wasted_steps=61, guard_rollbacks=0,
+                  guard_accepted=0)
+CHAOS_COUNTERS = tuple(CHAOS_WANT)
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -2131,6 +2175,254 @@ def run_sweep(torch, ops) -> dict:
                 vmap_speedup=fig2.vmap_speedup, seconds=took)
 
 
+def run_resilience(torch, ops) -> dict:
+    """Phase 4f (see the module docstring): checkpointed runs, kill and
+    resume, chaos campaigns and sweep resume, captured on the card.
+    Returns the phase's record, with the consensus kernels' events in the
+    profiled kill-and-resume run."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import convergence_metric_fn
+    from repro_torch.resilience import (FaultPlan, SimulatedKill, chaos_run,
+                                        make_fault, resume, resume_run,
+                                        run_resumable, snapshot)
+    from repro_torch.resilience.snapshot import snapshot_meta_path
+    from repro_torch.solvers import (SolverConfig, default_setup,
+                                     expand_grid, make_solver, sweep)
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "resilience"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def fresh_dir(name: str) -> Path:
+        shutil.rmtree(root / name, ignore_errors=True)
+        return root / name
+
+    problem, x0, y0, data = default_setup(0)
+    setup = dict(problem=problem, x0=x0, y0=y0, data=data)
+    eq11 = convergence_metric_fn(problem, SolverConfig().hypergrad, data,
+                                 inner_steps=CHECK_INNER_STEPS)
+    steps, rec, every = NUM_STEPS, RESILIENCE_RECORD_EVERY, CHECKPOINT_EVERY
+    config = SolverConfig(algo="interact", backend="cuda", alpha=ALPHA,
+                          beta=ALPHA)
+
+    def us_per_step(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / steps
+
+    # -- chunked against unchunked: run_traced, captured
+    t0 = time.perf_counter()
+    solver_u = make_solver(config)
+    state0 = solver_u.init(problem, None, x0, y0, data)
+    state_u, trace_u = solver_u.run_traced(state0, data, steps, rec, eq11)
+    trace_u = trace_u.tolist()
+    solver_c = make_solver(config)
+    state0_c = solver_c.init(problem, None, x0, y0, data)
+    state_c, trace_c = solver_c.run_traced(
+        state0_c, data, steps, rec, eq11, checkpoint_every=every,
+        ckpt_dir=fresh_dir("chunked"))
+    chunked_equal = (bits_equal(torch, trace_c.tolist(), trace_u)
+                     and bits_equal(torch, state_c, state_u))
+    snapshots = sorted(p.name for p in (root / "chunked").glob("*.npz"))
+    us_unchunked = us_per_step(lambda: solver_u.run_traced(
+        state0, data, steps, rec, eq11)[1].tolist())
+    us_chunked = us_per_step(lambda: solver_c.run_traced(
+        state0_c, data, steps, rec, eq11, checkpoint_every=every,
+        ckpt_dir=fresh_dir("chunked-timed"))[1].tolist())
+    # a snapshot: device-to-host copy, npz with CRCs, sidecar, atomically
+    snap_dir, snap_ms = fresh_dir("snapshots"), []
+    column = np.full((steps,), np.nan, np.float32)
+    for i in range(SNAPSHOT_REPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = snapshot(solver_u, state_u, steps + i, snap_dir,
+                        padded=column, total_steps=steps, record_every=rec)
+        snap_ms.append(1e3 * (time.perf_counter() - t1))
+    snap_bytes = (path.stat().st_size
+                  + snapshot_meta_path(snap_dir, steps + i).stat().st_size)
+    walls = dict(chunked=time.perf_counter() - t0)
+    print(f"resilience chunked: run_traced with checkpoint_every={every} "
+          f"against unchunked, trace and state bit for bit: {chunked_equal}; "
+          f"snapshots {snapshots}; captured us/step (records and snapshots "
+          f"included) chunked {us_chunked:.1f}, unchunked {us_unchunked:.1f}; "
+          f"snapshot ms {[round(v, 3) for v in snap_ms]}, {snap_bytes} bytes",
+          flush=True)
+    check(chunked_equal, "resilience: the chunked run_traced is not the "
+          "unchunked one bit for bit")
+    check(snapshots == [f"step_{k:08d}.npz" for k in (7, 14, 21, 28, 35,
+                                                        40)],
+          f"resilience: snapshots {snapshots}")
+
+    # -- kill at 18 (the boundary at 21 is lost), resume in a fresh solver;
+    # the card's consensus kernel events over the whole of it
+    t0 = time.perf_counter()
+    kill_dir, stats = root / "kill", {}
+
+    def kill_and_resume():
+        shutil.rmtree(kill_dir, ignore_errors=True)
+        shutil.rmtree(root / "kill-eager", ignore_errors=True)
+        plan = FaultPlan([make_fault("kill", step=KILL_AT)], seed=0)
+        solver = make_solver(config)
+        state = solver.init(problem, None, x0, y0, data)
+        try:
+            run_resumable(solver, state, data, steps, rec, eq11,
+                          checkpoint_every=every, ckpt_dir=kill_dir,
+                          hooks=plan)
+        except SimulatedKill as exc:
+            stats["killed_at"] = exc.step
+        else:
+            raise SmokeFailure("resilience: the kill never fired")
+        stats["resumed_from"] = latest_step(kill_dir)
+        shutil.copytree(kill_dir, root / "kill-eager")
+        resumed, state, trace = resume_run(config, kill_dir,
+                                           checkpoint_every=every,
+                                           metric_fn=eq11, **setup)
+        steppers = (solver.stepper, resumed.stepper)
+        stats.update(replays=sum(st.replays for st in steppers),
+                     eager_steps=sum(st.eager_steps for st in steppers),
+                     graphs=sum(len(st.graphs) for st in steppers))
+        return state, trace.tolist()
+
+    (state_k, trace_k), ran, windows = counted_launches(
+        torch, ops, kill_and_resume, lambda wrapper: dict(
+            consensus_step=stats["replays"] + stats["eager_steps"],
+            consensus_mix=0))
+    wrapper_k = dict(ops.LAUNCHES)
+    wasted = stats["killed_at"] - stats["resumed_from"]
+    killed_equal = (bits_equal(torch, trace_k, trace_u)
+                    and bits_equal(torch, state_k, state_u))
+    # the same kill resumed eagerly, from a copy of the directory
+    t1 = time.perf_counter()
+    _, state_e, trace_e = resume_run(config, root / "kill-eager",
+                                     checkpoint_every=every, metric_fn=eq11,
+                                     scan=False, **setup)
+    eager_equal = (bits_equal(torch, trace_e.tolist(), trace_u)
+                   and bits_equal(torch, state_e, state_u))
+    walls.update(kill=t1 - t0, eager_resume=time.perf_counter() - t1)
+    kill = dict(stats, wasted=wasted, launches=ran, windows=windows,
+                wrapper=wrapper_k, captured_equal=killed_equal,
+                eager_resume_equal=eager_equal)
+    print(f"resilience kill: {json.dumps(kill)} (launches: the card's "
+          "kernel events from the kill through the resumed run's end: "
+          "the replays, lost ones included, and the warm-up steps of its "
+          "two captures; wrapper: the warm-up steps and the captures, "
+          "nothing between replays)", flush=True)
+    check(stats["killed_at"] == 21 and stats["resumed_from"] == 14,
+          f"resilience: killed at {stats['killed_at']}, resumed from "
+          f"{stats['resumed_from']}, not 21 and 14")
+    check(stats["replays"] == steps + wasted,
+          f"resilience: {stats['replays']} replays, not {steps} + {wasted}")
+    check(ran == dict(consensus_step=stats["replays"] + stats["eager_steps"],
+                      consensus_mix=0),
+          f"resilience: the card ran {ran} (windows {windows}), not "
+          f"consensus_step once in each of {stats['replays']} replays and "
+          f"{stats['eager_steps']} warm-up steps")
+    check(wrapper_k == dict(consensus_step=stats["eager_steps"]
+                            + stats["graphs"], consensus_mix=0),
+          f"resilience: wrapper counts {wrapper_k}: a kernel was launched "
+          "from the host between replays")
+    check(killed_equal, "resilience: the killed and resumed run is not the "
+          "uninterrupted one bit for bit")
+    check(eager_equal, "resilience: the run killed captured and resumed "
+          "eagerly is not the uninterrupted one bit for bit")
+
+    # -- chaos, SVR-INTERACT: every fault kind; the reference run is cut at
+    # 35, the last snapshot the campaign leaves, to read its generator
+    t0 = time.perf_counter()
+    svr = dataclasses.replace(config, algo="svr-interact")
+    ref = make_solver(svr)
+    state35, head = ref.run_traced(ref.init(problem, None, x0, y0, data),
+                                   data, 35, rec, eq11)
+    gen35 = ref._sampler.generator.get_state().clone()
+    state40, tail = ref.run_traced(state35, data, steps - 35, rec, eq11)
+    ref_trace = head.tolist()[:-1] + tail.tolist()[-1:]
+    chaos_dir = fresh_dir("chaos-svr")
+    plan = FaultPlan([make_fault(k, **kw) for k, kw in CHAOS_FAULTS], seed=1)
+    rep = chaos_run(svr, plan, steps, rec, checkpoint_every=every,
+                    ckpt_dir=chaos_dir, metric_fn=eq11, backoff=0.001,
+                    **setup)
+    last = resume(svr, chaos_dir, **setup)
+    gen_equal = (last is not None and last.step == 35
+                 and torch.equal(last.solver._sampler.generator.get_state(),
+                                 gen35)
+                 and bits_equal(torch, last.state, state35))
+    svr_rec = {k: getattr(rep, k) for k in CHAOS_COUNTERS}
+    svr_rec.update(wall_time_s=rep.wall_time_s, events=len(rep.events),
+                   trace_equal=bits_equal(torch, rep.trace.tolist(),
+                                          ref_trace),
+                   state_equal=bits_equal(torch, rep.state, state40),
+                   generator_round_trip=gen_equal,
+                   kinds=sorted({e["kind"] for e in rep.events}))
+    walls["chaos_svr"] = time.perf_counter() - t0
+    print(f"resilience chaos svr-interact: {json.dumps(svr_rec)}", flush=True)
+    check(svr_rec["trace_equal"] and svr_rec["state_equal"],
+          "resilience: the SVR-INTERACT campaign's trace or state is not the "
+          "uninterrupted run's bit for bit")
+    check(gen_equal, "resilience: the generator did not round-trip at 35")
+    check({k: svr_rec[k] for k in CHAOS_COUNTERS} == CHAOS_WANT,
+          f"resilience: campaign counters {svr_rec}, not {CHAOS_WANT}")
+
+    # -- chaos, the guarded sign-flip row: guard trips roll back, then the
+    # guard's containment is accepted; counters as the uncheckpointed run's
+    t0 = time.perf_counter()
+    guarded = byzantine_config("signflip1-weighted-guard", "cuda")
+    gsolver = make_solver(guarded)
+    gstate, _ = gsolver.run_traced(
+        gsolver.init(problem, None, x0, y0, data), data, steps)
+    rep_g = chaos_run(guarded, FaultPlan(seed=0), steps,
+                      checkpoint_every=every,
+                      ckpt_dir=fresh_dir("chaos-guard"), backoff=0.001,
+                      **setup)
+    guard_rec = {k: getattr(rep_g, k) for k in CHAOS_COUNTERS}
+    guard_rec.update(
+        wall_time_s=rep_g.wall_time_s, tripped_steps=rep_g.tripped_steps,
+        last_good_step=rep_g.last_good_step,
+        tripped_steps_uncheckpointed=int(gstate.guard["tripped"]),
+        last_good_step_uncheckpointed=int(gstate.guard["last_good"]),
+        state_equal=bits_equal(torch, rep_g.state, gstate))
+    walls["chaos_guard"] = time.perf_counter() - t0
+    print(f"resilience chaos signflip1-weighted-guard: "
+          f"{json.dumps(guard_rec)}", flush=True)
+    check(rep_g.completed and rep_g.guard_rollbacks > 0
+          and rep_g.guard_accepted > 0,
+          f"resilience: the guarded campaign {guard_rec}")
+    check(guard_rec["tripped_steps"] == guard_rec[
+        "tripped_steps_uncheckpointed"] > 0 and guard_rec[
+        "last_good_step"] == guard_rec["last_good_step_uncheckpointed"],
+          f"resilience: guard counters {guard_rec}")
+    check(guard_rec["state_equal"], "resilience: the guarded campaign's "
+          "state is not the uncheckpointed run's bit for bit")
+
+    # -- sweep resume: a Figure-2 INTERACT group of 2 seeds
+    t0 = time.perf_counter()
+    grid = expand_grid(SolverConfig(backend="cuda"), seed=range(2))
+    sweep_dir = fresh_dir("sweep")
+    first = sweep(grid, steps, rec, metric_fn=eq11, resume_dir=sweep_dir,
+                  **setup)
+    second = sweep(grid, steps, rec, metric_fn=eq11, resume_dir=sweep_dir,
+                   **setup)
+    loaded = ([g.loaded for g in first.groups],
+              [g.loaded for g in second.groups])
+    sweep_equal = first.traces.tobytes() == second.traces.tobytes()
+    walls["sweep"] = time.perf_counter() - t0
+    print(f"resilience sweep: loaded {loaded}, traces bit for bit "
+          f"{sweep_equal}; {walls['sweep']:.1f} s", flush=True)
+    check(loaded == ([False], [True]) and sweep_equal,
+          f"resilience: sweep resume loaded {loaded}, equal {sweep_equal}")
+    took = time.perf_counter() - t_phase
+    print(f"resilience phase: {took:.1f} s ({json.dumps(walls)})",
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=ran, kill=kill, chaos_svr=svr_rec,
+                chaos_guard=guard_rec, us_chunked=us_chunked,
+                us_unchunked=us_unchunked, snapshot_ms=snap_ms,
+                snapshot_bytes=snap_bytes, seconds=took)
+
+
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
     """``device_profile`` of eager INTERACT steps (warmed up before)."""
     return device_profile(torch, lambda: solver.run(state, data, steps),
@@ -2308,6 +2600,11 @@ def main() -> int:
         check(sweeps["launches"][name] >= 1, f"sweep: batched {name} never "
               "ran in the profiled replays")
 
+    # -- resilience: checkpoints, kill and resume, chaos, sweep resume ----
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    resilience = run_resilience(torch, ops)
+
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
                for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
@@ -2336,6 +2633,13 @@ def main() -> int:
                            for row, rec in wire.items()},
             launches_byzantine={row: rec["launches_replayed"][name]
                                 for row, rec in byzantine.items()},
+            launches_resilience=resilience["launches"][name],
+            launches_resilience_from=(
+                f"INTERACT killed at {KILL_AT} and resumed in a fresh "
+                f"solver, snapshots every {CHECKPOINT_EVERY}: "
+                "torch.profiler kernel events from the start to the "
+                "resumed run's end (replays, lost ones included, and "
+                "warm-up steps)"),
             max_abs_err=err[name]["float32"],
             max_abs_err_bf16=err[name]["bfloat16"],
             ms=main["ms"], plain_ms=main["plain_ms"],

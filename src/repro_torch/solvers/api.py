@@ -64,6 +64,7 @@ __all__ = [
     "make_solver",
     "register_solver",
     "run_recorded",
+    "setup_for",
     "solve",
 ]
 
@@ -283,8 +284,23 @@ class SolverBase:
         self.load_step(state.t)
         return self._step_fn(state, data, draws)
 
-    def run(self, state, data, num_steps: int):
-        """``num_steps`` eager iterations."""
+    def run(self, state, data, num_steps: int, *,
+            checkpoint_every: int | None = None, ckpt_dir=None):
+        """``num_steps`` eager iterations.
+
+        ``checkpoint_every`` cuts the run at global multiples of it and
+        snapshots the complete state into ``ckpt_dir`` after each chunk
+        (atomic, CRC-checked: ``repro_torch.resilience``), so a killed run
+        resumes from its last boundary through ``resume_run``; the final
+        state equals the unchunked run's bit for bit.
+        """
+        if checkpoint_every:
+            from repro_torch.resilience import run_resumable
+            state, _, _ = run_resumable(
+                self, state, data, num_steps,
+                checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir,
+                scan=False)
+            return state
         draws = self.draw(num_steps, _state_device(state))
         for i in range(num_steps):
             state = self.step(state, data,
@@ -292,7 +308,8 @@ class SolverBase:
         return state
 
     def run_traced(self, state, data, num_steps: int, record_every: int = 0,
-                   metric_fn=None):
+                   metric_fn=None, *, checkpoint_every: int | None = None,
+                   ckpt_dir=None):
         """``num_steps`` iterations with ``metric_fn(state) -> 0-dim
         tensor`` recorded on the device.
 
@@ -302,7 +319,21 @@ class SolverBase:
         CUDA device the steps and the metric replay captured graphs with
         no host read between them, so ``metric_fn`` must not read a
         tensor on the host either: its capture raises if it does.
+
+        ``checkpoint_every`` routes the run through the resilience runner
+        (``run_resumable``): the same stepper advanced one chunk at a time
+        between global multiples of it, the complete state and the partial
+        metric column snapshotted into ``ckpt_dir`` after each chunk; the
+        state and trace equal the unchunked run's bit for bit.  Meant for
+        a fresh state (the global step is ``state.t``); an interrupted run
+        resumes through ``repro_torch.resilience.resume_run``.
         """
+        if checkpoint_every:
+            from repro_torch.resilience import run_resumable
+            state, trace, _ = run_resumable(
+                self, state, data, num_steps, record_every, metric_fn,
+                checkpoint_every=checkpoint_every, ckpt_dir=ckpt_dir)
+            return state, torch.from_numpy(trace).to(_state_device(state))
         stepper = self.stepper_for(state, data, scan=True)
         stepper.prepare(num_steps)
         record = stepper.record(metric_fn) if metric_fn is not None else None
@@ -612,6 +643,24 @@ def default_setup(seed: int = 0, num_agents: int = 5, n_per_agent: int = 600,
     return problem, x0, y0, data
 
 
+def setup_for(config: SolverConfig, problem=None, x0=None, y0=None,
+              data=None, *, num_agents: int = 5, n_per_agent: int = 600,
+              device: torch.device | str | None = None):
+    """``(problem, x0, y0, data)`` on ``device`` (the card when ``None``):
+    the Section-6 instance (``default_setup``, seeded by ``config.seed``)
+    when any is missing, else the given ones, moved there (trees already
+    there are returned as they are)."""
+    device = resolve_device(device)
+    if problem is None or data is None or x0 is None or y0 is None:
+        return default_setup(
+            config.seed, num_agents=config.resolve_num_agents(num_agents),
+            n_per_agent=n_per_agent, device=device)
+    trees = (x0, y0, data)
+    if any(t.device != device for t in pytree.tree_leaves(trees)):
+        trees = pytree.tree_map(lambda t: t.to(device), trees)
+    return (problem, *trees)
+
+
 def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
           problem=None, hg_cfg=None, x0=None, y0=None, data=None,
           num_agents: int = 5, n_per_agent: int = 600, metric_fn=None,
@@ -633,15 +682,11 @@ def solve(config: SolverConfig, num_steps: int, record_every: int = 0, *,
     measures the bytes the run shipped (``measured_wire_bytes``), beside
     the priced ``bytes_per_round``.
     """
-    device = resolve_device(device)
     if measure_hypergrad is None:
         measure_hypergrad = record_every > 0
-    if problem is None or data is None or x0 is None or y0 is None:
-        problem, x0, y0, data = default_setup(
-            config.seed, num_agents=config.resolve_num_agents(num_agents),
-            n_per_agent=n_per_agent, device=device)
-    else:
-        x0, y0, data = pytree.tree_map(lambda t: t.to(device), (x0, y0, data))
+    problem, x0, y0, data = setup_for(config, problem, x0, y0, data,
+                                      num_agents=num_agents,
+                                      n_per_agent=n_per_agent, device=device)
 
     solver = make_solver(config)
     state = solver.init(problem, hg_cfg, x0, y0, data)

@@ -53,15 +53,21 @@ realized streams differ), their attack noise (a padded Byzantine group:
 attacker count, scale and attack seed differ) and the guard's step
 counter, which the group's experiments share, as they share t.
 
-Not ported: ``resume_dir`` (the reference keeps finished groups' traces
-through ``repro.checkpoint`` and ``repro.resilience``, which the port
-does not have yet); it raises ``NotImplementedError``.
+Self-healing sweeps (``resume_dir``): each finished group's traces land
+in ``resume_dir`` through the crash-safe ``repro_torch.checkpoint``
+store, under a fingerprint of the sweep's geometry and the group's
+configs, and ``manifest.json`` is rewritten atomically after each group;
+a sweep run again after a failure loads the finished groups bit for bit
+and computes only the missing or damaged ones (``SweepGroup.loaded``).
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import itertools
+import json
+import pathlib
 import time
 from collections.abc import Mapping
 from typing import Any, Callable, Sequence
@@ -116,6 +122,8 @@ class SweepGroup:
     the card), and ``stepper`` the stepper itself: its ``solver`` steps
     the group from ``solver.initial_state()`` again after
     ``solver.rewind()`` (the same draws), replaying the same graphs.
+    A group ``loaded`` from ``resume_dir`` ran nothing: its ``seconds``
+    are those recorded when it was computed, and it has no stepper.
     """
 
     indices: list[int]          # positions into the sweep's config list
@@ -123,6 +131,7 @@ class SweepGroup:
     seconds: float
     pad_to: int | None = None   # padded agent count (padded groups only)
     num_active: tuple[int, ...] | None = None   # per-config active m
+    loaded: bool = False        # True: the traces came from resume_dir
     seconds_sequential: float | None = None
     graphs: int = 0
     replays: int = 0
@@ -138,10 +147,11 @@ class SweepResult:
     layout (the metric before steps 0, record_every, ..., then after the
     last step), rows in the input order whatever the grouping.
     ``traces_sequential`` holds the same rows from the sequential run
-    (``compare_sequential``), else None.  ``states[i]`` is config i's
-    final state when ``return_states=True``; in a padded sweep its agent
-    axis is ``pad_to`` wide and rows from its ``num_active`` on are ghost
-    agents.
+    (``compare_sequential``; NaN rows for a group loaded from
+    ``resume_dir``, which ran nothing), else None.  ``states[i]`` is
+    config i's final state when ``return_states=True``; in a padded sweep
+    its agent axis is ``pad_to`` wide and rows from its ``num_active`` on
+    are ghost agents.
     """
 
     configs: list[SolverConfig]
@@ -189,6 +199,76 @@ def _group_by_static_key(configs: Sequence[SolverConfig],
     for i, cfg in enumerate(configs):
         groups.setdefault(cfg.static_key(pad_to=pad_to), []).append(i)
     return list(groups.values())
+
+
+class _SweepResume:
+    """The self-healing sweep's completion manifest.
+
+    ``resume_dir/manifest.json`` maps a group fingerprint (a hash of the
+    sweep's geometry: steps, record cadence, padding, the content of the
+    problem data and initial points; and of every member config's static
+    key, batch values and topology process) to the ``group_<fp>.npz``
+    file of the group's traces, written through the crash-safe store
+    (atomic replace, per-leaf CRC32).  The manifest is rewritten
+    atomically after each group, so a sweep killed mid-grid computes
+    exactly the missing groups when run again and loads the finished ones
+    bit for bit.  A group whose file is damaged, or whose fingerprint no
+    longer matches, is computed again.
+    """
+
+    MANIFEST = "manifest.json"
+
+    def __init__(self, root, base_key: str, configs):
+        self.root = pathlib.Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.base_key = base_key
+        self.configs = configs
+        self.manifest: dict = {"version": 1, "groups": {}}
+        try:
+            with open(self.root / self.MANIFEST) as fh:
+                loaded = json.load(fh)
+            if isinstance(loaded, dict) and "groups" in loaded:
+                self.manifest = loaded
+        except (OSError, ValueError):
+            pass    # no manifest or a corrupt one: every group computes
+
+    def group_fp(self, indices) -> str:
+        tags = [repr((self.configs[i].static_key(),
+                      self.configs[i].batch_values(),
+                      self.configs[i].topology_process))
+                for i in indices]
+        return hashlib.sha256(
+            repr((self.base_key, tags)).encode()).hexdigest()[:16]
+
+    def load(self, fp: str):
+        """``(traces, seconds)`` of a finished group, else ``None``."""
+        from repro_torch.checkpoint import (CorruptCheckpointError,
+                                            restore_pytree)
+        entry = self.manifest["groups"].get(fp)
+        if entry is None:
+            return None
+        like = {"traces": np.zeros(tuple(entry["trace_shape"]),
+                                   np.dtype(entry["trace_dtype"]))}
+        try:
+            tree = restore_pytree(self.root / entry["file"], like)
+        except (CorruptCheckpointError, OSError, ValueError):
+            return None     # a damaged file: compute this group again
+        return tree["traces"], float(entry.get("seconds", 0.0))
+
+    def store(self, fp: str, indices, traces: np.ndarray,
+              seconds: float) -> None:
+        from repro_torch.checkpoint import save_pytree
+        from repro_torch.resilience.snapshot import write_json_atomic
+        fname = f"group_{fp}.npz"
+        save_pytree(self.root / fname, {"traces": traces})
+        self.manifest["groups"][fp] = {
+            "file": fname,
+            "indices": [int(i) for i in indices],
+            "trace_shape": list(traces.shape),
+            "trace_dtype": str(traces.dtype),
+            "seconds": float(seconds),
+        }
+        write_json_atomic(self.root / self.MANIFEST, self.manifest)
 
 
 def _mixed_m_error(configs, indices, need_m: int, have: str) -> ValueError:
@@ -482,8 +562,18 @@ def sweep(configs: Sequence[SolverConfig], num_steps: int,
         group (``dense`` backend only).
       pad_to: the padded agent count; defaults to the grid's largest
         network.
-      resume_dir: not ported (it needs the checkpoint and resilience
-        modules); raises ``NotImplementedError``.
+      resume_dir: the self-healing mode (``_SweepResume``).  Each group's
+        traces land in ``resume_dir`` (atomic, CRC-checked) under a
+        fingerprint of the sweep's geometry and the group's configs the
+        moment the group finishes; the same sweep run again after a
+        failure loads the finished groups bit for bit and computes only
+        the missing or damaged ones (``SweepGroup.loaded``).  The
+        fingerprint covers the configs, ``num_steps`` / ``record_every``,
+        padding and the content of the data and initial points, not
+        ``metric_fn`` or the problem: keep those fixed across calls on one
+        ``resume_dir``.  Refuses ``return_states`` (final states are not
+        kept); a loaded group's ``seconds`` are its first run's, and
+        ``compare_sequential`` skips it.
       device: where the sweep runs: the CUDA card when ``None`` (raises
         without one), as ``solve``.
 
@@ -493,11 +583,11 @@ def sweep(configs: Sequence[SolverConfig], num_steps: int,
     measure = measure or compare_sequential
     if not configs:
         raise ValueError("sweep needs at least one config")
-    if resume_dir is not None:
-        raise NotImplementedError(
-            "sweep(resume_dir=...) is not ported yet: it keeps finished "
-            "groups through the checkpoint and resilience modules (ROADMAP "
-            "Queue A 8)")
+    if resume_dir is not None and return_states:
+        raise ValueError(
+            "resume_dir caches group traces, not final states; "
+            "return_states=True would hand back a half-empty result — "
+            "drop one of the two")
     device = resolve_device(device)
 
     data_map = None
@@ -572,7 +662,37 @@ def sweep(configs: Sequence[SolverConfig], num_steps: int,
     seconds = 0.0
     seconds_seq: float | None = 0.0 if compare_sequential else None
 
+    resume_state = None
+    if resume_dir is not None:
+        from repro_torch.resilience.snapshot import tree_fingerprint
+        base_key = repr((
+            int(num_steps), int(record_every), bool(pad_agents), m_pad,
+            built_default, configs[0].seed, num_agents, n_per_agent,
+            None if data is None else tree_fingerprint(data),
+            None if data_map is None else sorted(
+                (k, tree_fingerprint(v)) for k, v in data_map.items()),
+            tree_fingerprint(x0), tree_fingerprint(y0),
+            None if x0_stack is None else tree_fingerprint(x0_stack),
+            None if y0_stack is None else tree_fingerprint(y0_stack),
+        ))
+        resume_state = _SweepResume(resume_dir, base_key, configs)
+
     for indices in group_indices:
+        if resume_state is not None:
+            cached = resume_state.load(resume_state.group_fp(indices))
+            if cached is not None:
+                g_trace, took = cached
+                for row, i in enumerate(indices):
+                    traces[i] = g_trace[row]
+                    if compare_sequential:
+                        traces_seq[i] = np.full_like(g_trace[row], np.nan)
+                seconds += took
+                groups.append(SweepGroup(
+                    indices=indices, config=configs[indices[0]],
+                    seconds=took, pad_to=m_pad,
+                    num_active=(tuple(ms[i] for i in indices)
+                                if pad_agents else None), loaded=True))
+                continue
         t0 = time.perf_counter()
         if pad_agents:
             parts, g_data = _padded_parts(
@@ -611,6 +731,11 @@ def sweep(configs: Sequence[SolverConfig], num_steps: int,
             replays=getattr(stepper, "replays", 0),
             eager_steps=getattr(stepper, "eager_steps", 0), stepper=stepper)
         groups.append(group)
+        if resume_state is not None:
+            # kept the moment the group finishes: a kill during the next
+            # group loses nothing already computed
+            resume_state.store(resume_state.group_fp(indices), indices,
+                               g_trace, took)
 
         if compare_sequential:
             single = _GroupSolver(parts, 0, device)

@@ -27,7 +27,9 @@ per agent, hidden 8, ``cg`` at 8 trips, q = 4, |S| = 5) for 5 steps; at
 the steps held the port takes the reference's state (guard counters
 included), its draws and its attack mask and noise, and must land on the
 reference's next state within ``ONE_STEP_TOL`` = 2e-6 of each field's
-scale (the bound of tests/test_torch_wire.py), on both backends.
+scale (the bound of tests/test_torch_wire.py), on both backends.  The
+bound was measured at 32 CG trips; at 8 its margin is thin, so each
+case prints its largest gap beside it.
 """
 import dataclasses
 
@@ -486,6 +488,12 @@ def gaps(port_state, ref_state, kind) -> dict:
 STEP_CASES = [(name, t) for name, row in ROWS.items() for t in row[-1]]
 
 
+def print_gap(name, t, backend, g: dict) -> None:
+    worst = max(g, key=g.get)
+    print(f"{name} step {t} {backend} at {CG_TRIPS} CG trips: largest gap "
+          f"{g[worst]:.3e} ({worst}), bound {ONE_STEP_TOL:.0e}")
+
+
 @pytest.mark.parametrize("backend", ["dense", "cuda"])
 @pytest.mark.parametrize("name,t", STEP_CASES)
 def test_one_step_from_reference_state(instance, runs, name, t, backend):
@@ -502,6 +510,7 @@ def test_one_step_from_reference_state(instance, runs, name, t, backend):
                         instance["tdata"], draws[t])
     assert state.t == t + 1
     g = gaps(state, states[t + 1], state_kind)
+    print_gap(name, t, backend, g)
     assert max(g.values()) < ONE_STEP_TOL, g
     if config.guard.active:
         assert {k: int(v) for k, v in state.guard.items()} == {
@@ -535,7 +544,9 @@ def test_diverging_steps_hold_the_consensus_fields(instance, runs, name, t,
     state = solver.step(state_from_numpy(states[t], "cpu", STATES[algo]),
                         instance["tdata"], draws[t])
     g = gaps(state, states[t + 1], STATES[algo])
-    assert max(g["x"], g["y"], g.get("guard", 0.0)) < ONE_STEP_TOL, g
+    held = {k: g[k] for k in ("x", "y", "guard") if k in g}
+    print_gap(name, t, backend, held)
+    assert max(held.values()) < ONE_STEP_TOL, g
 
 
 def test_guarded_row_trips_in_the_reference_run(instance, runs):

@@ -72,6 +72,14 @@ each replay, and the guard.  A guarded run that never trips must end
 with ``last_good`` at its last step, and one that trips must count the
 trips and keep the last good step as eager does: a graph that baked the
 host's t in would hold the capture's step.
+
+Resilience: a captured checkpointed run (a snapshot every 3 of 9 steps)
+killed at 4 (the boundary at 6 lost) and resumed in a fresh solver from
+t = 3, captured or eagerly (``repro_torch.resilience.resume_run``), gives
+the uninterrupted captured ``run_traced`` trace and state bit for bit:
+each algorithm (the resumed SVR-INTERACT graphs start mid q-period), the
+compressed wire with a warm-up and an interval (t = 3 is a silent round)
+and the guarded sign-flip row.
 """
 import dataclasses
 
@@ -88,6 +96,8 @@ from repro_torch.kernels.rwkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.core import convergence_metric_fn  # noqa: E402
 from repro_torch.consensus import CompressionConfig  # noqa: E402
 from repro_torch.hypergrad import HypergradConfig  # noqa: E402
+from repro_torch.resilience import (FaultPlan, SimulatedKill,  # noqa: E402
+                                    make_fault, resume_run, run_resumable)
 from repro_torch.solvers import (ByzantineConfig,  # noqa: E402
                                  GuardConfig, SolverConfig, default_setup,
                                  make_solver, run_recorded)
@@ -705,3 +715,50 @@ def test_guard_counters_follow_the_replays(hopper, max_norm, tripped):
         assert guard["tripped"] + guard["last_good"] == 6
     else:
         assert guard == {"last_good": 6, "tripped": 0}
+
+
+# (algo, options) of the killed-and-resumed captured runs
+RESUME_CASES = {
+    "interact": ("interact", {}),
+    "svr-interact": ("svr-interact", {}),
+    "gt-dsgd": ("gt-dsgd", {}),
+    "d-sgd": ("d-sgd", {}),
+    "sign1bit-warm2-k2": ("interact", dict(
+        compression=CompressionConfig("sign1bit", compress_after=2),
+        communication_interval=2)),
+    "signflip1-guard": ("interact", dict(
+        topology=TopologyConfig(p_connect=1.0),
+        byzantine=ByzantineConfig(**SIGNFLIP1),
+        guard=GuardConfig(nan=True, max_norm=1e3))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("resume_scan", [True, False],
+                         ids=["captured", "eager"])
+@pytest.mark.parametrize("case", sorted(RESUME_CASES))
+def test_killed_captured_run_resumes_bitwise(hopper, tmp_path, case,
+                                             resume_scan):
+    algo, opts = RESUME_CASES[case]
+    problem, x0, y0, data, config = _section6(hopper, algo)
+    config = dataclasses.replace(config, **opts)
+    metric = convergence_metric_fn(problem, config.hypergrad, data,
+                                   inner_steps=30)
+    solver = make_solver(config)
+    want_state, want = solver.run_traced(
+        solver.init(problem, None, x0, y0, data), data, 9, 3, metric)
+    killed = make_solver(config)
+    with pytest.raises(SimulatedKill):
+        run_resumable(killed, killed.init(problem, None, x0, y0, data), data,
+                      9, 3, metric, checkpoint_every=3, ckpt_dir=tmp_path,
+                      hooks=FaultPlan([make_fault("kill", step=4)]))
+    assert killed.stepper.replays == 6
+    resumed, state, trace = resume_run(
+        config, tmp_path, metric_fn=metric, checkpoint_every=3,
+        problem=problem, x0=x0, y0=y0, data=data, scan=resume_scan,
+        device=hopper)
+    if resume_scan:
+        assert resumed.stepper.replays == 6
+    assert state.t == 9
+    assert trace.tobytes() == want.cpu().numpy().tobytes()
+    assert _bitwise(state, want_state)

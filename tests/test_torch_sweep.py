@@ -6,14 +6,16 @@ at 20 inner steps), built by the JAX package and carried over as numpy
 (``repro_torch.convert``); padded grids take 3- and 4-agent networks.
 
 Tolerances.  ``ONE_STEP_TOL`` = 2e-6 is the one-step state gap of
-tests/test_torch_interact.py; a trace over ``STEPS`` steps is held to
-``STEPS`` times it, against the JAX package (INTERACT, whose steps take
-no draws) and against the port's own per-config ``run_traced`` (every
-algorithm: same generators, same draws; a batched sum may round
-otherwise than an unbatched one).  Padded rows are held to the
-*unpadded* JAX rows, never to the reference's padded ones (ROADMAP Queue
-C: its bitwise padded-vs-unpadded claim fails on some CPUs).  The
-masked metric is held to the reference's within 1e-6 relative.
+tests/test_torch_interact.py (measured at 32 CG trips; this file's 8
+leave it a thin margin, so each comparison prints its largest gap); a
+trace over ``STEPS`` steps is held to ``STEPS`` times it, against the
+JAX package (INTERACT, whose steps take no draws) and against the
+port's own per-config ``run_traced`` (every algorithm: same generators,
+same draws; a batched sum may round otherwise than an unbatched one).
+Padded rows are held to the *unpadded* JAX rows, never to the
+reference's padded ones (ROADMAP Queue C: its bitwise padded-vs-unpadded
+claim fails on some CPUs).  The masked metric is held to the
+reference's within 1e-6 relative.
 
 The consensus kernels' vmap rules run here on their batched plain
 versions; tests/test_torch_kernels_cuda.py holds the batched kernels on
@@ -61,6 +63,16 @@ ONE_STEP_TOL = 2e-6
 STEPS, EVERY = 4, 2
 TRACE_RTOL = STEPS * ONE_STEP_TOL
 np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+
+
+def assert_traces_close(got, want) -> None:
+    """``got`` within ``TRACE_RTOL`` of ``want``, relative; the largest
+    gap is printed beside the bound (8 CG trips leave it a thin margin)."""
+    got, want = np.asarray(got), np.asarray(want)
+    gap = float(np.max(np.abs(got - want) / np.abs(want)))
+    print(f"traces at 8 CG trips: largest relative gap {gap:.3e}, bound "
+          f"{TRACE_RTOL:.1e}")
+    np.testing.assert_allclose(got, want, rtol=TRACE_RTOL)
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +168,7 @@ def test_interact_seed_alpha_sweep_matches_jax(setup, backend):
     assert got.traces.shape == want.traces.shape == (4, STEPS // EVERY + 1)
     assert np.all(np.isfinite(got.traces))
     assert np.all(got.traces[:, -1] < got.traces[:, 0])
-    np.testing.assert_allclose(got.traces, want.traces, rtol=TRACE_RTOL)
+    assert_traces_close(got.traces, want.traces)
 
 
 @pytest.mark.parametrize("backend", ["dense", "cuda"])
@@ -172,9 +184,8 @@ def test_sweep_matches_per_config_run_traced(setup, algo, backend):
     for i, cfg in enumerate(tcfgs):
         solo = _run_traced(setup, cfg)
         assert solo[0] == got.traces[i][0]
-        np.testing.assert_allclose(got.traces[i], solo, rtol=TRACE_RTOL)
-    np.testing.assert_allclose(got.traces_sequential, got.traces,
-                               rtol=TRACE_RTOL)
+        assert_traces_close(got.traces[i], solo)
+    assert_traces_close(got.traces_sequential, got.traces)
     assert got.vmap_speedup is not None and got.measured
 
 
@@ -348,7 +359,7 @@ def test_padded_interact_matches_unpadded_jax(setup):
                 pad_agents=True, device="cpu")
     assert got.num_dispatches == 1 and got.pad_to == 4
     assert got.groups[0].num_active == SIZES
-    np.testing.assert_allclose(got.traces, want, rtol=TRACE_RTOL)
+    assert_traces_close(got.traces, want)
 
 
 @pytest.mark.parametrize("algo", ALGOS[1:])
@@ -365,7 +376,7 @@ def test_padded_sweep_matches_unpadded_port(setup, algo):
         m = cfg.num_agents
         solo = _run_traced(setup, cfg, m, core.convergence_metric_fn(
             t["problem"], t["hg"], t["datas"][m], inner_steps=20))
-        np.testing.assert_allclose(got.traces[i], solo, rtol=TRACE_RTOL)
+        assert_traces_close(got.traces[i], solo)
 
 
 @pytest.mark.parametrize("extra", [1, 3])
@@ -418,7 +429,7 @@ def test_padded_byzantine_group_matches_unpadded_port(setup):
         m = cfg.num_agents
         solo = _run_traced(setup, cfg, m, core.convergence_metric_fn(
             t["problem"], t["hg"], t["datas"][m], inner_steps=20))
-        np.testing.assert_allclose(got.traces[i], solo, rtol=TRACE_RTOL)
+        assert_traces_close(got.traces[i], solo)
 
 
 def test_stream_group_matches_per_config_run_traced(setup):
@@ -431,8 +442,7 @@ def test_stream_group_matches_per_config_run_traced(setup):
     got = _port_sweep(setup, tcfgs)
     assert got.num_dispatches == 1
     for i, cfg in enumerate(tcfgs):
-        np.testing.assert_allclose(got.traces[i], _run_traced(setup, cfg),
-                                   rtol=TRACE_RTOL)
+        assert_traces_close(got.traces[i], _run_traced(setup, cfg))
 
 
 # -- diagnostics --------------------------------------------------------------
@@ -493,12 +503,6 @@ def test_diagnostics_raise_with_reference_messages(setup, case):
                                 dict(data=t["datas"][M]))
         want = want.replace("'pallas'", "'cuda'")
     assert got == want
-
-
-def test_resume_dir_raises_not_implemented(setup, tmp_path):
-    _, tc = _pair(setup)
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        _port_sweep(setup, [tc], resume_dir=tmp_path)
 
 
 def test_sweep_without_device_raises_without_cuda(setup):

@@ -23,6 +23,13 @@ scale (the bound of tests/test_torch_interact.py), on both backends.
 The topk selection then sees identical inputs, so it picks identical
 entries.
 
+The one-step bound was measured at 32 CG trips (tests/test_torch_interact.py);
+at this file's 8 the unconverged solve amplifies float32 order
+differences and leaves it little margin, so each one-step case prints
+its largest gap beside the bound.  Two more INTERACT rows, the
+``random-gossip`` (period 10) and ``straggler`` (p = 0.3, period 10)
+processes, run at 32 trips (``TRIPS_32_CONFIGS``) under the same bound.
+
 The ledger: ``solve(...).measured_wire_bytes`` equals the JAX package's
 priced ``cumulative_wire_bytes`` integer for integer over a kind x
 ``compress_after`` x interval grid, and the JAX ``solve``'s measured
@@ -91,10 +98,18 @@ CONFIGS = {
     "adaptive": ("interact", dict(topology_process=dict(
         kind="adaptive", tau=1.0)), (0, 3)),
 }
+# INTERACT one-step rows at the bound's own trip count
+TRIPS_32 = 32
+TRIPS_32_CONFIGS = {
+    "random-gossip-10": ("interact", dict(topology_process=dict(
+        kind="random-gossip", period=10)), (0, 3, 6)),
+    "straggler-0.3": ("interact", dict(topology_process=dict(
+        kind="straggler", p=0.3, period=10)), (0, 3, 6)),
+}
 np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
 
 
-def config_pair(algo, opts, backend="dense", **extra):
+def config_pair(algo, opts, backend="dense", cg_iters=CG_TRIPS, **extra):
     """The JAX package's and the port's ``SolverConfig`` for ``opts``."""
     common = dict(algo=algo, q=Q, batch_size=BS, seed=0, **extra)
     j, t = dict(common), dict(common, backend=backend)
@@ -108,8 +123,8 @@ def config_pair(algo, opts, backend="dense", **extra):
     if "communication_interval" in opts:
         j["communication_interval"] = t["communication_interval"] = opts[
             "communication_interval"]
-    return (JConfig(**j, hypergrad=JHypergradConfig(cg_iters=CG_TRIPS)),
-            SolverConfig(**t, hypergrad=HypergradConfig(cg_iters=CG_TRIPS)))
+    return (JConfig(**j, hypergrad=JHypergradConfig(cg_iters=cg_iters)),
+            SolverConfig(**t, hypergrad=HypergradConfig(cg_iters=cg_iters)))
 
 
 def agent_draws(agent_keys, how: str, n_inner: int, n_outer: int) -> Draws:
@@ -162,11 +177,15 @@ def runs():
     return {}
 
 
+def trips_of(name: str) -> int:
+    return TRIPS_32 if name in TRIPS_32_CONFIGS else CG_TRIPS
+
+
 def reference_run(instance, runs, name: str):
     """The reference's states 0..NUM_STEPS (numpy) and each step's draws."""
     if name not in runs:
-        algo, opts, _ = CONFIGS[name]
-        jconfig, _ = config_pair(algo, opts)
+        algo, opts, _ = CONFIGS.get(name) or TRIPS_32_CONFIGS[name]
+        jconfig, _ = config_pair(algo, opts, cg_iters=trips_of(name))
         solver = j_make_solver(jconfig)
         state = solver.init(None, instance["problem"], None, instance["x0"],
                             instance["y0"], instance["data"])
@@ -335,19 +354,40 @@ STEP_CASES = [(name, t) for name, (_, _, steps) in CONFIGS.items()
               for t in steps]
 
 
-@pytest.mark.parametrize("backend", ["dense", "cuda"])
-@pytest.mark.parametrize("name,t", STEP_CASES)
-def test_one_step_from_reference_state(instance, runs, name, t, backend):
-    algo, opts, _ = CONFIGS[name]
+def one_step_gaps(instance, runs, name, t, backend) -> dict:
+    """The port's step from the reference's state ``t``, against the
+    reference's state ``t + 1``: ``gaps``, printed beside the bound."""
+    algo, opts, _ = CONFIGS.get(name) or TRIPS_32_CONFIGS[name]
     states, draws = reference_run(instance, runs, name)
     kind = STATES[algo]
-    _, config = config_pair(algo, opts, backend)
+    _, config = config_pair(algo, opts, backend, cg_iters=trips_of(name))
     solver = make_solver(config).build(instance["tproblem"], device="cpu",
                                        m=M, n=N)
     state = solver.step(state_from_numpy(states[t], "cpu", kind),
                         instance["tdata"], draws[t])
     assert state.t == t + 1
     g = gaps(state, states[t + 1], kind)
+    worst = max(g, key=g.get)
+    print(f"{name} step {t} {backend} at {trips_of(name)} CG trips: largest "
+          f"gap {g[worst]:.3e} ({worst}), bound {ONE_STEP_TOL:.0e}")
+    return g
+
+
+@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("name,t", STEP_CASES)
+def test_one_step_from_reference_state(instance, runs, name, t, backend):
+    g = one_step_gaps(instance, runs, name, t, backend)
+    assert max(g.values()) < ONE_STEP_TOL, g
+
+
+@pytest.mark.parametrize("backend", ["dense", "cuda"])
+@pytest.mark.parametrize("name,t", [
+    (name, t) for name, (_, _, steps) in TRIPS_32_CONFIGS.items()
+    for t in steps])
+def test_one_step_at_32_trips(instance, runs, name, t, backend):
+    """INTERACT over random-gossip and straggler streams, at the trip
+    count the bound was measured at."""
+    g = one_step_gaps(instance, runs, name, t, backend)
     assert max(g.values()) < ONE_STEP_TOL, g
 
 
