@@ -35,7 +35,14 @@
    and the element path), against the batched plain versions, each call
    one launch on its wrapper's count; timed at the Figure-2 groups'
    shape (8, 5, 760) float32, beside the ``baddbmm`` pair (``bmm`` for
-   the mix) and the plain version.
+   the mix) and the plain version.  The row-block forms of both
+   consensus kernels (one process's rows of the ``allgather`` backend:
+   the gathered (m, D) tables, the block's (rows, D) p, p_prev and
+   outputs): one row of 5 at D = 760 and 4 rows of 16 at D = 4M, both
+   dtypes, against their plain versions, each call one launch on
+   ``ROW_LAUNCHES``, the block of all m rows bit for bit the square
+   launch; timed in float32 beside the ``addmm`` pair (``matmul``) on
+   the block's rows.
 4. INTERACT path: ``solve`` on the Section-6 instance at full size, 40
    steps, with the ``cuda`` backend and then ``dense`` (both step through
    captured CUDA graphs); checks that both eq.-11 traces fall and agree
@@ -131,7 +138,7 @@
    all 8 experiments, the other kernel never, no wrapper count between
    replays.  Prints each group's us per experiment-step batched and
    sequential, ``vmap_speedup``, seconds and captures, and M_40 mean and
-   spread.  Then a seed x alpha grid (4 x {0.3, 0.1}): one group, each
+   spread.  Then a seed x alpha grid (2 x {0.3, 0.1}): one group, each
    row within ``TRACE_RTOL`` of its own config's ``run_traced`` (alpha
    reaches the kernel per experiment).  Then INTERACT on ``dense`` over
    4 and 8 agents x ring and ER(0.5) x 3 seeds
@@ -160,6 +167,23 @@
    counters and state those of the uncheckpointed captured run; and a
    Figure-2 INTERACT group of 2 seeds swept with ``resume_dir`` twice,
    the second call loading the group, bit for bit.
+4g. Across processes (``repro_torch.launch.distributed``), on the same
+   instance, nothing cut: INTERACT, 40 steps, eq. 11 (300 inner steps)
+   every 10 (rank 0's graph of the metric, ``eq11_metric``, as in the
+   reference), through ``python -m repro_torch.launch.launch_local`` in
+   three layouts (``DIST_LAYOUTS``): ``allgather`` on 5 processes of one
+   agent, each on the one card, over gloo staged through host memory;
+   ``ppermute`` the same way; ``allgather`` on 1 process of 5 agents over
+   NCCL.  Each against the single-process ``cuda`` eager run of the same
+   instance: the trace within ``TRACE_RTOL`` (the NCCL layout, whose
+   row-block launches cover rows 0 .. 4, bit for bit, its final x's
+   digest too); measured bytes equal to the broadcast price
+   (``allgather``) or the per-link price (``ppermute``, whose
+   ``rounds_per_mix`` must be the ER(0.5) schedule's); one digest on every
+   rank; each worker's row-block launches (its counts start at 0 with
+   the process): ``consensus_step`` once a step a rank on ``allgather``,
+   none on ``ppermute``.  Prints each layout's eager ``us_per_step`` and
+   ``round_latency_us`` beside its wire.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -177,7 +201,8 @@
    runs of 16 decode steps, each time reported as the median and the
    three runs.
 6. Prints a ``{"kernels": [...]}`` line (with the registers and spills
-   nvcc reports for each instantiation of the redesigned kernels), the
+   nvcc reports for each instantiation of the redesigned kernels, and the
+   row-block forms with phase 4g's launches), the
    card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
@@ -192,7 +217,6 @@ import statistics
 import subprocess
 import sys
 import time
-import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -329,7 +353,7 @@ SWEEP_SHAPE = (8, 5, 760)
 # seeds and alphas, and the padded grid's network sizes, topologies and
 # seeds
 SWEEP_SEEDS = 8
-ALPHA_GRID = dict(seed=range(4), alpha=(0.3, 0.1))
+ALPHA_GRID = dict(seed=range(2), alpha=(0.3, 0.1))
 PADDED_GRID = dict(num_agents=(4, 8), topology=("ring", "erdos-renyi"),
                    seed=range(3))
 # The step-size and padded checks hold two runs of the same steps to each
@@ -360,6 +384,18 @@ CHAOS_WANT = dict(completed=True, restarts=3, kills=2, nonfinite_faults=1,
                   write_retries=2, wasted_steps=61, guard_rollbacks=0,
                   guard_accepted=0)
 CHAOS_COUNTERS = tuple(CHAOS_WANT)
+
+# The distributed phase (4g): the Section-6 instance at full width through
+# ``python -m repro_torch.launch.launch_local``, INTERACT, 40 steps, eq. 11
+# (300 inner steps, phase 4b's) every 10, each layout (backend, processes,
+# wire) against the single-process cuda eager run
+DIST_LAYOUTS = (("allgather", 5, "gloo"), ("ppermute", 5, "gloo"),
+                ("allgather", 1, "nccl"))
+DIST_RECORD_EVERY, DIST_INNER_STEPS = 10, 300
+DIST_TIMEOUT = 300
+# the row-block kernels' shapes, (rows, m, D) and the block's first row:
+# one agent of the main path's 5, and 4 rows of the large shape's 16
+ROW_SHAPES = {"main": (1, 5, 760, 2), "large": (4, 16, 4194304, 6)}
 
 SOURCE = "src/repro_torch/kernels/consensus_step/csrc/consensus_step.cu"
 FLASH_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -436,7 +472,8 @@ WKV_STRONG = [(2, 37, 3, n, st, dt) for n in (8, 16, 32, 64)
     (4, 1024, 40, 64, True, "float32"),
     (4, 1024, 40, 64, True, "bfloat16")]
 # kernels whose nvcc report (registers, spills) the kernels line carries
-PTXAS_KERNELS = ("consensus_mix_kernel", "wkv6_kernel",
+PTXAS_KERNELS = ("consensus_step_kernel", "consensus_mix_kernel",
+                 "wkv6_kernel",
                  "flash_attention_f32_kernel", "flash_split_f32_kernel")
 WKV_MAIN = (4, 1024, 40, 64, False, "bfloat16")
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
@@ -527,6 +564,114 @@ def bound_ms(kernel: str, m: int, d: int, itemsize: int) -> tuple[float, str]:
         nbytes = 2 * m * d * itemsize + m * m * 4
         flops = 2 * m * m * d
     return roofline_ms(nbytes, flops, FP32_FLOP_PER_S)
+
+
+def row_bound_ms(kernel: str, rows: int, m: int, d: int, itemsize: int
+                 ) -> tuple[float, str]:
+    """``bound_ms`` of a row block: the (m, D) tables (x and u, or x),
+    the block's (rows, D) p and p_prev and M read once, the block's
+    outputs written once; the block's flops."""
+    if kernel == "consensus_step":
+        nbytes = (2 * m * d + 4 * rows * d) * itemsize + m * m * 4
+        flops = 4 * rows * m * d + 4 * rows * d
+    else:
+        nbytes = (m * d + rows * d) * itemsize + m * m * 4
+        flops = 2 * rows * m * d
+    return roofline_ms(nbytes, flops, FP32_FLOP_PER_S)
+
+
+def check_row_kernels(torch, ops, ref):
+    """The row-block forms of both consensus kernels (``row0=``) against
+    their plain versions at ``ROW_SHAPES``, in both dtypes, each call one
+    launch on ``ops.ROW_LAUNCHES``; a block of all m rows bit for bit the
+    square launch; times, bounds and the ``addmm`` / ``matmul`` yardsticks
+    on the block's rows, float32."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REPLACES}
+    timings = {k: {} for k in REPLACES}
+    for where, (rows, m, d, row0) in ROW_SHAPES.items():
+        M = torch.rand(m, m, generator=gen, device=dev) + 0.05
+        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+        for dtype in (f32, bf16):
+            kind = "float32" if dtype == f32 else "bfloat16"
+            tol = F32_TOL if dtype == f32 else BF16_TOL
+            X, U = (torch.randn(m, d, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            P, PP = (torch.randn(rows, d, generator=gen, device=dev)
+                     .to(dtype) for _ in range(2))
+            before = dict(ops.ROW_LAUNCHES)
+            got = {"consensus_step": ops.consensus_step_kernel(
+                       M, X, U, P, PP, alpha=ALPHA, row0=row0),
+                   "consensus_mix": (ops.consensus_mix_kernel(
+                       M, X, row0=row0, rows=rows),)}
+            torch.cuda.synchronize()
+            want = {"consensus_step": ref.consensus_step_rows_ref(
+                        M, X, U, P, PP, row0=row0, alpha=ALPHA),
+                    "consensus_mix": (ref.consensus_mix_rows_ref(
+                        M, X, row0=row0, rows=rows),)}
+            for name in REPLACES:
+                check(ops.ROW_LAUNCHES[name] == before[name] + 1,
+                      f"row-block {name}: a call did not add one launch")
+                for g, w in zip(got[name], want[name]):
+                    check(g.dtype == dtype and g.shape == (rows, d),
+                          f"row-block {name}: dtype/shape")
+                    check(torch.allclose(g.float(), w.float(), atol=tol,
+                                         rtol=tol),
+                          f"row-block {name} ({rows}, {m}, {d}) {kind} "
+                          f"disagrees with its plain version beyond {tol}")
+                    err[name][kind] = max(err[name][kind], float(
+                        (g.float() - w.float()).abs().max()))
+            # the block of all m rows is the square launch, bit for bit
+            full = ops.consensus_step_kernel(M, X, U, X, U, alpha=ALPHA,
+                                             row0=0)
+            square = ops.consensus_step_kernel(M, X, U, X, U, alpha=ALPHA)
+            check(all(torch.equal(a, b) for a, b in zip(full, square))
+                  and torch.equal(ops.consensus_mix_kernel(M, X, row0=0,
+                                                           rows=m),
+                                  ops.consensus_mix_kernel(M, X)),
+                  f"row block 0 .. {m - 1} is not the square launch bit "
+                  f"for bit ({kind})")
+        print(f"row-block case rows={rows} of m={m} from row {row0}, "
+              f"D={d} (float32 and bfloat16): max abs err step "
+              f"{err['consensus_step']['float32']:.3e} / "
+              f"{err['consensus_step']['bfloat16']:.3e}, mix "
+              f"{err['consensus_mix']['float32']:.3e} / "
+              f"{err['consensus_mix']['bfloat16']:.3e}; rows 0 .. {m - 1} "
+              "bit for bit the square launch", flush=True)
+        X, U = (torch.randn(m, d, generator=gen, device=dev)
+                for _ in range(2))
+        P, PP = (torch.randn(rows, d, generator=gen, device=dev)
+                 for _ in range(2))
+        Mr = M[row0:row0 + rows].contiguous()
+        Ur = U[row0:row0 + rows].contiguous()
+        fns = {
+            "consensus_step": (
+                lambda: ops.consensus_step_kernel(M, X, U, P, PP,
+                                                  alpha=ALPHA, row0=row0),
+                lambda: ref.consensus_step_rows_ref(M, X, U, P, PP,
+                                                    row0=row0, alpha=ALPHA),
+                lambda: (torch.addmm(Ur, Mr, X, beta=-ALPHA),
+                         torch.addmm(P - PP, Mr, U))),
+            "consensus_mix": (
+                lambda: ops.consensus_mix_kernel(M, X, row0=row0,
+                                                 rows=rows),
+                lambda: ref.consensus_mix_rows_ref(M, X, row0=row0,
+                                                   rows=rows),
+                lambda: torch.matmul(Mr, X))}
+        graph, inner = (True, 200) if where == "main" else (False, 5)
+        for name, (fn, plain, lib) in fns.items():
+            b, by = row_bound_ms(name, rows, m, d, X.element_size())
+            timings[name][where] = dict(
+                shape=[rows, m, d], row0=row0,
+                ms=time_ms(torch, fn, inner, graph=graph),
+                plain_ms=time_ms(torch, plain, inner, graph=graph),
+                library_ms=time_ms(torch, lib, inner, graph=graph),
+                bound_ms=b, bound_by=by)
+            print(f"row-block {name} {where}: "
+                  + json.dumps(timings[name][where]), flush=True)
+    return err, timings
 
 
 def check_kernels(torch, ops, ref, main_matrix):
@@ -776,9 +921,24 @@ def ptxas_report(log: str) -> dict:
                                check=True).stdout.split("\n")
     except (OSError, subprocess.SubprocessError):
         names = list(report)
-    return {readable.replace("(anonymous namespace)::", "").split("(")[0]:
-            info for readable, info in zip(names, report.values())
+    return {short_name(readable): info
+            for readable, info in zip(names, report.values())
             if any(k in readable for k in PTXAS_KERNELS)}
+
+
+def short_name(readable: str) -> str:
+    """A demangled instantiation without its argument list, the consensus
+    kernels' ``Form`` written by name: ``void consensus_mix_kernel<float,
+    4, true, kSquare>``."""
+    readable = readable.replace("(anonymous namespace)::", "")
+    for i, form in enumerate(("kSquare", "kBatch", "kBlock")):
+        readable = readable.replace(f"(Form){i}", form)
+    depth = 0
+    for i, c in enumerate(readable):
+        depth += (c == "<") - (c == ">")
+        if c == "(" and depth == 0:
+            return readable[:i]
+    return readable
 
 
 def visible_pairs(sq: int, skv: int, causal: bool, window, q_offset: int
@@ -1379,7 +1539,7 @@ def run_algorithms(torch, ops) -> dict:
             scan = mode == "captured"
             solver = make_solver(config)
             state0 = solver.init(problem, None, x0, y0, data)
-            metric = host_metric(torch, solver._problem, solver._hg_cfg,
+            metric = host_metric(solver._problem, solver._hg_cfg,
                                  data, state0)
             # the warm-up step, or the warm-up steps and the captures,
             # before the counted run (run_recorded then finds them done)
@@ -1583,7 +1743,7 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     state_e = eager.init(problem, None, x0, y0, data)
     for kernel in ops.LAUNCHES:
         ops.LAUNCHES[kernel] = 0
-    host = host_metric(torch, solver._problem, solver._hg_cfg, data, state0)
+    host = host_metric(solver._problem, solver._hg_cfg, data, state0)
     state_e, trace_e, took = run_recorded(
         eager, state_e, data, WIRE_EAGER_STEPS, WIRE_EAGER_STEPS, host,
         scan=False)
@@ -1935,7 +2095,7 @@ def run_byzantine(torch, ops) -> dict:
     eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
     base = {b: solve(byzantine_config("signflip1-weighted", b, clean=True),
                      NUM_STEPS, **setup) for b in ("cuda", "dense")}
-    host = host_metric(torch, solver._problem, solver._hg_cfg, data,
+    host = host_metric(solver._problem, solver._hg_cfg, data,
                        base["cuda"].state)
     clean = dict(m40_cuda=host(base["cuda"].state),
                  m40_dense=host(base["dense"].state),
@@ -1960,46 +2120,24 @@ def run_byzantine(torch, ops) -> dict:
 _HOST_METRICS: dict = {}
 
 
-def host_metric(torch, problem, hg_cfg, data, like):
+def host_metric(problem, hg_cfg, data, like):
     """The eq.-11 metric of ``(problem, hg_cfg, data)`` as a host call
     ``state -> float``, for the records of ``run_recorded`` and the M_40
-    of a finished run: one CUDA graph of the metric, captured on the
-    first call for these arguments (after one eager warm-up on a side
-    stream) and replayed with the state's x and y copied into its input
-    buffers.  The graph holds the eager metric's kernels in its order,
-    so it gives the eager value bit for bit (as a captured step gives the
-    eager step's); a call takes tens of milliseconds against 1.2-2.5 s
-    of host time for the eager metric's 300 inner steps.  ``like`` is a
-    state whose x and y give the input shapes."""
-    from repro_torch.core import convergence_metric_fn
-    tree = torch.utils._pytree
+    of a finished run: the port's ``eq11_metric`` (one CUDA graph of the
+    metric, replayed with the state's x and y copied in: the eager value
+    bit for bit, in tens of milliseconds against 1.2-2.5 s of host time
+    for the eager metric's 300 inner steps), at ``convergence_metric_fn``'s
+    300 inner steps of 0.5.  The graph is captured here, on ``like``'s x
+    and y, so that no timed run pays for the capture."""
+    from repro_torch.launch.distributed import eq11_metric
     key = (id(problem), hg_cfg, id(data))
     held = _HOST_METRICS.get(key)
-    if held is not None:
-        return held[2]
-    eq11 = convergence_metric_fn(problem, hg_cfg, data)
-    static = types.SimpleNamespace(x=tree.tree_map(torch.clone, like.x),
-                                   y=tree.tree_map(torch.clone, like.y))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        eq11(static)
-    torch.cuda.current_stream().wait_stream(side)
-    gc.collect()    # see GraphStepper: no graph freed mid-capture
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        value = eq11(static)
-    inputs = tree.tree_leaves((static.x, static.y))
-
-    def metric(state) -> float:
-        for dst, src in zip(inputs, tree.tree_leaves((state.x, state.y)),
-                            strict=True):
-            dst.copy_(src)
-        graph.replay()
-        return float(value)
-
-    _HOST_METRICS[key] = (problem, data, metric)
-    return metric
+    if held is None:
+        eq11 = eq11_metric(problem, hg_cfg, data, 300, 0.5)
+        eq11(like.x, like.y)
+        held = _HOST_METRICS[key] = (problem, data,
+                                     lambda state: eq11(state.x, state.y))
+    return held[2]
 
 
 def rel_gap(a, b) -> float:
@@ -2423,6 +2561,126 @@ def run_resilience(torch, ops) -> dict:
                 snapshot_bytes=snap_bytes, seconds=took)
 
 
+def run_distributed(torch) -> dict:
+    """Phase 4g (see the module docstring): INTERACT across processes in
+    ``DIST_LAYOUTS`` against the single-process ``cuda`` eager run."""
+    import hashlib
+    import os
+    import shutil
+
+    from repro_torch.launch.distributed import eq11_metric
+    from repro_torch.sharding.collectives import permute_schedule
+    from repro_torch.solvers import (SolverConfig, default_setup,
+                                     make_solver, run_recorded)
+    from repro_torch.solvers.config import TopologyConfig
+    tree = torch.utils._pytree
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "distributed"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # the reference: the single-process cuda run, eager, recorded as
+    # run_section6 records (its graph of the metric, on contiguous
+    # iterates, as the gathered ones are)
+    t0 = time.perf_counter()
+    problem, x0, y0, data = default_setup(0)
+    solver = make_solver(SolverConfig(backend="cuda", alpha=ALPHA,
+                                      beta=ALPHA))
+    state0 = solver.init(problem, None, x0, y0, data)
+    contiguous = lambda t: tree.tree_map(lambda l: l.contiguous(), t)
+    eq11 = eq11_metric(problem, solver._hg_cfg, data, DIST_INNER_STEPS, 0.5)
+    metric = lambda st: eq11(contiguous(st.x), contiguous(st.y))
+    state, ref_trace, took = run_recorded(solver, state0, data, NUM_STEPS,
+                                          DIST_RECORD_EVERY, metric,
+                                          scan=False)
+    digest = hashlib.sha256()
+    for leaf in tree.tree_leaves(state.x):
+        digest.update(leaf.contiguous().cpu().numpy().tobytes())
+    ref = dict(trace=ref_trace, digest=digest.hexdigest(),
+               us_per_step=1e6 * took / NUM_STEPS,
+               seconds=time.perf_counter() - t0)
+    print(f"distributed reference (single process, cuda, eager): "
+          f"{json.dumps(ref)}", flush=True)
+    rounds = permute_schedule(TopologyConfig().mixing_spec(5)).rounds_per_mix
+
+    layouts = {}
+    for backend, procs, wire in DIST_LAYOUTS:
+        name = f"{backend}-{procs}x{5 // procs}-{wire}"
+        out = root / f"{name}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.launch_local",
+               "--device", "cuda", "--wire", wire, "--processes", str(procs),
+               "--agents", "5", "--backend", backend, "--steps",
+               str(NUM_STEPS), "--record-every", str(DIST_RECORD_EVERY),
+               "--n-per-agent", "600", "--d-in", "16", "--hidden", "20",
+               "--classes", "5", "--alpha", str(ALPHA), "--beta", str(ALPHA),
+               "--metric-inner-steps", str(DIST_INNER_STEPS),
+               "--timeout", str(DIST_TIMEOUT), "--out", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            cmd, capture_output=True, text=True, timeout=DIST_TIMEOUT + 60,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"distributed {name}: the launcher "
+              f"exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+        gap = rel_gap(res["trace"], ref_trace)
+        launches = res["kernel_launches"]
+        rec = dict(
+            backend=backend, processes=procs, agents_per_process=res[
+                "agents_per_process"], wire=res["wire"], trace=res["trace"],
+            trace_rel_gap=gap, bitwise=(res["trace"] == ref_trace
+                                        and res["digest"] == ref["digest"]),
+            digests_equal=len(set(res["rank_digests"])) == 1,
+            measured_wire_bytes=res["measured_wire_bytes"],
+            priced_wire_bytes=res["priced_wire_bytes"],
+            per_link_priced_bytes=res["per_link_priced_bytes"],
+            rounds_per_mix=res["rounds_per_mix"],
+            row_launches_per_rank=[
+                {k: n[f"{k}_rows"] for k in REPLACES} for n in launches],
+            us_per_step=res["us_per_step"],
+            round_latency_us=res["round_latency_us"],
+            worker_setup_s=res["setup_s"], worker_wall_s=res["wall_s"],
+            wall_s=wall)
+        layouts[name] = rec
+        print(f"distributed {name} (wire={rec['wire']}): "
+              f"{json.dumps(rec)}", flush=True)
+        check(gap <= TRACE_RTOL, f"distributed {name}: trace {gap:.3e} from "
+              f"the single-process cuda run, beyond {TRACE_RTOL:.1e}")
+        check(rec["digests_equal"], f"distributed {name}: the ranks' "
+              f"digests differ: {res['rank_digests']}")
+        price = ("priced_wire_bytes" if backend == "allgather"
+                 else "per_link_priced_bytes")
+        check(res["measured_wire_bytes"] == res[price],
+              f"distributed {name}: measured {res['measured_wire_bytes']} "
+              f"bytes, priced {res[price]}")
+        steps_rows = {n["consensus_step"] for n in rec[
+            "row_launches_per_rank"]}
+        want = NUM_STEPS if backend == "allgather" else 0
+        check(steps_rows == {want} and all(
+            n["consensus_step"] == n["consensus_step_rows"]
+            and n["consensus_mix"] == n["consensus_mix_rows"]
+            for n in launches),
+              f"distributed {name}: row-block consensus_step launches a "
+              f"rank {steps_rows}, not {want} (1 a step on allgather, none "
+              f"on ppermute); {launches}")
+        check(backend == "ppermute" or all(
+            n["consensus_mix"] >= 1 for n in rec["row_launches_per_rank"]),
+              f"distributed {name}: the row-block consensus_mix never ran "
+              f"(the round-latency mixes): {launches}")
+        if backend == "ppermute":
+            check(res["rounds_per_mix"] == rounds <= 4,
+                  f"distributed {name}: {res['rounds_per_mix']} rounds a "
+                  f"mix, not the schedule's {rounds}")
+        if wire == "nccl":
+            check(rec["bitwise"], f"distributed {name}: not bit for bit the "
+                  "single-process cuda eager run")
+    took = time.perf_counter() - t_phase
+    print(f"distributed phase: {took:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(reference=ref, layouts=layouts, rounds_per_mix=rounds,
+                seconds=took)
+
+
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
     """``device_profile`` of eager INTERACT steps (warmed up before)."""
     return device_profile(torch, lambda: solver.run(state, data, steps),
@@ -2488,6 +2746,7 @@ def main() -> int:
     err, timings = check_kernels(torch, ops, ref, main_matrix)
     batched_err, batched_timings = check_batched_kernels(torch, ops, ref,
                                                          main_matrix)
+    row_err, row_timings = check_row_kernels(torch, ops, ref)
     flash = check_flash(torch)
     wkv = check_wkv6(torch)
 
@@ -2605,6 +2864,10 @@ def main() -> int:
         ops.LAUNCHES[name] = 0
     resilience = run_resilience(torch, ops)
 
+    # -- across processes: every worker's counts start at 0 and come back
+    # with its result
+    distributed = run_distributed(torch)
+
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
                for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
@@ -2651,8 +2914,7 @@ def main() -> int:
                           "M, u)" if name == "consensus_step"
                           else "matmul(M, x)"),
             shape=main["shape"], large=timings[name]["large"],
-            **({"ptxas": {k: v for k, v in ptxas.items() if name in k}}
-               if name == "consensus_mix" else {})))
+            ptxas={k: v for k, v in ptxas.items() if name in k}))
     for name in REPLACES:
         main = batched_timings[name]
         kernels.append(dict(
@@ -2673,6 +2935,32 @@ def main() -> int:
                 "M expanded over the batch" if name == "consensus_step"
                 else "bmm(M, x), M expanded over the batch"),
             shape=main["shape"]))
+    for name in REPLACES:
+        main = row_timings[name]["main"]
+        kernels.append(dict(
+            name=f"{name}_rows", route="cuda", source=SOURCE,
+            replaces=REPLACES[name],
+            launches=sum(n[name] for rec in distributed["layouts"].values()
+                         for n in rec["row_launches_per_rank"]),
+            launches_from=(
+                "phase 4g: the row-block launches of every rank of the "
+                "three layouts' run_section6 (40 steps; allgather "
+                "consensus_step once a step a rank, consensus_mix in the 6 "
+                "round-latency mixes; ppermute none)"),
+            launches_per_layout={
+                layout: [n[name] for n in rec["row_launches_per_rank"]]
+                for layout, rec in distributed["layouts"].items()},
+            max_abs_err=row_err[name]["float32"],
+            max_abs_err_bf16=row_err[name]["bfloat16"],
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            library_call=(
+                "addmm(u[rows], M[rows], x, beta=-alpha) + addmm(p - p_prev, "
+                "M[rows], u)" if name == "consensus_step"
+                else "matmul(M[rows], x)"),
+            shape=main["shape"], row0=main["row0"],
+            large=row_timings[name]["large"]))
     sdpa = ("scaled_dot_product_attention(is_causal=True, enable_gqa=True) "
             "without the softcap, which it cannot apply")
     f32_run = serving[("gemma2-2b", "float32")]["launches"]

@@ -52,8 +52,14 @@ configured rule (``_combine``: ``mix`` for ``weighted``, else
 round noise sits in static buffers that ``load_round(t)`` refills, like
 a topology stream's round buffer.
 
-Backends: ``dense`` (the (m, m) matmul reference) and ``cuda`` (the
-hand-written Hopper kernels).
+Backends: ``dense`` (the (m, m) matmul reference), ``cuda`` (the
+hand-written Hopper kernels) and, across the processes of a
+``torch.distributed`` group (an ``AgentMesh``), ``allgather`` (each
+process gathers every agent's payload and mixes its own rows with the
+row-block kernels) and ``ppermute`` (one agent a process, per-offset
+permute rounds).  A mesh backend's leaves carry the process's own k
+agents (``local_rows``), and every process calls each combine in
+lockstep.
 """
 from __future__ import annotations
 
@@ -68,8 +74,8 @@ from repro_torch.byzantine import (AttackSchedule, ByzantineConfig,
 from repro_torch.consensus.compress import CompressionConfig, make_compressor
 from repro_torch.consensus.ledger import StreamRecord
 
-__all__ = ["BACKENDS", "ConsensusEngine", "consensus_descent_and_track",
-           "make_engine", "register_backend"]
+__all__ = ["BACKENDS", "ConsensusEngine", "MeshBackendMixin",
+           "consensus_descent_and_track", "make_engine", "register_backend"]
 
 
 def _f32(leaf):
@@ -94,6 +100,9 @@ class ConsensusEngine:
     # engine in a padded sweep group (whose attack masks,
     # ``GroupAttackSchedule``, never pick a slot from here on); None: all m
     num_active = None
+    # (row0, k): the agents this process holds on a mesh backend; None:
+    # all m (a single-process backend)
+    local_rows = None
 
     def _configure_wire(self, compression: CompressionConfig | None = None,
                         communication_interval: int = 1,
@@ -365,6 +374,66 @@ class ConsensusEngine:
         return x_new, u_new, ef_new
 
 
+class MeshBackendMixin:
+    """Shared by the backends whose agents are spread over processes.
+
+    Requires ``self.mesh`` (an ``AgentMesh``) and the wire attributes of
+    ``_configure_wire``.  A process's leaves carry its own k agents, the
+    global slots ``row0 .. row0 + k - 1``: the self weights of the wire
+    path and the Byzantine mask and noise are sliced to them, so an
+    attacked local slice is bit for bit the dense engine's rows (the
+    mask and the noise rows are per slot and do not depend on m).
+    """
+
+    mesh = None
+
+    @property
+    def local_rows(self) -> tuple[int, int]:
+        return self.mesh.row0, self.mesh.local_agents
+
+    def _local_slots(self, full: torch.Tensor) -> torch.Tensor:
+        """This process's rows of an (m, ...) tensor."""
+        row0, k = self.local_rows
+        return full[row0:row0 + k]
+
+    def _self_weights(self, matrix=None) -> torch.Tensor:
+        return self._local_slots(super()._self_weights(matrix))
+
+    def _attack_payload(self, tree, t, stream: str):
+        return self._attack_local(tree, t, stream)
+
+    def _attack_local(self, tree, t, stream: str):
+        """The local-slice form of ``_attack_payload``: the global slots'
+        mask rows and noise rows (a shared noise row as it is)."""
+        sched = self.attack_schedule
+        if sched is None or stream not in sched.attack.streams:
+            return tree
+        leaves = pytree.tree_leaves(tree)
+        size = sum(int(l.numel()) for l in leaves) // int(leaves[0].shape[0])
+        noise = sched.noise(stream, self._require_t(t), size)
+        if noise is not None and sched.attack.noise == "slot":
+            noise = self._local_slots(noise)
+        return apply_attack(sched.attack, tree, self._local_slots(sched.mask),
+                            noise, sched.scale)
+
+
+def check_mesh(mesh, num_agents: int, device: torch.device | str):
+    """``mesh``, an ``AgentMesh`` of ``num_agents`` agents with its rows on
+    ``device``; raises otherwise."""
+    if mesh is None:
+        raise ValueError(
+            "a mesh backend needs the process's AgentMesh: pass mesh= "
+            "(backend_opts={'mesh': repro_torch.launch.distributed."
+            "agent_mesh(m)})")
+    if mesh.num_agents != num_agents:
+        raise ValueError(f"the mixing matrix is {num_agents} x {num_agents} "
+                         f"but the mesh holds {mesh.num_agents} agents")
+    if torch.device(device) != mesh.device:
+        raise ValueError(f"the mesh's rows live on {mesh.device}, not on "
+                         f"{torch.device(device)}")
+    return mesh
+
+
 def as_matrix(mixing, device: torch.device | str) -> torch.Tensor:
     """A backend's mixing matrix as a float32 tensor on ``device``:
     ``mixing`` is a ``MixingSpec``, a numpy matrix, or a tensor (kept as
@@ -440,6 +509,20 @@ def _make_cuda(mixing, device, **opts):
     return CudaEngine(mixing, device, **opts)
 
 
+# The mesh backends load their modules (and the collectives) only when
+# asked for, as the JAX package's do.
+@register_backend("allgather")
+def _make_allgather(mixing, device, **opts):
+    from repro_torch.consensus.allgather import AllGatherEngine
+    return AllGatherEngine(mixing, device, **opts)
+
+
+@register_backend("ppermute")
+def _make_ppermute(mixing, device, **opts):
+    from repro_torch.consensus.ppermute import PermuteEngine
+    return PermuteEngine(mixing, device, **opts)
+
+
 def make_engine(backend: str, mixing, device: torch.device | str,
                 **opts) -> ConsensusEngine:
     """Build a consensus backend by name on ``device``.
@@ -447,7 +530,9 @@ def make_engine(backend: str, mixing, device: torch.device | str,
     ``mixing`` is a ``MixingSpec``, a raw (m, m) numpy matrix or a float32
     tensor (under ``vmap``, one per experiment); every backend accepts the
     wire options ``compression``, ``communication_interval``,
-    ``byzantine`` and ``attack_seed``.
+    ``byzantine`` and ``attack_seed``.  The mesh backends take ``mesh``
+    (this process's ``AgentMesh``), and ``ppermute`` also ``compress``,
+    ``dp_sigma`` and ``impl``.
     """
     try:
         factory = BACKENDS[backend]

@@ -67,18 +67,33 @@ class Sampler:
     for the m active agents alone, then ghost row i takes a copy of row
     ``i % m``.  The active rows are then an unpadded run's draws, and no
     ghost draw reaches an active row.
+
+    Local form (``local = (row0, k)``, one process of a mesh backend):
+    the whole (m, ...) block is drawn and rows ``row0 .. row0 + k - 1``
+    kept, so each agent gets the draws of its slot in the single-process
+    run.
     """
 
     def __init__(self, generator: torch.Generator, m: int, n_inner: int,
                  n_outer: int, batch_size: int, neumann_k: int,
-                 pad_to: int | None = None):
+                 pad_to: int | None = None,
+                 local: tuple[int, int] | None = None):
         self.generator = generator
         self.m, self.batch_size = m, batch_size
         self.n_inner, self.n_outer = n_inner, n_outer
         self.neumann_k = max(neumann_k, 1)
         if pad_to is not None and pad_to < m:
             raise ValueError(f"cannot pad {m} agents down to {pad_to}")
+        if pad_to is not None and local is not None:
+            raise ValueError("a sampler is padded or local, not both")
         self.rows = m if pad_to is None else pad_to
+        self.local = local
+        if local is not None:
+            row0, k = local
+            if not (0 <= row0 and 1 <= k and row0 + k <= m):
+                raise ValueError(f"rows {row0} .. {row0 + k - 1} are not "
+                                 f"among the {m} agents")
+            self.rows = k
 
     def draw(self, num_steps: int, device: torch.device | str) -> Draws:
         """``num_steps`` steps' draws stacked on a leading axis, on
@@ -90,7 +105,10 @@ class Sampler:
                                      generator=gen))
                  for _ in range(num_steps)]
         stacked = [torch.stack(f) for f in zip(*steps)]
-        if self.rows != self.m:
+        if self.local is not None:
+            row0, k = self.local
+            stacked = [f[:, row0:row0 + k] for f in stacked]
+        elif self.rows != self.m:
             ghost = torch.arange(self.rows) % self.m
             stacked = [f[:, ghost] for f in stacked]
         return Draws(*(f.to(device) for f in stacked))

@@ -9,6 +9,23 @@
 // bfloat16.  Sums run in float32 with plain FMA (no tensor cores) and the
 // outputs are written in the input dtype.
 //
+// Row-block form (one process of the multi-process ``allgather`` backend,
+// which holds the agents row0 .. row0 + rows - 1): x and u are the gathered
+// (m, D) tables of every agent, while p, p_prev and the outputs are the
+// process's own (rows, D) rows:
+//
+//   x_out[r] = sum_j M[row0 + r, j] x[j] - alpha * u[row0 + r]
+//   u_out[r] = sum_j M[row0 + r, j] u[j] + (p[r] - p_prev[r])
+//   out[r]   = sum_j M[row0 + r, j] x[j]                        (mix)
+//
+// M stays whole in shared memory; only the block's output rows are
+// summed, so the work is rows / m of the square launch's.  The block is
+// its own instantiation (Form kBlock, entry points *_rows): the square and
+// batched forms fix row0 = 0 and rows = m at compile time, since runtime
+// bounds and offsets made the square step 1.5x slower at (16, 4M).  The
+// block row0 = 0, rows = m does the square kernel's FMAs in the same
+// order and gives its bits.
+//
 // Batched form (a sweep group of B experiments, one launch for all):
 // every stream is (B, m, D) contiguous, experiment b at b * m * D; M is
 // (B, m, m) with a batch stride of m * m (one matrix per experiment) or
@@ -16,9 +33,9 @@
 // read per experiment from a float32 device array of length B.  The grid's
 // y axis is the experiment: blockIdx.y = b offsets every pointer and stages
 // experiment b's matrix.  An unbatched call is B = 1 with a stride of 0 and
-// alpha passed by value; it runs the kBatched = false instantiation, which
-// compiles the offsets and the alpha read away, so its code is the
-// unbatched kernels' as they were.
+// alpha passed by value; it runs the kSquare instantiation, which compiles
+// the offsets and the alpha read away, so its code is the unbatched
+// kernels' as they were.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   src/repro/kernels/consensus_step/kernel.py  consensus_step_kernel
@@ -99,22 +116,30 @@ __device__ __forceinline__ P* experiment(P* base, int64_t stride) {
   return base + static_cast<int64_t>(blockIdx.y) * stride;
 }
 
+// The three forms of each kernel, one instantiation each: one (m, D)
+// problem, B of them (kBatch), or a row block of one (kBlock).
+enum Form { kSquare, kBatch, kBlock };
+
 __device__ __forceinline__ void stage_matrix(const float* __restrict__ M,
                                              float* sM, int m) {
   for (int k = threadIdx.x; k < m * m; k += blockDim.x) sM[k] = M[k];
   __syncthreads();
 }
 
-template <typename T, bool kBatched>
+template <typename T, Form F>
 __global__ void __launch_bounds__(kThreads)
     consensus_step_kernel(const float* __restrict__ M,
                           const T* __restrict__ x, const T* __restrict__ u,
                           const T* __restrict__ p, const T* __restrict__ pp,
                           T* __restrict__ xo, T* __restrict__ uo, int m,
-                          int64_t D, float alpha, int64_t m_stride,
-                          const float* __restrict__ alphas) {
+                          int64_t D, int row0, int rows, float alpha,
+                          int64_t m_stride, const float* __restrict__ alphas) {
   extern __shared__ float sM[];
-  if constexpr (kBatched) {
+  if constexpr (F != kBlock) {  // all m rows, known to the compiler
+    row0 = 0;
+    rows = m;
+  }
+  if constexpr (F == kBatch) {
     const int64_t stride = static_cast<int64_t>(m) * D;
     x = experiment(x, stride);
     u = experiment(u, stride);
@@ -128,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
   stage_matrix(M, sM, m);
   const int64_t d = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (d >= D) return;
-  for (int i0 = 0; i0 < m; i0 += kRows) {
+  for (int i0 = 0; i0 < rows; i0 += kRows) {
     float ax[kRows], au[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -138,10 +163,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < m; ++j) {
       const float xv = to_f32(x[j * D + d]);
       const float uv = to_f32(u[j * D + d]);
-      const float* w = sM + i0 * m + j;  // M[i0 + r, j] is w[r * m]
+      // M[row0 + i0 + r, j] is w[r * m]
+      const float* w = sM + (row0 + i0) * m + j;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        if (i0 + r < m) {
+        if (i0 + r < rows) {
           ax[r] = fmaf(w[r * m], xv, ax[r]);
           au[r] = fmaf(w[r * m], uv, au[r]);
         }
@@ -149,10 +175,11 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < m) {
+      const int i = i0 + r;  // output row; the table's row is row0 + i
+      if (i < rows) {
         const int64_t k = i * D + d;
-        xo[k] = from_f32<T>(ax[r] - alpha * to_f32(u[k]));
+        const int64_t kt = (row0 + i) * D + d;
+        xo[k] = from_f32<T>(ax[r] - alpha * to_f32(u[kt]));
         uo[k] = from_f32<T>(au[r] + (to_f32(p[k]) - to_f32(pp[k])));
       }
     }
@@ -243,13 +270,17 @@ constexpr int kChunk = 4;  // input rows loaded together when m > kRows
 // latencies overlap; then the output rows, kOut at a time, from the
 // packed rows in registers.  Otherwise passes of kRows output rows over
 // input rows kChunk at a time.
-template <typename T, int kV, bool kOnePass, bool kBatched>
+template <typename T, int kV, bool kOnePass, Form F>
 __global__ void __launch_bounds__(kThreads)
     consensus_mix_kernel(const float* __restrict__ M,
                          const T* __restrict__ x, T* __restrict__ out, int m,
-                         int64_t D, int64_t m_stride) {
+                         int64_t D, int row0, int rows, int64_t m_stride) {
   extern __shared__ float sM[];
-  if constexpr (kBatched) {
+  if constexpr (F != kBlock) {  // all m rows, known to the compiler
+    row0 = 0;
+    rows = m;
+  }
+  if constexpr (F == kBatch) {
     x = experiment(x, static_cast<int64_t>(m) * D);
     out = experiment(out, static_cast<int64_t>(m) * D);
     M = experiment(M, m_stride);
@@ -266,7 +297,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     stage_matrix(M, sM, m);
     if (!live) return;
-    for (int i0 = 0; i0 < m; i0 += kOut) {
+    for (int i0 = 0; i0 < rows; i0 += kOut) {
       float acc[kOut][kV];
 #pragma unroll
       for (int r = 0; r < kOut; ++r)
@@ -279,8 +310,8 @@ __global__ void __launch_bounds__(kThreads)
           unpack_cols<T, kV>(xr[j], xf);
 #pragma unroll
           for (int r = 0; r < kOut; ++r) {
-            if (i0 + r < m) {
-              const float wr = sM[(i0 + r) * m + j];
+            if (i0 + r < rows) {
+              const float wr = sM[(row0 + i0 + r) * m + j];
 #pragma unroll
               for (int c = 0; c < kV; ++c)
                 acc[r][c] = fmaf(wr, xf[c], acc[r][c]);
@@ -290,12 +321,12 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int r = 0; r < kOut; ++r)
-        if (i0 + r < m) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
+        if (i0 + r < rows) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
     }
   } else {
     stage_matrix(M, sM, m);
     if (!live) return;
-    for (int i0 = 0; i0 < m; i0 += kRows) {
+    for (int i0 = 0; i0 < rows; i0 += kRows) {
       float acc[kRows][kV];
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
@@ -311,10 +342,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int q = 0; q < kChunk; ++q) {
           if (j0 + q < m) {
-            const float* w = sM + i0 * m + j0 + q;  // M[i0 + r, j0 + q]
+            // M[row0 + i0 + r, j0 + q]
+            const float* w = sM + (row0 + i0) * m + j0 + q;
 #pragma unroll
             for (int r = 0; r < kRows; ++r) {
-              if (i0 + r < m) {
+              if (i0 + r < rows) {
                 const float wr = w[r * m];
 #pragma unroll
                 for (int c = 0; c < kV; ++c)
@@ -326,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
-        if (i0 + r < m) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
+        if (i0 + r < rows) store_cols<T, kV>(out + (i0 + r) * D + d, acc[r]);
     }
   }
 }
@@ -352,41 +384,42 @@ bool bad_batch(int B, int m, long long m_stride) {
          (m_stride != 0 && m_stride != static_cast<long long>(m) * m);
 }
 
-// alphas == nullptr: the unbatched kernel (B = 1, alpha by value).
-template <typename T>
+// A row block: rows >= 1 output rows starting at row0, inside M's m rows.
+bool bad_block(int m, int row0, int rows) {
+  return row0 < 0 || rows < 1 || row0 > m - rows;
+}
+
+// One launch of form F; B = 1 unless F is kBatch, alphas only for kBatch.
+template <typename T, Form F>
 cudaError_t launch_step(const void* M, const void* x, const void* u,
                         const void* p, const void* pp, void* xo, void* uo,
-                        int m, int64_t D, float alpha, int B,
-                        int64_t m_stride, const float* alphas,
+                        int m, int64_t D, int row0, int rows, float alpha,
+                        int B, int64_t m_stride, const float* alphas,
                         cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  auto kernel = alphas == nullptr ? consensus_step_kernel<T, false>
-                                  : consensus_step_kernel<T, true>;
+  auto kernel = consensus_step_kernel<T, F>;
   cudaError_t err = reserve_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid(D, B), kThreads, smem, stream>>>(
       static_cast<const float*>(M), static_cast<const T*>(x),
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<const T*>(pp), static_cast<T*>(xo), static_cast<T*>(uo), m,
-      D, alpha, m_stride, alphas);
+      D, row0, rows, alpha, m_stride, alphas);
   return cudaGetLastError();
 }
 
-// B == 0: the unbatched kernel (one experiment, no offsets).
-template <typename T, int kV, bool kOnePass>
+template <typename T, int kV, bool kOnePass, Form F>
 cudaError_t launch_mix_kernel(const void* M, const void* x, void* out, int m,
-                              int64_t D, int B, int64_t m_stride,
-                              cudaStream_t stream) {
+                              int64_t D, int row0, int rows, int B,
+                              int64_t m_stride, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(m) * m * sizeof(float);
-  auto kernel = B == 0 ? consensus_mix_kernel<T, kV, kOnePass, false>
-                       : consensus_mix_kernel<T, kV, kOnePass, true>;
-  B = B == 0 ? 1 : B;
+  auto kernel = consensus_mix_kernel<T, kV, kOnePass, F>;
   cudaError_t err = reserve_shared(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t units = (D + kV - 1) / kV;  // column groups, one a thread
   kernel<<<grid(units, B), kThreads, smem, stream>>>(
       static_cast<const float*>(M), static_cast<const T*>(x),
-      static_cast<T*>(out), m, D, m_stride);
+      static_cast<T*>(out), m, D, row0, rows, m_stride);
   return cudaGetLastError();
 }
 
@@ -394,30 +427,33 @@ cudaError_t launch_mix_kernel(const void* M, const void* x, void* out, int m,
 // out starts on a 16-byte boundary, so no access is ever misaligned (the
 // experiments of a batch lie m * D elements apart, so the rows of every
 // experiment start on one when experiment 0's do).
-template <typename T>
+template <typename T, Form F>
 cudaError_t launch_mix(const void* M, const void* x, void* out, int m,
-                       int64_t D, int B, int64_t m_stride, int vec,
-                       cudaStream_t stream) {
+                       int64_t D, int row0, int rows, int B,
+                       int64_t m_stride, int vec, cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   if (vec) {
     const bool aligned = (D * sizeof(T)) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                          reinterpret_cast<uintptr_t>(out) % 16 == 0;
     if (!aligned) return cudaErrorMisalignedAddress;
-    return m <= kRows ? launch_mix_kernel<T, kV, true>(M, x, out, m, D, B,
-                                                        m_stride, stream)
-                      : launch_mix_kernel<T, kV, false>(M, x, out, m, D, B,
-                                                         m_stride, stream);
+    return m <= kRows
+               ? launch_mix_kernel<T, kV, true, F>(M, x, out, m, D, row0,
+                                                   rows, B, m_stride, stream)
+               : launch_mix_kernel<T, kV, false, F>(M, x, out, m, D, row0,
+                                                    rows, B, m_stride, stream);
   }
-  return m <= kRows ? launch_mix_kernel<T, 1, true>(M, x, out, m, D, B,
-                                                     m_stride, stream)
-                    : launch_mix_kernel<T, 1, false>(M, x, out, m, D, B,
-                                                      m_stride, stream);
+  return m <= kRows
+             ? launch_mix_kernel<T, 1, true, F>(M, x, out, m, D, row0, rows,
+                                                B, m_stride, stream)
+             : launch_mix_kernel<T, 1, false, F>(M, x, out, m, D, row0, rows,
+                                                 B, m_stride, stream);
 }
 
 }  // namespace
 
-// dtype codes shared with ops.py: 0 = float32, 1 = bfloat16.
+// dtype codes shared with ops.py: 0 = float32, 1 = bfloat16.  Every
+// operand is (m, D).
 extern "C" int repro_consensus_step(const void* M, const void* x,
                                     const void* u, const void* p,
                                     const void* pp, void* xo, void* uo, int m,
@@ -425,11 +461,31 @@ extern "C" int repro_consensus_step(const void* M, const void* x,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_step<float>(M, x, u, p, pp, xo, uo, m, D, alpha, 1, 0,
-                              nullptr, s);
+    return launch_step<float, kSquare>(M, x, u, p, pp, xo, uo, m, D, 0, m,
+                                       alpha, 1, 0, nullptr, s);
   if (dtype == 1)
-    return launch_step<__nv_bfloat16>(M, x, u, p, pp, xo, uo, m, D, alpha, 1,
-                                      0, nullptr, s);
+    return launch_step<__nv_bfloat16, kSquare>(M, x, u, p, pp, xo, uo, m, D,
+                                               0, m, alpha, 1, 0, nullptr, s);
+  return cudaErrorInvalidValue;
+}
+
+// The row block from row row0: x and u are (m, D); p, pp, xo and uo are
+// the block's (rows, D) rows.
+extern "C" int repro_consensus_step_rows(const void* M, const void* x,
+                                         const void* u, const void* p,
+                                         const void* pp, void* xo, void* uo,
+                                         int m, long long D, int row0,
+                                         int rows, float alpha, int dtype,
+                                         void* stream) {
+  if (bad_block(m, row0, rows)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_step<float, kBlock>(M, x, u, p, pp, xo, uo, m, D, row0,
+                                      rows, alpha, 1, 0, nullptr, s);
+  if (dtype == 1)
+    return launch_step<__nv_bfloat16, kBlock>(M, x, u, p, pp, xo, uo, m, D,
+                                              row0, rows, alpha, 1, 0,
+                                              nullptr, s);
   return cudaErrorInvalidValue;
 }
 
@@ -445,11 +501,11 @@ extern "C" int repro_consensus_step_batched(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(alphas);
   if (dtype == 0)
-    return launch_step<float>(M, x, u, p, pp, xo, uo, m, D, 0.f, B, m_stride,
-                              a, s);
+    return launch_step<float, kBatch>(M, x, u, p, pp, xo, uo, m, D, 0, m, 0.f,
+                                      B, m_stride, a, s);
   if (dtype == 1)
-    return launch_step<__nv_bfloat16>(M, x, u, p, pp, xo, uo, m, D, 0.f, B,
-                                      m_stride, a, s);
+    return launch_step<__nv_bfloat16, kBatch>(M, x, u, p, pp, xo, uo, m, D, 0,
+                                              m, 0.f, B, m_stride, a, s);
   return cudaErrorInvalidValue;
 }
 
@@ -459,9 +515,27 @@ extern "C" int repro_consensus_mix(const void* M, const void* x, void* out,
                                    int m, long long D, int dtype, int vec,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_mix<float>(M, x, out, m, D, 0, 0, vec, s);
+  if (dtype == 0)
+    return launch_mix<float, kSquare>(M, x, out, m, D, 0, m, 1, 0, vec, s);
   if (dtype == 1)
-    return launch_mix<__nv_bfloat16>(M, x, out, m, D, 0, 0, vec, s);
+    return launch_mix<__nv_bfloat16, kSquare>(M, x, out, m, D, 0, m, 1, 0,
+                                              vec, s);
+  return cudaErrorInvalidValue;
+}
+
+// The row block from row row0: x is (m, D), out the block's (rows, D) rows.
+extern "C" int repro_consensus_mix_rows(const void* M, const void* x,
+                                        void* out, int m, long long D,
+                                        int row0, int rows, int dtype,
+                                        int vec, void* stream) {
+  if (bad_block(m, row0, rows)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_mix<float, kBlock>(M, x, out, m, D, row0, rows, 1, 0, vec,
+                                     s);
+  if (dtype == 1)
+    return launch_mix<__nv_bfloat16, kBlock>(M, x, out, m, D, row0, rows, 1,
+                                             0, vec, s);
   return cudaErrorInvalidValue;
 }
 
@@ -474,9 +548,11 @@ extern "C" int repro_consensus_mix_batched(const void* M, const void* x,
   if (bad_batch(B, m, m_stride)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_mix<float>(M, x, out, m, D, B, m_stride, vec, s);
+    return launch_mix<float, kBatch>(M, x, out, m, D, 0, m, B, m_stride, vec,
+                                     s);
   if (dtype == 1)
-    return launch_mix<__nv_bfloat16>(M, x, out, m, D, B, m_stride, vec, s);
+    return launch_mix<__nv_bfloat16, kBatch>(M, x, out, m, D, 0, m, B,
+                                             m_stride, vec, s);
   return cudaErrorInvalidValue;
 }
 

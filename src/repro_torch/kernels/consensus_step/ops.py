@@ -6,6 +6,15 @@ on nothing else: a CPU tensor goes to the plain version in ``ref.py``, a
 CUDA tensor launches the kernel of ``csrc/consensus_step.cu`` or raises.
 ``LAUNCHES`` counts kernel launches, one per launch, and nothing else.
 
+Row blocks.  ``consensus_step_kernel(..., row0=r)`` and
+``consensus_mix_kernel(..., row0=r, rows=k)`` compute only the output
+rows ``r .. r + k - 1``: what one process of the multi-process
+``allgather`` backend needs, which holds those agents' p and p_prev and
+the gathered (m, D) tables of x and u.  M stays (m, m); p, p_prev and
+the outputs are (k, D).  A call without ``row0`` is the square one (row0
+= 0, rows = m), unchanged.  ``ROW_LAUNCHES`` counts the launches made
+with a row block; each is also one of its kernel's ``LAUNCHES``.
+
 Batched forms.  ``consensus_step_batched_kernel`` and
 ``consensus_mix_batched_kernel`` take B experiments' (B, m, D) streams
 and one matrix per experiment, (B, m, m), or one for all, (1, m, m), and
@@ -34,10 +43,11 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.consensus_step.ref import (
-    consensus_mix_batched_ref, consensus_mix_ref, consensus_step_batched_ref,
-    consensus_step_ref)
+    consensus_mix_batched_ref, consensus_mix_ref, consensus_mix_rows_ref,
+    consensus_step_batched_ref, consensus_step_ref, consensus_step_rows_ref)
 
-__all__ = ["LAUNCHES", "MAX_SHARED_BYTES", "SOURCE", "consensus_mix",
+__all__ = ["LAUNCHES", "MAX_SHARED_BYTES", "ROW_LAUNCHES", "SOURCE",
+           "consensus_mix",
            "consensus_mix_batched_kernel", "consensus_mix_kernel",
            "consensus_step", "consensus_step_batched_kernel",
            "consensus_step_kernel", "flatten_agents", "load",
@@ -49,6 +59,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "consensus_step.cu"
 MAX_SHARED_BYTES = 232448
 
 LAUNCHES = {"consensus_step": 0, "consensus_mix": 0}
+# the launches of LAUNCHES made with a row block (``row0=``)
+ROW_LAUNCHES = {"consensus_step": 0, "consensus_mix": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,8 +73,14 @@ def load() -> ctypes.CDLL:
     lib.repro_consensus_step.argtypes = [ptr] * 7 + [i32, i64, ctypes.c_float,
                                                      i32, ptr]
     lib.repro_consensus_step.restype = i32
+    lib.repro_consensus_step_rows.argtypes = [ptr] * 7 + [
+        i32, i64, i32, i32, ctypes.c_float, i32, ptr]
+    lib.repro_consensus_step_rows.restype = i32
     lib.repro_consensus_mix.argtypes = [ptr] * 3 + [i32, i64, i32, i32, ptr]
     lib.repro_consensus_mix.restype = i32
+    lib.repro_consensus_mix_rows.argtypes = [ptr] * 3 + [i32, i64, i32, i32,
+                                                         i32, i32, ptr]
+    lib.repro_consensus_mix_rows.restype = i32
     lib.repro_consensus_step_batched.argtypes = [ptr] * 7 + [
         i32, i64, i32, i64, ptr, i32, ptr]
     lib.repro_consensus_step_batched.restype = i32
@@ -95,6 +113,30 @@ def _check(M: torch.Tensor, streams: tuple[torch.Tensor, ...]) -> None:
                 f"all operands must be on one device, got {M.device} for M "
                 f"and {[str(s.device) for s in streams]} for the streams")
         if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+
+
+def _check_block(M: torch.Tensor, tables: tuple[torch.Tensor, ...],
+                 blocks: tuple[torch.Tensor, ...], row0: int,
+                 rows: int) -> None:
+    """A row-block call: (m, D) ``tables``, (rows, D) ``blocks`` (p,
+    p_prev), the block inside M's m rows."""
+    _check(M, tables)
+    m, d = tables[0].shape
+    if not (isinstance(row0, int) and isinstance(rows, int)
+            and 0 <= row0 and 1 <= rows and row0 + rows <= m):
+        raise ValueError(f"row block {row0} .. {row0} + {rows} - 1 is not "
+                         f"inside the {m} rows of M")
+    for b in blocks:
+        if b.dim() != 2 or tuple(b.shape) != (rows, d):
+            raise ValueError(f"block operands must be ({rows}, {d}), got "
+                             f"{[tuple(t.shape) for t in blocks]}")
+        if b.dtype != tables[0].dtype:
+            raise TypeError("block operands must share the tables' dtype, "
+                            f"{tables[0].dtype}, got {b.dtype}")
+        if b.device != tables[0].device:
+            raise ValueError("all operands must be on one device")
+        if not b.is_contiguous():
             raise ValueError("operands must be contiguous")
 
 
@@ -148,26 +190,52 @@ def _raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 def consensus_step_kernel(M: torch.Tensor, x: torch.Tensor, u: torch.Tensor,
                           p: torch.Tensor, p_prev: torch.Tensor, *,
-                          alpha: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(M @ x - alpha * u, M @ u + (p - p_prev))`` on (m, D) rows."""
-    _check(M, (x, u, p, p_prev))
-    if x.device.type == "cpu":
-        return consensus_step_ref(M, x, u, p, p_prev, alpha=alpha)
+                          alpha: float, row0: int | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(M @ x - alpha * u, M @ u + (p - p_prev))`` on (m, D) rows.
+
+    With ``row0`` the row block from there: x and u the (m, D) tables,
+    p and p_prev the block's (rows, D) rows; returns the block's rows of
+    both outputs."""
+    if row0 is None:
+        _check(M, (x, u, p, p_prev))
+        if x.device.type == "cpu":
+            return consensus_step_ref(M, x, u, p, p_prev, alpha=alpha)
+    else:
+        _check_block(M, (x, u), (p, p_prev), row0, p.shape[0])
+        if x.device.type == "cpu":
+            return consensus_step_rows_ref(M, x, u, p, p_prev, row0=row0,
+                                           alpha=alpha)
+    x_out, u_out = x.new_empty(p.shape), u.new_empty(p.shape)
+    _launch_step(M, x, u, p, p_prev, x_out, u_out, alpha, row0)
+    return x_out, u_out
+
+
+def _launch_step(M, x, u, p, p_prev, x_out, u_out, alpha: float,
+                 row0: int | None) -> None:
+    """One (m, D) ``consensus_step`` launch (checked by the caller) of the
+    rows of ``p`` from ``row0`` (``None``: the square kernel) into
+    ``x_out`` and ``u_out``.  Raises for tensors off the card."""
     _launch_checks(M, x)
-    x_out, u_out = torch.empty_like(x), torch.empty_like(u)
     m, d = x.shape
     if d == 0:
-        return x_out, u_out
+        return
     lib = load()
+    ptrs = (M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
+            p_prev.data_ptr(), x_out.data_ptr(), u_out.data_ptr(), m, d)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_consensus_step(
-            M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
-            p_prev.data_ptr(), x_out.data_ptr(), u_out.data_ptr(), m, d,
-            float(alpha), _DTYPE_CODES[x.dtype], stream)
+        if row0 is None:
+            err = lib.repro_consensus_step(*ptrs, float(alpha),
+                                           _DTYPE_CODES[x.dtype], stream)
+        else:
+            err = lib.repro_consensus_step_rows(
+                *ptrs, row0, p.shape[0], float(alpha), _DTYPE_CODES[x.dtype],
+                stream)
     _raise_on_error(lib, err, "consensus_step")
     LAUNCHES["consensus_step"] += 1
-    return x_out, u_out
+    if row0 is not None:
+        ROW_LAUNCHES["consensus_step"] += 1
 
 
 def consensus_step_batched_kernel(M: torch.Tensor, x: torch.Tensor,
@@ -214,25 +282,38 @@ def mix_takes_16_byte_path(x: torch.Tensor, out: torch.Tensor) -> bool:
             and out.data_ptr() % 16 == 0)
 
 
-def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``M @ x`` on (m, D) rows."""
-    _check(M, (x,))
-    if x.device.type == "cpu":
-        return consensus_mix_ref(M, x)
+def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor, *,
+                         row0: int | None = None,
+                         rows: int | None = None) -> torch.Tensor:
+    """``M @ x`` on (m, D) rows; with ``row0`` and ``rows`` only the
+    block's (rows, D) rows of it."""
+    if row0 is None:
+        _check(M, (x,))
+        if x.device.type == "cpu":
+            return consensus_mix_ref(M, x)
+        out = torch.empty_like(x)
+    else:
+        _check_block(M, (x,), (), row0, rows)
+        if x.device.type == "cpu":
+            return consensus_mix_rows_ref(M, x, row0=row0, rows=rows)
+        out = x.new_empty((rows, x.shape[1]))
     _launch_checks(M, x)
-    out = torch.empty_like(x)
     m, d = x.shape
     if d == 0:
         return out
     lib = load()
+    block = () if row0 is None else (row0, rows)
+    launch = (lib.repro_consensus_mix if row0 is None
+              else lib.repro_consensus_mix_rows)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.repro_consensus_mix(
-            M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d,
-            _DTYPE_CODES[x.dtype], int(mix_takes_16_byte_path(x, out)),
-            stream)
+        err = launch(M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d, *block,
+                     _DTYPE_CODES[x.dtype],
+                     int(mix_takes_16_byte_path(x, out)), stream)
     _raise_on_error(lib, err, "consensus_mix")
     LAUNCHES["consensus_mix"] += 1
+    if row0 is not None:
+        ROW_LAUNCHES["consensus_mix"] += 1
     return out
 
 

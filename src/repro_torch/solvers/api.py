@@ -36,6 +36,16 @@ static device buffers: the round's topology matrix and attack noise
 ``solve`` and ``default_setup`` run on the CUDA card unless
 ``device="cpu"`` is passed, and raise when no card is present and no
 device was named.
+
+Across processes.  With a mesh backend (``backend="allgather"`` or
+``"ppermute"``, ``backend_opts={"mesh": AgentMesh}``) a solver is built
+and stepped on one process's rows of the state and the data: ``init``
+takes the process's (k, ...) data; a stochastic solver's ``Sampler``
+draws the whole (m, ...) block each step and keeps the process's rows,
+so every agent draws what the single-process run draws for its slot.
+Every process steps in lockstep (each combine is a collective), eagerly:
+a ``GraphStepper`` refuses a mesh engine.  ``repro_torch.launch.
+distributed.run_section6`` drives this end to end.
 """
 from __future__ import annotations
 
@@ -194,8 +204,10 @@ class SolverBase:
         per-agent sample count the q and batch defaults are taken from."""
         hg_cfg = hg_cfg if hg_cfg is not None else self.config.hypergrad
         hg_cfg.resolve_backend()   # fail fast on unknown engine names
-        spec = self.config.mixing_spec(m)
-        if m is not None and spec.num_agents != m:
+        mesh = self.config.backend_opts.get("mesh")
+        spec = self.config.mixing_spec(m if mesh is None else
+                                       mesh.num_agents)
+        if mesh is None and m is not None and spec.num_agents != m:
             raise ValueError(
                 f"config declares a {spec.num_agents}-agent network "
                 f"(num_agents/mixing) but the data carries m={m} agents")
@@ -205,6 +217,11 @@ class SolverBase:
             communication_interval=self.config.communication_interval,
             byzantine=self.config.byzantine, attack_seed=self.config.seed,
             **dict(self.config.backend_opts))
+        if engine.local_rows is not None and m is not None \
+                and engine.local_rows[1] != m:
+            raise ValueError(
+                f"the mesh gives this process {engine.local_rows[1]} of the "
+                f"{spec.num_agents} agents, but its data carries m={m}")
         if not self.config.topology_process.is_static:
             from repro_torch.topology import attach_topology
             attach_topology(engine, self.config.topology_process, spec,
@@ -232,7 +249,7 @@ class SolverBase:
         solver draws from ``generator``, by default a CPU generator seeded
         with ``config.seed``; its initial state takes the first draw.
         """
-        m = data.inner_x.shape[0]
+        m = data.inner_x.shape[0]    # this process's agents on a mesh
         n_inner, n_outer = data.inner_x.shape[1], data.outer_x.shape[1]
         # n is the full per-agent dataset: the paper's q = |S| =
         # ceil(sqrt(n)) defaults are taken against it
@@ -241,10 +258,16 @@ class SolverBase:
         if self.uses_draws:
             if generator is None:
                 generator = torch.Generator().manual_seed(self.config.seed)
-            self._sampler = Sampler(generator, m, n_inner, n_outer,
-                                    self.config.resolve_batch(n),
-                                    self._hg_cfg.neumann_k)
+            rows = self._engine.local_rows
+            self._sampler = Sampler(
+                generator, m if rows is None else self._network_size(),
+                n_inner, n_outer, self.config.resolve_batch(n),
+                self._hg_cfg.neumann_k, local=rows)
         return self._init_state(self._problem, self._hg_cfg, x0, y0, data)
+
+    def _network_size(self) -> int:
+        """m, the agents of the whole network (of every process)."""
+        return int(self._engine.matrix.shape[-1])
 
     # -- sampling ---------------------------------------------------------
     def draw(self, num_steps: int, device: torch.device | str
@@ -469,6 +492,11 @@ class GraphStepper:
         device = _state_device(state)
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, not {device}")
+        if solver._engine.local_rows is not None:
+            raise ValueError(
+                f"the {solver._engine.name!r} backend's collectives step "
+                "eagerly: run it with scan=False (run, or run_recorded(..., "
+                "scan=False))")
         self.solver, self.data, self.device = solver, data, device
         self.static = _clone(state)
         self.t = state.t

@@ -19,6 +19,7 @@ from repro_torch.topology.process import (
 from repro_torch.topology.runtime import (
     AdaptiveTopology,
     GroupStreamTopology,
+    PermuteStreamTopology,
     RoundTopology,
     StreamTopology,
     adaptive_mixing,
@@ -30,6 +31,7 @@ from repro_torch.topology.runtime import (
 __all__ = [
     "AdaptiveTopology",
     "GroupStreamTopology",
+    "PermuteStreamTopology",
     "RoundTopology",
     "StreamTopology",
     "TopologyProcessConfig",

@@ -17,6 +17,12 @@ hands the round's matrix to the combine as a per-call operand.
                       each step (``adaptive_mixing``); inside a graph it
                       is part of the graph.
 
+On the ``ppermute`` backend, which has no matrix, a stream runs as
+``PermuteStreamTopology``: per-step weights on the base schedule's
+offsets, loaded into a static ``PermuteWeights`` round buffer the same
+way.  The ``allgather`` backend holds the full matrix and takes the
+round's from a ``StreamTopology``.
+
 A sweep group whose experiments realize different streams (another
 failure rate or stream seed each) holds them in one
 ``GroupStreamTopology``: (E, T, m, m) on the device and a (B, m, m)
@@ -43,6 +49,7 @@ from repro_torch.topology.process import (
 __all__ = [
     "AdaptiveTopology",
     "GroupStreamTopology",
+    "PermuteStreamTopology",
     "RoundTopology",
     "StreamTopology",
     "adaptive_mixing",
@@ -131,6 +138,64 @@ class AdaptiveTopology:
                                self.tau)
 
 
+class PermuteStreamTopology:
+    """Per-step weights on the base schedule's shared offsets (ppermute).
+
+    Holds ``weights[t, k, i] = M_t[i, (i + offsets[k]) % m]``, the
+    per-step diagonals and the matrices of the realized stream on the
+    device; ``load(t)`` copies step ``t % T``'s into one static
+    ``PermuteWeights`` round buffer, which ``matrix_at`` returns.  A
+    stream with weight on an edge outside the base offsets raises: the
+    rounds are the schedule's, only their weights vary.
+    """
+
+    def __init__(self, schedule, matrices, device: torch.device | str):
+        from repro_torch.sharding.collectives import PermuteWeights
+        mats = np.asarray(matrices, dtype=np.float64)
+        m = schedule.num_agents
+        if mats.shape[1:] != (m, m):
+            raise ValueError(
+                f"stream is {mats.shape[1:]} but the schedule mixes "
+                f"{m} agents")
+        idx = np.arange(m)
+        covered = np.zeros((m, m), dtype=bool)
+        np.fill_diagonal(covered, True)
+        for o in schedule.offsets:
+            covered[idx, (idx + o) % m] = True
+        stray = np.abs(mats[:, ~covered]).max(initial=0.0)
+        if stray > 1e-12:
+            raise ValueError(
+                "realized topology stream places weight on edges outside "
+                "the base schedule's offsets: a time-varying ppermute "
+                "shares the base offset schedule and can only drop or "
+                "reweight its edges")
+        weights = (np.stack([mats[:, idx, (idx + o) % m]
+                             for o in schedule.offsets], axis=1)
+                   if schedule.offsets else np.zeros((mats.shape[0], 0, m)))
+        as_f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                           device=device)
+        self.offsets = schedule.offsets
+        self.stream = PermuteWeights(
+            weights=as_f32(weights),
+            self_weights=as_f32(np.diagonal(mats, axis1=1, axis2=2).copy()),
+            matrix=as_f32(mats))
+        self.period = int(mats.shape[0])
+        self.round = PermuteWeights(*(f[0].clone() for f in self.stream))
+        self.loaded: int | None = None
+
+    def load(self, t: int) -> None:
+        """Copy step ``t``'s weights into the round buffer."""
+        for buf, f in zip(self.round, self.stream):
+            buf.copy_(f[int(t) % self.period])
+        self.loaded = int(t)
+
+    def matrix_at(self, t, tree=None):
+        del tree
+        if int(t) != self.loaded:
+            self.load(t)
+        return self.round
+
+
 class RoundTopology:
     """One experiment's round matrix inside a sweep group's vmapped step:
     its slice of the group's round buffer, loaded before the step."""
@@ -193,12 +258,21 @@ def attach_topology(engine, config: TopologyProcessConfig, mixing,
         return engine
     device = engine.matrix.device
     if make_topology_process(config).state_dependent:
+        if engine.local_rows is not None:
+            raise ValueError(
+                "the adaptive topology needs the full similarity matrix "
+                f"per step, which the {engine.name} backend's agent slice "
+                "cannot compute; use the dense or cuda backend")
         engine.topology = AdaptiveTopology(adjacency_of(mixing), config.tau,
                                            device)
         return engine
     stream = realize_stream(config, mixing, config.resolve_seed(seed))
     engine.topology_stream = stream
-    engine.topology = StreamTopology(stream.matrices, device)
+    if engine.name == "ppermute":
+        engine.topology = PermuteStreamTopology(engine.schedule,
+                                                stream.matrices, device)
+    else:
+        engine.topology = StreamTopology(stream.matrices, device)
     return engine
 
 

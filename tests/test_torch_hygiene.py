@@ -37,7 +37,11 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
              if n in ("jax", "repro") or n.startswith(("jax.", "repro.")))
-print(len(names), bad, "repro_torch.solvers.sweep" in names)
+mesh = {"repro_torch.consensus.allgather", "repro_torch.consensus.ppermute",
+        "repro_torch.sharding.collectives", "repro_torch.launch.distributed",
+        "repro_torch.launch.launch_local"}
+print(len(names), bad, "repro_torch.solvers.sweep" in names,
+      mesh <= set(names))
 """
 
 
@@ -49,6 +53,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(out[0]) >= 57          # every module was imported
     assert out[1] == "[]", out
     assert out[2] == "True", out      # the sweeps among them
+    assert out[3] == "True", out      # the multi-process path too
 
 
 @pytest.fixture
@@ -103,6 +108,23 @@ def test_problem_builders_run_on_the_cpu_when_asked(entry):
     assert entry().device == torch.device("cpu")
 
 
+def test_initialize_defaults_to_the_card_and_raises_without_one(no_cuda):
+    from repro_torch.launch.distributed import (DistributedConfig,
+                                                initialize)
+    config = DistributedConfig()
+    assert (config.wire, config.device) == ("nccl", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize(config)
+
+
+def test_launcher_defaults_to_the_card_and_raises_without_one(no_cuda):
+    from repro_torch.launch import launch_local
+    args = launch_local.parse_args([])
+    assert (args.device, args.wire) == ("cuda", "nccl")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_local.main(["--processes", "1", "--agents", "2"])
+
+
 def test_serve_cli_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "rwkv6-3b", "--prompt-len", "4",
@@ -154,7 +176,7 @@ def test_registries():
     assert combine_rule_names() == ("coordinate-median", "krum-like",
                                     "trimmed-mean", "weighted")
     from repro_torch.consensus import BACKENDS, make_engine
-    assert sorted(BACKENDS) == ["cuda", "dense"]
+    assert sorted(BACKENDS) == ["allgather", "cuda", "dense", "ppermute"]
     with pytest.raises(ValueError, match="unknown consensus backend"):
         make_engine("pallas", np.eye(3), "cpu")
 

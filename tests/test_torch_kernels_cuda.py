@@ -29,8 +29,11 @@ above 0.999).  consensus_mix: float32 1e-5, bfloat16 3e-2, as in
 tests/test_torch_consensus_step.py, over the 16-byte and the element
 path (a row that is not a multiple of 16 bytes, or an x whose storage
 offset misaligns it), one and two passes of 16 rows, and a symmetric and
-a non-symmetric mixing matrix.  chip_smoke.py runs these and the serving
-shapes.
+a non-symmetric mixing matrix.  The row-block forms of both consensus
+kernels (one process's rows of the allgather backend) at the same
+tolerances, blocks at the start, middle and end of M, on both paths and
+dtypes; a block of all m rows is the square launch bit for bit.
+chip_smoke.py runs these and the serving shapes.
 
 Captured stepping: each algorithm's steps replayed from CUDA graphs
 (``run_recorded(scan=True)``, ``run_traced``) against the eager loop from
@@ -388,6 +391,72 @@ def test_consensus_mix_kernel_matches_plain_version(hopper, m, d, dtype,
         tol = MIX_TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+# row blocks of both consensus kernels (one process of the allgather
+# backend): (m, row0, rows) at the start, the middle and the end of M, a
+# single row, and 17 agents (two passes of 16 rows)
+ROW_CASES = [(5, 0, 1), (5, 2, 2), (5, 4, 1), (8, 0, 4), (8, 2, 4),
+             (8, 4, 4), (16, 0, 4), (16, 6, 4), (16, 12, 4), (17, 1, 16),
+             (17, 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["16-byte", "element"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,row0,rows", ROW_CASES)
+def test_row_block_consensus_kernels_match_plain_versions(hopper, m, row0,
+                                                          rows, dtype, path):
+    gen = torch.Generator(device=hopper).manual_seed(m * 131 + row0)
+    d, offset = 760, (0 if path == "16-byte" else 1)
+    M = torch.rand(m, m, generator=gen, device=hopper) + 0.05
+    M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+    tables, blocks = [], []
+    for n, out in ((m, tables), (m, tables), (rows, blocks), (rows, blocks)):
+        buf = torch.randn(n * d + offset, generator=gen, device=hopper)
+        out.append(buf.to(dtype)[offset:].view(n, d))
+    (x, u), (p, pp) = tables, blocks
+    before = (dict(mix_ops.LAUNCHES), dict(mix_ops.ROW_LAUNCHES))
+    got = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3, row0=row0)
+    mixed = mix_ops.consensus_mix_kernel(M, x, row0=row0, rows=rows)
+    torch.cuda.synchronize()
+    for name in ("consensus_step", "consensus_mix"):
+        assert mix_ops.LAUNCHES[name] == before[0][name] + 1
+        assert mix_ops.ROW_LAUNCHES[name] == before[1][name] + 1
+    want = mix_ref.consensus_step_rows_ref(M, x, u, p, pp, row0=row0,
+                                           alpha=0.3)
+    want += (mix_ref.consensus_mix_rows_ref(M, x, row0=row0, rows=rows),)
+    tol = MIX_TOL[dtype]
+    for g, w in zip(got + (mixed,), want):
+        assert g.dtype == dtype and g.shape == (rows, d)
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 16, 17])
+def test_full_row_block_is_the_square_launch_bitwise(hopper, m, dtype):
+    gen = torch.Generator(device=hopper).manual_seed(m)
+    M = torch.rand(m, m, generator=gen, device=hopper) + 0.05
+    M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+    x, u, p, pp = (torch.randn(m, 760, generator=gen, device=hopper)
+                   .to(dtype) for _ in range(4))
+    square = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3)
+    block = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3, row0=0)
+    assert all(torch.equal(a, b) for a, b in zip(square, block))
+    assert torch.equal(mix_ops.consensus_mix_kernel(M, x),
+                       mix_ops.consensus_mix_kernel(M, x, row0=0, rows=m))
+
+
+@pytest.mark.cuda
+def test_row_block_launches_refuse_bad_blocks(hopper):
+    M = torch.full((4, 4), 0.25, device=hopper)
+    x = torch.zeros(4, 32, device=hopper)
+    with pytest.raises(ValueError, match="not inside"):
+        mix_ops.consensus_mix_kernel(M, x, row0=3, rows=2)
+    with pytest.raises(ValueError, match=r"must be \(3, 32\)"):
+        mix_ops.consensus_step_kernel(M, x, x, x[:3], x[:2], alpha=0.1,
+                                      row0=1)
 
 
 # batched consensus kernels: (experiments, agents); 17 takes two passes
