@@ -29,13 +29,14 @@
    with and without an incoming state.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes.  The batched consensus kernels (a sweep group's form: B
-   experiments in one launch): B in {1, 3, 8}, m in {4, 5, 16}, one
+   experiments in one launch): B in ``BATCH_B`` (1, 3, 4, 8: the
+   Figure-2 groups' 4 among them), m in {4, 5, 16}, one
    matrix shared by the batch or one each, a distinct alpha each, both
    dtypes, rows aligned and one element into their storage (the 16-byte
    and the element path), against the batched plain versions, each call
    one launch on its wrapper's count; timed at the Figure-2 groups'
-   shape (8, 5, 760) float32, beside the ``baddbmm`` pair (``bmm`` for
-   the mix) and the plain version.  The row-block forms of both
+   shape ``SWEEP_SHAPE`` (4, 5, 760) float32, beside the ``baddbmm``
+   pair (``bmm`` for the mix) and the plain version.  The row-block forms of both
    consensus kernels (one process's rows of the ``allgather`` backend:
    the gathered (m, D) tables, the block's (rows, D) p, p_prev and
    outputs): one row of 5 at D = 760 and 4 rows of 16 at D = 4M, both
@@ -129,13 +130,14 @@
    finite); the guard's counters equal across captured, eager and
    ``dense``, with a finite final state.
 4e. The batched sweeps (``sweep``), on the same instance, nothing cut:
-   the Figure-2 grid (the four algorithms x 8 seeds on ``cuda``,
+   the Figure-2 grid (the four algorithms x 4 seeds on ``cuda``; 8
+   before phase 4h joined, cut for the script's time limit;
    ``benchmarks/bench_convergence.py``'s) with ``compare_sequential``:
    4 groups; every trace finite and falling and within ``TRACE_RTOL`` of
    the same config's sequential replay; then each group's 40 replays
    under ``torch.profiler`` (``counted_launches``): 40 ``consensus_step``
    kernel events (``consensus_mix`` for D-SGD), one launch a step for
-   all 8 experiments, the other kernel never, no wrapper count between
+   all 4 experiments, the other kernel never, no wrapper count between
    replays.  Prints each group's us per experiment-step batched and
    sequential, ``vmap_speedup``, seconds and captures, and M_40 mean and
    spread.  Then a seed x alpha grid (2 x {0.3, 0.1}): one group, each
@@ -168,7 +170,9 @@
    Figure-2 INTERACT group of 2 seeds swept with ``resume_dir`` twice,
    the second call loading the group, bit for bit.
 4g. Across processes (``repro_torch.launch.distributed``), on the same
-   instance, nothing cut: INTERACT, 40 steps, eq. 11 (300 inner steps)
+   instance, nothing cut but the run's length: INTERACT, 20 steps (40
+   before phase 4h joined, cut for the script's time limit), eq. 11 (300
+   inner steps)
    every 10 (rank 0's graph of the metric, ``eq11_metric``, as in the
    reference), through ``python -m repro_torch.launch.launch_local`` in
    three layouts (``DIST_LAYOUTS``): ``allgather`` on 5 processes of one
@@ -184,6 +188,28 @@
    the process): ``consensus_step`` once a step a rank on ``allgather``,
    none on ``ppermute``.  Prints each layout's eager ``us_per_step`` and
    ``round_latency_us`` beside its wire.
+4h. LM training (``repro_torch.train``): smollm-360m at its published
+   config (32 layers, d_model 960, 15 / 5 heads of 64, d_ff 2560, vocab
+   49152, bfloat16, random weights from a seed), 4 agents, one process
+   each (``LM_AGENTS``; this script's ``--lm-worker`` mode), all on the
+   one card over gloo staged through host memory, the ring topology with
+   self-weight 1/3 and the JAX driver's settings (alpha 0.02, beta 0.5,
+   mu_g 0.1, K = 3, L_g = 2.0, 4 x 256 tokens an agent from
+   ``TokenTaskStream``, ``ce_chunk`` 256, ``remat`` on).  First the
+   reduced float32 config of tests/test_torch_train.py, 2 INTERACT steps
+   on the card and on the CPU in the same group: x and u within
+   ``LM_CARD_CPU_TOL`` of each leaf's scale.  Then (a) INTERACT,
+   ``LM_INTERACT_STEPS`` steps (the first a warm-up): s/step, tokens/s
+   an agent, ``outer_ce`` and ``grad_norm`` finite and equal on every
+   rank, no kernel launched (the gradient path runs plain attention),
+   each process's peak device memory; (c) ``make_eval_step`` at the
+   trained state with ``attn_impl="reference"`` and twice with
+   ``"cuda"``: each ``cuda`` call launches the bf16 flash kernel exactly
+   once a layer (32; counts set to 0 just before each call), its outer
+   CE within ``LM_EVAL_RTOL`` of the reference's; (b) SVR-INTERACT,
+   ``LM_SVR_STEPS`` steps with q = ``LM_SVR_Q`` (recursive, refresh,
+   recursive), finite and equal on every rank.  Prints the phase's
+   seconds.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -201,8 +227,9 @@
    runs of 16 decode steps, each time reported as the median and the
    three runs.
 6. Prints a ``{"kernels": [...]}`` line (with the registers and spills
-   nvcc reports for each instantiation of the redesigned kernels, and the
-   row-block forms with phase 4g's launches), the
+   nvcc reports for each instantiation of the redesigned kernels, the
+   row-block forms with phase 4g's launches and the bf16 flash kernel
+   with phase 4h's), the
    card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
@@ -341,18 +368,18 @@ BYZANTINE_ROWS = {
 WEIGHTED_DIVERGE_FACTOR = 10.0
 TRIMMED_GATE_FACTOR = 3.0
 
-# The batched consensus kernels' cases (experiments, agents; rows of 760
-# values take the 16-byte path aligned and the element path one element
-# into their storage) and the Figure-2 groups' shape: 8 seeds x 5 agents
-# x 760 backbone parameters.
-BATCH_B = (1, 3, 8)
-BATCH_M = (4, 5, 16)
-BATCH_D = 760
-SWEEP_SHAPE = (8, 5, 760)
 # The sweep phase (4e): seeds of the Figure-2 grid, the step-size grid's
 # seeds and alphas, and the padded grid's network sizes, topologies and
 # seeds
-SWEEP_SEEDS = 8
+SWEEP_SEEDS = 4       # was 8: cut for the script's time limit
+# The batched consensus kernels' cases (experiments, agents; rows of 760
+# values take the 16-byte path aligned and the element path one element
+# into their storage), the Figure-2 groups' B among them, and those
+# groups' shape of SWEEP_SEEDS seeds x 5 agents x 760 backbone parameters.
+BATCH_B = tuple(sorted({1, 3, 8, SWEEP_SEEDS}))
+BATCH_M = (4, 5, 16)
+BATCH_D = 760
+SWEEP_SHAPE = (SWEEP_SEEDS, 5, BATCH_D)
 ALPHA_GRID = dict(seed=range(2), alpha=(0.3, 0.1))
 PADDED_GRID = dict(num_agents=(4, 8), topology=("ring", "erdos-renyi"),
                    seed=range(3))
@@ -386,13 +413,36 @@ CHAOS_WANT = dict(completed=True, restarts=3, kills=2, nonfinite_faults=1,
 CHAOS_COUNTERS = tuple(CHAOS_WANT)
 
 # The distributed phase (4g): the Section-6 instance at full width through
-# ``python -m repro_torch.launch.launch_local``, INTERACT, 40 steps, eq. 11
+# ``python -m repro_torch.launch.launch_local``, INTERACT, DIST_STEPS steps
+# (was 40: cut for the script's time limit), eq. 11
 # (300 inner steps, phase 4b's) every 10, each layout (backend, processes,
 # wire) against the single-process cuda eager run
 DIST_LAYOUTS = (("allgather", 5, "gloo"), ("ppermute", 5, "gloo"),
                 ("allgather", 1, "nccl"))
-DIST_RECORD_EVERY, DIST_INNER_STEPS = 10, 300
+DIST_STEPS, DIST_RECORD_EVERY, DIST_INNER_STEPS = 20, 10, 300
 DIST_TIMEOUT = 300
+# The LM training phase (4h): smollm-360m at its published config, one
+# agent a process on the one card over gloo staged through host memory,
+# the JAX training driver's settings (src/repro/launch/train.py)
+LM_ARCH, LM_AGENTS = "smollm-360m", 4
+LM_BATCH, LM_SEQ = 4, 256
+LM_INTERACT_STEPS, LM_SVR_STEPS, LM_SVR_Q = 4, 3, 2
+LM_HYPER = dict(mu_g=0.1, neumann_k=3, lipschitz_g=2.0, ce_chunk=256,
+                remat=True)
+LM_ALPHA, LM_BETA = 0.02, 0.5
+LM_TIMEOUT = 600
+# the card against the CPU at tests/test_torch_train.py's reduced float32
+# settings, 2 INTERACT steps: cuBLAS against the CPU's BLAS, float32
+# rounding (the port's gaps to the JAX package there are about 3e-6)
+LM_REDUCED = dict(vocab_size=128, num_layers=2, dtype="float32")
+LM_REDUCED_HYPER = dict(mu_g=0.5, neumann_k=2, lipschitz_g=4.0, ce_chunk=16,
+                        remat=False)
+LM_CARD_CPU_TOL = 1e-5
+# the eval step's outer CE with the bf16 flash kernel against plain
+# attention in bfloat16, relative: about 11 times the largest gap measured
+# on an H100 (8.7e-6); the random head keeps the CE near ln(vocab), so a
+# looser bound would pass a wrong attention output
+LM_EVAL_RTOL = 1e-4
 # the row-block kernels' shapes, (rows, m, D) and the block's first row:
 # one agent of the main path's 5, and 4 rows of the large shape's 16
 ROW_SHAPES = {"main": (1, 5, 760, 2), "large": (4, 16, 4194304, 6)}
@@ -433,6 +483,9 @@ FLASH_CASES = (
     + [c + ("bfloat16",) for c in FLASH_SHAPES]
     + [(1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),
        (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
+       # smollm-360m's eval step (phase 4h): 15 q and 5 kv heads of 64
+       (4, 256, 256, 15, 5, 64, True, None, None, 0, "bfloat16"),
+       (4, 256, 256, 15, 5, 64, True, None, None, 0, "float32"),
        (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, "float32"),
        (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, "float32")])
 # Checked and timed: both dtypes at gemma2's global and local shapes.
@@ -2161,7 +2214,7 @@ def run_sweep(torch, ops) -> dict:
     setup = dict(problem=problem, x0=x0, y0=y0, data=data)
     t_phase = time.perf_counter()
 
-    # -- the Figure-2 grid: 4 algorithms x 8 seeds, 4 groups
+    # -- the Figure-2 grid: 4 algorithms x SWEEP_SEEDS seeds, 4 groups
     t0 = time.perf_counter()
     grid = expand_grid(SolverConfig(backend="cuda"), algo=ALGORITHMS,
                        seed=range(SWEEP_SEEDS))
@@ -2590,14 +2643,14 @@ def run_distributed(torch) -> dict:
     contiguous = lambda t: tree.tree_map(lambda l: l.contiguous(), t)
     eq11 = eq11_metric(problem, solver._hg_cfg, data, DIST_INNER_STEPS, 0.5)
     metric = lambda st: eq11(contiguous(st.x), contiguous(st.y))
-    state, ref_trace, took = run_recorded(solver, state0, data, NUM_STEPS,
+    state, ref_trace, took = run_recorded(solver, state0, data, DIST_STEPS,
                                           DIST_RECORD_EVERY, metric,
                                           scan=False)
     digest = hashlib.sha256()
     for leaf in tree.tree_leaves(state.x):
         digest.update(leaf.contiguous().cpu().numpy().tobytes())
     ref = dict(trace=ref_trace, digest=digest.hexdigest(),
-               us_per_step=1e6 * took / NUM_STEPS,
+               us_per_step=1e6 * took / DIST_STEPS,
                seconds=time.perf_counter() - t0)
     print(f"distributed reference (single process, cuda, eager): "
           f"{json.dumps(ref)}", flush=True)
@@ -2610,7 +2663,7 @@ def run_distributed(torch) -> dict:
         cmd = [sys.executable, "-m", "repro_torch.launch.launch_local",
                "--device", "cuda", "--wire", wire, "--processes", str(procs),
                "--agents", "5", "--backend", backend, "--steps",
-               str(NUM_STEPS), "--record-every", str(DIST_RECORD_EVERY),
+               str(DIST_STEPS), "--record-every", str(DIST_RECORD_EVERY),
                "--n-per-agent", "600", "--d-in", "16", "--hidden", "20",
                "--classes", "5", "--alpha", str(ALPHA), "--beta", str(ALPHA),
                "--metric-inner-steps", str(DIST_INNER_STEPS),
@@ -2655,7 +2708,7 @@ def run_distributed(torch) -> dict:
               f"bytes, priced {res[price]}")
         steps_rows = {n["consensus_step"] for n in rec[
             "row_launches_per_rank"]}
-        want = NUM_STEPS if backend == "allgather" else 0
+        want = DIST_STEPS if backend == "allgather" else 0
         check(steps_rows == {want} and all(
             n["consensus_step"] == n["consensus_step_rows"]
             and n["consensus_mix"] == n["consensus_mix_rows"]
@@ -2679,6 +2732,276 @@ def run_distributed(torch) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     return dict(reference=ref, layouts=layouts, rounds_per_mix=rounds,
                 seconds=took)
+
+
+def _rel_leaf_gap(torch, got, want) -> float:
+    """Largest gap over the leaves of two like trees, relative to each
+    leaf of ``want``'s max-abs scale."""
+    tree = torch.utils._pytree
+    return max(float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(tree.tree_leaves(got), tree.tree_leaves(want),
+                               strict=True))
+
+
+def lm_worker(argv) -> int:
+    """One agent of phase 4h: ``chip_smoke.py --lm-worker`` with the
+    worker arguments ``launch_local.launch_workers`` gives (``--out
+    DIR/result.json --worker --process-id RANK --coordinator HOST:PORT
+    --go FILE``).
+
+    Joins the gloo group of ``LM_AGENTS`` processes on the card, runs the
+    phase's checks on its agent (the module docstring, 4h) and writes its
+    record to ``DIR/rank<RANK>.json``; the parent gates on them."""
+    import argparse
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenTaskStream
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.launch_local import _await_go
+    from repro_torch.sharding.collectives import AgentMesh
+    from repro_torch.train.bilevel_lm import BilevelHyper, local_grads
+    from repro_torch.train.step import (InteractConfig, _split, _squeeze,
+                                        init_train_state, make_eval_step,
+                                        make_train_step)
+    from repro_torch.train.svr_step import (init_svr_train_state,
+                                            make_svr_train_step)
+    ap = argparse.ArgumentParser()
+    for flag in ("--out", "--coordinator", "--go"):
+        ap.add_argument(flag, required=True)
+    ap.add_argument("--process-id", type=int, required=True)
+    ap.add_argument("--worker", action="store_true")
+    args = ap.parse_args(argv)
+    rank, out_dir = args.process_id, Path(args.out).parent
+    _await_go(args.go, LM_TIMEOUT)
+    # the processes share the host's cores (the CPU run, the staging)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // LM_AGENTS))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree = torch.utils._pytree
+    t_phase = time.perf_counter()
+    D.initialize(D.DistributedConfig(
+        coordinator=args.coordinator, num_processes=LM_AGENTS,
+        process_id=rank, wire="gloo", device="cuda", timeout_s=LM_TIMEOUT))
+    mesh = D.agent_mesh(LM_AGENTS)
+    dev = mesh.device
+    rec = dict(rank=rank, wire=mesh.wire, device=str(dev))
+    sync = lambda: torch.cuda.synchronize(dev)
+
+    def zero_counts():
+        for name in fa_ops.LAUNCHES:
+            fa_ops.LAUNCHES[name] = 0
+
+    # -- the reduced float32 config on the card and on the CPU -------------
+    t0 = time.perf_counter()
+    rcfg = get_config(LM_ARCH).reduced(**LM_REDUCED)
+    ricfg = InteractConfig(alpha=0.05, beta=0.3,
+                           hyper=BilevelHyper(**LM_REDUCED_HYPER))
+    rtokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, rcfg.vocab_size, (LM_AGENTS, 4, 32)))
+    host0 = init_train_state(rcfg, 0, device="cpu")
+    finals = {}
+    for where in ("cuda", "cpu"):
+        on = (mesh if where == "cuda" else
+              AgentMesh(LM_AGENTS, mesh.world_size, mesh.rank,
+                        torch.device("cpu"), "gloo"))
+        state = tree.tree_map(lambda l: l.to(on.device) if isinstance(
+            l, torch.Tensor) else l, host0)
+        step = make_train_step(rcfg, on, ricfg)
+        for _ in range(2):
+            state, _ = step(state, rtokens)
+        finals[where] = tree.tree_map(lambda l: l.cpu(), (state.x, state.u))
+    rec["card_vs_cpu"] = dict(
+        x_gap=_rel_leaf_gap(torch, finals["cuda"][0], finals["cpu"][0]),
+        u_gap=_rel_leaf_gap(torch, finals["cuda"][1], finals["cpu"][1]),
+        seconds=time.perf_counter() - t0)
+
+    # -- (a) INTERACT at the published width -------------------------------
+    cfg = get_config(LM_ARCH)
+    icfg = InteractConfig(alpha=LM_ALPHA, beta=LM_BETA,
+                          hyper=BilevelHyper(**LM_HYPER))
+    stream = TokenTaskStream(cfg.vocab_size, LM_AGENTS, seed=7)
+    batch = lambda t: stream.agent_batch(rank, t, LM_BATCH, LM_SEQ,
+                                         device=dev)[None]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, device=dev)
+    step = make_train_step(cfg, mesh, icfg)
+    sync()
+    init_s = time.perf_counter() - t0
+    zero_counts()
+    steps = []
+    for t in range(LM_INTERACT_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch(t))
+        row = {k: float(v) for k, v in metrics.items()}
+        sync()
+        steps.append(dict(row, seconds=time.perf_counter() - t0))
+    rec["interact"] = dict(
+        steps=steps, init_seconds=init_s, launches=dict(fa_ops.LAUNCHES),
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        params=sum(l.numel() for l in tree.tree_leaves(state.x)),
+        head=state.y[0].numel())
+
+    # where a step's time goes: its local gradients alone, and its two
+    # consensus mixes (x and u) alone, each once at the trained state
+    inner, outer = _split(batch(0)[0])
+    sync()
+    t0 = time.perf_counter()
+    local_grads(cfg, icfg.hyper, _squeeze(state.x), state.y[0], inner, outer)
+    sync()
+    t_grads = time.perf_counter() - t0
+    engine = icfg.consensus_engine(LM_AGENTS, mesh)
+    t0 = time.perf_counter()
+    engine.mix(state.x)
+    engine.mix(state.u)
+    sync()
+    rec["breakdown"] = dict(local_grads_seconds=t_grads,
+                            mixes_seconds=time.perf_counter() - t0,
+                            rounds_per_mix=engine.rounds_per_mix,
+                            leaves=len(tree.tree_leaves(state.x)))
+
+    # -- (c) the eval step, plain attention and the flash kernel ----------
+    evals = []
+    for impl in ("reference", "cuda", "cuda"):
+        ev = make_eval_step(cfg, mesh, dataclasses.replace(
+            icfg, hyper=BilevelHyper(**LM_HYPER, attn_impl=impl)))
+        zero_counts()
+        t0 = time.perf_counter()
+        ce = float(ev(state, batch(LM_INTERACT_STEPS)))
+        sync()
+        evals.append(dict(impl=impl, outer_ce=ce,
+                          seconds=time.perf_counter() - t0,
+                          launches=dict(fa_ops.LAUNCHES)))
+    rec["eval"] = evals
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) SVR-INTERACT: recursive, refresh, recursive --------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_svr_train_state(cfg, 0, device=dev)
+    step = make_svr_train_step(cfg, mesh, icfg, q=LM_SVR_Q)
+    zero_counts()
+    steps = []
+    for t in range(LM_SVR_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch(t))
+        row = {k: float(v) for k, v in metrics.items()}
+        sync()
+        steps.append(dict(row, seconds=time.perf_counter() - t0))
+    finite = all(bool(torch.isfinite(l).all())
+                 for l in tree.tree_leaves((state.x, state.y, state.u)))
+    rec["svr"] = dict(steps=steps, state_finite=finite,
+                      launches=dict(fa_ops.LAUNCHES),
+                      peak_bytes=torch.cuda.max_memory_allocated(dev))
+    rec["seconds"] = time.perf_counter() - t_phase
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    D.shutdown()
+    return 0
+
+
+def run_lm_training(torch) -> dict:
+    """Phase 4h (see the module docstring): ``LM_AGENTS`` worker processes
+    of this script on the card, started through the localhost launcher's
+    ``launch_workers`` (their errors go to this script's), gated here on
+    their records."""
+    import shutil
+
+    from repro_torch.launch.launch_local import launch_workers
+
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "lm_training"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    failed = launch_workers(str(ROOT / "chip_smoke.py"), ["--lm-worker"],
+                            LM_AGENTS, str(root / "result.json"), LM_TIMEOUT)
+    check(not failed, f"lm training: failed workers (rank, exit code) "
+          f"{failed}; their errors are above")
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(LM_AGENTS)]
+
+    for rec in ranks:
+        gap = max(rec["card_vs_cpu"]["x_gap"], rec["card_vs_cpu"]["u_gap"])
+        check(gap <= LM_CARD_CPU_TOL, f"lm training rank {rec['rank']}: the "
+              f"card is {gap:.3e} from the CPU (x and u, reduced config), "
+              f"beyond {LM_CARD_CPU_TOL}")
+    for name in ("interact", "svr"):
+        rows = [[{k: v for k, v in s.items() if k != "seconds"}
+                 for s in rec[name]["steps"]] for rec in ranks]
+        check(all(r == rows[0] for r in rows), f"lm training {name}: the "
+              f"ranks' metrics differ: {rows}")
+        check(all(math.isfinite(v) for s in rows[0] for v in s.values()),
+              f"lm training {name}: non-finite metrics {rows[0]}")
+        check(all(sum(rec[name]["launches"].values()) == 0 for rec in ranks),
+              f"lm training {name}: the gradient path launched a kernel: "
+              f"{[rec[name]['launches'] for rec in ranks]}")
+    check(all(rec["svr"]["state_finite"] for rec in ranks),
+          "lm training svr: non-finite state")
+    check([s["refresh"] for s in ranks[0]["svr"]["steps"]]
+          == [float((t + 1) % LM_SVR_Q == 0) for t in range(LM_SVR_STEPS)],
+          f"lm training svr: refresh flags {ranks[0]['svr']['steps']}")
+    from repro_torch.configs import get_config
+    layers = get_config(LM_ARCH).num_layers
+    for rec in ranks:
+        ref, *kernel = rec["eval"]
+        check(sum(ref["launches"].values()) == 0, f"lm eval reference "
+              f"launched {ref['launches']}")
+        for call in kernel:
+            want = dict(flash_attention=layers, flash_attention_tc=layers,
+                        flash_attention_f32_split=0, flash_attention_f32=0)
+            check(call["launches"] == want, f"lm eval rank {rec['rank']}: "
+                  f"the cuda call launched {call['launches']}, not {want}")
+            rel = abs(call["outer_ce"] - ref["outer_ce"]) / abs(
+                ref["outer_ce"])
+            check(rel <= LM_EVAL_RTOL, f"lm eval rank {rec['rank']}: outer "
+                  f"CE {call['outer_ce']} with the flash kernel, "
+                  f"{ref['outer_ce']} plain ({rel:.3e} > {LM_EVAL_RTOL})")
+    check(len({json.dumps([e["outer_ce"] for e in rec["eval"]])
+               for rec in ranks}) == 1, "lm eval: the ranks' CE differ")
+
+    timed = [s["seconds"] for s in ranks[0]["interact"]["steps"][1:]]
+    s_per_step = max(statistics.median(
+        [s["seconds"] for s in rec["interact"]["steps"][1:]])
+        for rec in ranks)
+    ev = ranks[0]["eval"]
+    summary = dict(
+        arch=LM_ARCH, agents=LM_AGENTS, wire=ranks[0]["wire"],
+        tokens_per_agent_step=LM_BATCH * LM_SEQ,
+        params=ranks[0]["interact"]["params"],
+        head=ranks[0]["interact"]["head"],
+        interact_steps=ranks[0]["interact"]["steps"],
+        interact_s_per_step=s_per_step,
+        interact_step_seconds_rank0=timed,
+        tokens_per_s_per_agent=LM_BATCH * LM_SEQ / s_per_step,
+        svr_steps=ranks[0]["svr"]["steps"],
+        svr_step_seconds=[[s["seconds"] for s in rec["svr"]["steps"]]
+                          for rec in ranks],
+        eval={e["impl"] + str(i): dict(outer_ce=e["outer_ce"],
+                                       seconds=e["seconds"],
+                                       launches=e["launches"])
+              for i, e in enumerate(ev)},
+        eval_rel_gap=max(abs(e["outer_ce"] - ev[0]["outer_ce"])
+                         / abs(ev[0]["outer_ce"]) for e in ev[1:]),
+        eval_flash_launches=sum(e["launches"]["flash_attention_tc"]
+                                for rec in ranks for e in rec["eval"]),
+        card_vs_cpu=[rec["card_vs_cpu"] for rec in ranks],
+        breakdown=[rec["breakdown"] for rec in ranks],
+        init_seconds=[rec["interact"]["init_seconds"] for rec in ranks],
+        peak_gb=[dict(interact=rec["interact"]["peak_bytes"] / 2**30,
+                      svr=rec["svr"]["peak_bytes"] / 2**30)
+                 for rec in ranks],
+        worker_seconds=[rec["seconds"] for rec in ranks],
+        seconds=time.perf_counter() - t_phase)
+    print(f"lm training: {json.dumps(summary)}", flush=True)
+    print(f"lm training phase: {summary['seconds']:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return summary
 
 
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
@@ -2868,6 +3191,10 @@ def main() -> int:
     # with its result
     distributed = run_distributed(torch)
 
+    # -- LM training: every worker's counts set to 0 just before each run,
+    # read just after
+    lm = run_lm_training(torch)
+
     # -- the serving path: counts to 0 just before each model's run --------
     serving = {(arch, dtype): serve_model(torch, arch, dtype)
                for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
@@ -2944,7 +3271,7 @@ def main() -> int:
                          for n in rec["row_launches_per_rank"]),
             launches_from=(
                 "phase 4g: the row-block launches of every rank of the "
-                "three layouts' run_section6 (40 steps; allgather "
+                f"three layouts' run_section6 ({DIST_STEPS} steps; allgather "
                 "consensus_step once a step a rank, consensus_mix in the 6 "
                 "round-latency mixes; ppermute none)"),
             launches_per_layout={
@@ -2999,6 +3326,11 @@ def main() -> int:
         replaces=FLASH_REPLACES, dtype="bfloat16",
         launches=serving[("gemma2-2b", "bfloat16")]["launches"][
             "flash_attention_tc"],
+        launches_lm_eval=lm["eval_flash_launches"],
+        launches_lm_eval_from=(
+            f"phase 4h: make_eval_step(attn_impl='cuda') on smollm-360m, "
+            f"2 calls on each of {LM_AGENTS} agents' processes, one launch "
+            "a layer each"),
         max_abs_err=flash["err"]["bfloat16"],
         max_row_rel_err=flash["err"]["bfloat16_row"],
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
@@ -3025,4 +3357,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lm-worker"]:
+        sys.exit(lm_worker(sys.argv[2:]))
     sys.exit(main())

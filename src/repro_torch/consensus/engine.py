@@ -333,7 +333,7 @@ class ConsensusEngine:
         return self.compressor.bytes_on_wire(size)
 
     def step1_step3(self, x, u, p, p_prev, alpha, *, t=None, ef=None,
-                    matrix=None):
+                    matrix=None, dp_key=None):
         """Fused eq. (6) + eq. (10); ``alpha`` a float or a 0-dim tensor.
 
         Returns ``(x_new, u_new)`` on the full-precision path (``ef is
@@ -344,22 +344,25 @@ class ConsensusEngine:
 
         Math runs in float32 and is cast back to the leaf dtype.  The
         tracking term is grouped as ``mix(u) + (p - p_prev)``, so calling
-        with ``p is p_prev`` yields ``mix(u)`` exactly.
+        with ``p is p_prev`` yields ``mix(u)`` exactly.  ``dp_key`` (the
+        backends whose ``mix`` takes one: ``ppermute``) keys the local-DP
+        noise of the x-mix only; the tracker mixes clean.
         """
+        dp = {} if dp_key is None else {"dp_key": dp_key}
         wire = ef is not None or self.wire_active
         if matrix is None and not self._skips(t):
             matrix = self.topology_matrix(t, x)
         if wire:
             x_mixed, ef_x = self.mix_ef(
                 x, None if ef is None else ef.get("x"), t, matrix=matrix,
-                stream="x")
+                stream="x", **dp)
             u_mixed, ef_u = self.mix_ef(
                 u, None if ef is None else ef.get("u"), t, matrix=matrix,
                 stream="u")
         else:
             self._ledger_note("x", x)
             self._ledger_note("u", u)
-            x_mixed = self.mix(x, matrix=matrix)
+            x_mixed = self.mix(x, matrix=matrix, **dp)
             u_mixed = self.mix(u, matrix=matrix)
         x_new = pytree.tree_map(
             lambda mx, uu: (_f32(mx) - alpha * _f32(uu)).to(mx.dtype),
@@ -447,7 +450,7 @@ def as_matrix(mixing, device: torch.device | str) -> torch.Tensor:
 
 def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
                                 alpha, beta, grads_fn: Callable, *, t=None,
-                                ef=None):
+                                ef=None, dp_key=None):
     """One INTERACT iteration skeleton.
 
       Step 1: x_new = mix(x) - alpha u ;  y_new = y - beta v
@@ -459,14 +462,17 @@ def consensus_descent_and_track(engine: ConsensusEngine, x, y, u, v, p_prev,
     ``(x_new, mix(u))``), so the ``cuda`` backend runs them in a single
     kernel launch on the full-precision path; the tracking correction is
     applied once the new local gradients exist.  ``t`` (the step index)
-    and ``ef`` (the wire state, or ``None``) drive the engine's wire path.
+    and ``ef`` (the wire state, or ``None``) drive the engine's wire path;
+    ``dp_key`` keys the local-DP noise of the x-mix (``ppermute``).
     Returns ``(x_new, y_new, u_new, v_new, p_new, ef_new, aux)``.
     """
+    dp = {} if dp_key is None else {"dp_key": dp_key}
     if ef is not None or engine.wire_active:
         x_new, u_mixed, ef_new = engine.step1_step3(
-            x, u, p_prev, p_prev, alpha, t=t, ef=ef)
+            x, u, p_prev, p_prev, alpha, t=t, ef=ef, **dp)
     else:
-        x_new, u_mixed = engine.step1_step3(x, u, p_prev, p_prev, alpha, t=t)
+        x_new, u_mixed = engine.step1_step3(x, u, p_prev, p_prev, alpha, t=t,
+                                            **dp)
         ef_new = ef
     y_new = pytree.tree_map(
         lambda yy, vv: (_f32(yy) - beta * _f32(vv)).to(yy.dtype), y, v)

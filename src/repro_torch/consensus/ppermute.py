@@ -99,7 +99,9 @@ class PermuteEngine(MeshBackendMixin, ConsensusEngine):
         return self.compressor
 
     def _ledger_note(self, stream: str, tree) -> None:
-        """Per-link wire template: one payload a leaf a permute round.
+        """Per-link wire template: one payload a leaf a permute round (the
+        JAX package's collectives; the plain rounds here ship buckets of
+        leaves, the same bytes in fewer collectives).
 
         The unicast model ``bytes_on_wire`` prices here, ``rounds_per_mix``
         rounds each shipping every leaf on its own, which exceeds the

@@ -16,7 +16,7 @@ from repro_torch.core.bilevel import AgentData
 from repro_torch.core.interact import InteractState
 
 __all__ = ["agent_data_from_numpy", "lm_params_from_numpy",
-           "state_from_numpy", "tree_from_numpy"]
+           "state_from_numpy", "train_state_from_numpy", "tree_from_numpy"]
 
 
 def tree_from_numpy(tree, device: torch.device | str):
@@ -76,3 +76,33 @@ def lm_params_from_numpy(tree, cfg, device: torch.device | str) -> dict:
               for key, value in tree.items() if key != "layers"}
     params["layers"] = layers
     return params
+
+
+def train_state_from_numpy(state, cfg, device: torch.device | str,
+                           agent: int):
+    """Agent ``agent``'s row of the JAX package's ``TrainState`` or
+    ``SvrTrainState`` (numpy leaves, a leading agent axis, stacked layers)
+    as the port's state of the same name, every leaf with a leading
+    agent dim of 1 (one agent a process).
+
+    The backbone fields (x, u, p_prev, x_prev) go through
+    ``lm_params_from_numpy``; the heads (y, v, y_prev) carry over; ``t``
+    becomes an int.
+    """
+    from repro_torch.train.step import TrainState
+    from repro_torch.train.svr_step import SvrTrainState
+    kind = SvrTrainState if "x_prev" in state._fields else TrainState
+    fields = {}
+    for name in kind._fields:
+        value = getattr(state, name)
+        if name == "t":
+            fields[name] = int(np.asarray(value))
+            continue
+        if isinstance(value, dict):
+            row = lm_params_from_numpy(
+                pytree.tree_map(lambda a: np.asarray(a)[agent], value),
+                cfg, device)
+        else:
+            row = torch.tensor(np.asarray(value)[agent], device=device)
+        fields[name] = pytree.tree_map(lambda l: l[None], row)
+    return kind(**fields)

@@ -1,8 +1,7 @@
 """Hypergradient engines: one ``hypergradient(...)`` surface.
 
-Counterpart of ``repro.hypergrad``; backends ``cg``, ``neumann`` and
-``cholesky``.  The JAX package's linearize-once backends
-(``cg-linearized``, ``neumann-linearized``) are not ported yet.
+Counterpart of ``repro.hypergrad``; backends ``cg``, ``cg-linearized``,
+``neumann``, ``neumann-linearized`` and ``cholesky``.
 """
 from repro_torch.hypergrad.config import HypergradConfig
 from repro_torch.hypergrad.engine import (
@@ -13,6 +12,8 @@ from repro_torch.hypergrad.engine import (
     hvp_yy,
     hypergradient,
     hypergradient_with_stats,
+    linearize,
+    linearize_grad_y,
     measure_counts,
     measure_problem_counts,
     register_backend,
@@ -37,6 +38,8 @@ __all__ = [
     "hvp_yy",
     "hypergradient",
     "hypergradient_with_stats",
+    "linearize",
+    "linearize_grad_y",
     "measure_counts",
     "measure_problem_counts",
     "neumann_stochastic_apply",

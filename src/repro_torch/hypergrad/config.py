@@ -17,7 +17,8 @@ class HypergradConfig:
 
     Attributes:
       method: legacy selector ("cg" or "neumann"); ``backend`` wins when set.
-      cg_iters: fixed trip count of the ``cg`` backend.
+      cg_iters: trip count of the CG backends (``cg-linearized`` freezes
+        its iterate once the tolerance passes and counts the trips before).
       cg_tol: residual below which the CG iterate freezes.
       neumann_k: K, the truncation order of eq. (22).
       lipschitz_g: L_g, the scale of the Neumann series ((I - H/L_g) must
@@ -25,9 +26,9 @@ class HypergradConfig:
       stochastic_k: draw k ~ U{0..K-1} and apply the unbiased single
         product (K/L_g)(I - H/L_g)^k of eq. (22) instead of the truncated
         sum; the caller hands the drawn k over (``draw``).
-      backend: ``HypergradEngine`` registry name ("cg", "neumann",
-        "cholesky"); ``None`` derives it from ``method``.  Validated by
-        ``resolve_backend()``.
+      backend: ``HypergradEngine`` registry name ("cg", "cg-linearized",
+        "neumann", "neumann-linearized", "cholesky"); ``None`` derives it
+        from ``method``.  Validated by ``resolve_backend()``.
       cg_rel_tol: compare ``sqrt(rs)`` against ``cg_tol * ||b||`` instead of
         the absolute ``cg_tol``.
       cholesky_jitter: diagonal added to H_yy before it is factored.

@@ -14,7 +14,9 @@ H_xy cross term and the subtraction.  Gradients and HVPs are
 host, so it can be captured in a CUDA graph.
 
 Backends: ``cg`` (fixed-trip CG), ``neumann`` (eq. 22, truncated or
-with a drawn k) and ``cholesky`` (H_yy materialised and factored).
+with a drawn k), ``cholesky`` (H_yy materialised and factored), and the
+linearize-once ``cg-linearized`` and ``neumann-linearized``
+(``linearize_grad_y``).
 
 The reference draws the stochastic Neumann k from a ``jax.random`` key;
 the port takes the drawn k itself (``draw``, an int tensor), which the
@@ -23,6 +25,7 @@ from the reference.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
@@ -40,6 +43,8 @@ __all__ = [
     "hvp_yy",
     "hypergradient",
     "hypergradient_with_stats",
+    "linearize",
+    "linearize_grad_y",
     "measure_counts",
     "measure_problem_counts",
     "register_backend",
@@ -58,6 +63,32 @@ def hvp_xy(g: Callable, x, y, v, *args):
         return flat_dot(grad(g, argnums=1)(xx, y, *args), v)
 
     return grad(inner)(x)
+
+
+def linearize(fn: Callable, primal):
+    """``torch.func.linearize(fn, primal)``: ``(fn(primal), tangent_map)``,
+    the forward-over-reverse trace taken once at ``primal`` with
+    everything the tangent does not touch folded into constants."""
+    with warnings.catch_warnings():
+        # the constant folder notes each folded attribute it inserts
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.func.linearize(fn, primal)
+
+
+def linearize_grad_y(g: Callable, x, y, g_args: tuple = ()):
+    """``v -> H_yy(g)(x, y) @ v`` with ``grad_y g(x, .)`` linearized once.
+
+    ``torch.func.linearize`` traces the forward-over-reverse product once
+    at y and folds everything the tangent does not touch into constants,
+    so each application runs only the tangent half (the reference's
+    ``jax.linearize``).  Its dual tensors have no batching rule, so under
+    a functorch transform (``vmap`` over agents or a sweep group's
+    experiments) the map is ``hvp_yy``: a fresh ``torch.func.jvp`` of the
+    y-gradient each application, the same value.
+    """
+    if torch._C._functorch.maybe_current_level() is not None:
+        return lambda v: hvp_yy(g, x, y, v, *g_args)
+    return linearize(lambda yy: grad(g, argnums=1)(x, yy, *g_args), y)[1]
 
 
 class HypergradEngine:

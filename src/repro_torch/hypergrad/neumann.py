@@ -1,6 +1,6 @@
-"""The ``neumann`` hypergradient backend: the paper's eq. (22) estimator.
+"""The Neumann backends: the paper's eq. (22) estimator.
 
-Counterpart of the ``neumann`` backend of ``repro.hypergrad.neumann``.
+Counterpart of ``repro.hypergrad.neumann``.
 
     truncated:   (1/L) sum_{j=0}^{K-1} (I - H/L)^j b          K HVPs
     stochastic:  (K/L) (I - H/L)^k b,  k ~ U{0..K-1}          k HVPs
@@ -13,6 +13,15 @@ the same k the value is the reference's, the count reports k, and the
 loop has a fixed length, so a CUDA graph can hold it.  The drawn k
 (``draw``) comes from the caller: the port's sampler, or the reference's
 own draw in the parity tests.
+
+Backends registered here:
+
+* ``neumann``: the HVP rebuilt per term, the reference's executed-op
+  order (the K-th HVP included, its output discarded).
+* ``neumann-linearized``: ``grad_y g(x, .)`` linearized once
+  (``linearize_grad_y``), the product chain replaying the stored tangent
+  map in the flat raveled space, and the truncated sum skipping the
+  discarded K-th HVP (K - 1 HVPs, the same value).
 """
 from __future__ import annotations
 
@@ -23,21 +32,23 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.hypergrad.config import HypergradConfig
 from repro_torch.hypergrad.engine import (HypergradEngine, hvp_yy,
-                                          register_backend)
+                                          linearize_grad_y, register_backend)
 from repro_torch.hypergrad.operator import (HypergradStats, LinearOperator,
-                                            as_operator, tree_scale,
+                                            as_operator, ravel, tree_scale,
                                             tree_sub)
 
-__all__ = ["NeumannEngine", "neumann_stochastic_apply",
-           "neumann_truncated_apply"]
+__all__ = ["NeumannEngine", "NeumannLinearizedEngine",
+           "neumann_stochastic_apply", "neumann_truncated_apply"]
 
 
 def neumann_truncated_apply(matvec: Callable, b, k_terms: int,
-                            lipschitz_g: float):
+                            lipschitz_g: float, *, skip_last: bool = False):
     """(1/L) sum_{j<K} (I - H/L)^j b; returns ``(value, hvp_count)``.
 
-    Keeps the reference's executed-op order, K-th HVP included (its
-    output is discarded), so the value matches it op for op.
+    By default keeps the reference's executed-op order, K-th HVP included
+    (its output is discarded), so the value matches it op for op.
+    ``skip_last`` omits that HVP (K - 1 HVPs, the same value), as the
+    linearized backend and the LM head's chain do.
     """
     op = as_operator(matvec)
     L = lipschitz_g
@@ -45,10 +56,12 @@ def neumann_truncated_apply(matvec: Callable, b, k_terms: int,
     if k_terms <= 0:
         return acc, 0
     v, count = b, 0
-    for _ in range(k_terms):
+    for _ in range(k_terms - 1 if skip_last else k_terms):
         acc = pytree.tree_map(torch.add, acc, v)
         hv, count = op.apply_counted(v, count)
         v = tree_sub(v, tree_scale(1.0 / L, hv))
+    if skip_last:   # the final term joins the sum without a closing HVP
+        acc = pytree.tree_map(torch.add, acc, v)
     return tree_scale(1.0 / L, acc), count
 
 
@@ -87,3 +100,24 @@ class NeumannEngine(HypergradEngine):
             z, count = neumann_truncated_apply(op, b, cfg.neumann_k,
                                                cfg.lipschitz_g)
         return z, HypergradStats.zero()._replace(hvp_count=count)
+
+
+@register_backend("neumann-linearized")
+class NeumannLinearizedEngine(HypergradEngine):
+    """Linearize-once replay of the eq.-(22) product chain."""
+
+    def solve(self, g, x, y, b, cfg: HypergradConfig, g_args, draw=None,
+              inner_hess_yy=None):
+        hvp = linearize_grad_y(g, x, y, g_args)
+        b_flat, unravel = ravel(b)
+        op = LinearOperator(lambda vf: ravel(hvp(unravel(vf)))[0])
+        if cfg.stochastic_k:
+            if draw is None:
+                raise ValueError("stochastic_k needs the drawn k (draw=)")
+            z_flat, count = neumann_stochastic_apply(
+                op, b_flat, cfg.neumann_k, cfg.lipschitz_g, draw)
+        else:
+            z_flat, count = neumann_truncated_apply(
+                op, b_flat, cfg.neumann_k, cfg.lipschitz_g, skip_last=True)
+        stats = HypergradStats.zero()._replace(hvp_count=count, grad_count=1)
+        return unravel(z_flat), stats

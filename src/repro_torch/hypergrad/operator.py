@@ -34,7 +34,8 @@ class HypergradStats(NamedTuple):
     hess_count: full H_yy materialisations (the ``cholesky`` backend's
                 closed form; 0 elsewhere).
 
-    Each is a Python int, or an int tensor where the count was drawn.
+    Each is a Python int, or an int tensor where the count was drawn or
+    counted on the device (``cg-linearized``'s trips before its freeze).
     """
 
     hvp_count: int | torch.Tensor

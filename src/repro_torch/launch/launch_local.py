@@ -212,6 +212,53 @@ def _kill(procs) -> None:
             p.wait()
 
 
+def launch_workers(module: str, argv: list[str], processes: int, out: str,
+                   timeout: float, prepare=None) -> list[tuple[int, int]]:
+    """Run ``processes`` workers of ``python -m module`` (or of the script
+    ``module`` where it names a ``.py`` file) in one process group on
+    this host and wait for them.
+
+    Each worker gets ``argv`` and ``--out out --worker --process-id i
+    --coordinator host:port --go out.go``, and the ``REPRO_*`` variables.
+    The workers start at once; ``prepare()`` (the launcher's own checks
+    and builds) runs while they import torch, and they join the group
+    only when it has passed (the go file).  Returns the failed (rank,
+    code) pairs; at the first failure, or at ``timeout``, the rest are
+    killed.  The training driver (``repro_torch.launch.train``) and
+    chip_smoke.py's LM-training phase start their workers here too.
+    """
+    go = f"{out}.go"
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    if os.path.exists(go):
+        os.remove(go)
+    coordinator = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (str(SRC) + os.pathsep + env["PYTHONPATH"]
+                         if env.get("PYTHONPATH") else str(SRC))
+    env[ENV_COORDINATOR] = coordinator
+    env[ENV_NUM_PROCESSES] = str(processes)
+    argv = [a for a in argv if a != "--worker"]
+    entry = [module] if module.endswith(".py") else ["-m", module]
+    procs = []
+    for pid in range(processes):
+        wenv = dict(env, **{ENV_PROCESS_ID: str(pid)})
+        procs.append(subprocess.Popen(
+            [sys.executable, *entry, *argv, "--out", out, "--worker",
+             "--process-id", str(pid), "--coordinator", coordinator,
+             "--go", go], env=wenv))
+    try:
+        if prepare is not None:
+            prepare()
+        with open(go, "w"):
+            pass
+    except BaseException:
+        _kill(procs)
+        raise
+    failed = _wait(procs, timeout)
+    os.remove(go)
+    return failed
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.worker:
@@ -220,33 +267,10 @@ def main(argv=None) -> int:
     _check(args)
     out = args.out or os.path.join(tempfile.mkdtemp(prefix="launch_local_"),
                                    "result.json")
-    go = f"{out}.go"
-    if os.path.exists(go):
-        os.remove(go)
-    coordinator = f"127.0.0.1:{_free_port()}"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = (str(SRC) + os.pathsep + env["PYTHONPATH"]
-                         if env.get("PYTHONPATH") else str(SRC))
-    env[ENV_COORDINATOR] = coordinator
-    env[ENV_NUM_PROCESSES] = str(args.processes)
-    passthrough = [a for a in (argv if argv is not None else sys.argv[1:])
-                   if a != "--worker"]
-    procs = []
-    for pid in range(args.processes):
-        wenv = dict(env, **{ENV_PROCESS_ID: str(pid)})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.launch_local",
-             *passthrough, "--out", out, "--worker", "--process-id",
-             str(pid), "--coordinator", coordinator, "--go", go], env=wenv))
-    try:
-        _prepare(args)
-    except BaseException:
-        _kill(procs)
-        raise
-    with open(go, "w"):
-        pass
-    failed = _wait(procs, args.timeout)
-    os.remove(go)
+    failed = launch_workers(
+        "repro_torch.launch.launch_local",
+        list(argv if argv is not None else sys.argv[1:]), args.processes,
+        out, args.timeout, prepare=lambda: _prepare(args))
     if failed:
         for pid, rc in failed:
             print(f"worker {pid} exited {rc}", file=sys.stderr)

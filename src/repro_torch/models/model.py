@@ -10,7 +10,11 @@ Bilevel split, as in the JAX package: ``features`` returns the final
 hidden states of the backbone (the outer variable x); the LM head is a
 separate (d_model, vocab) parameter (the inner variable y).
 ``init_params(..., with_head=True)`` includes one, and ``forward`` goes
-end to end.
+end to end; ``lm_loss`` is the next-token cross entropy of its logits.
+``features(..., remat=True)`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, non-reentrant), where the JAX package
+checkpoints each period: only the residual stream between layers stays
+saved.
 
 Configurations with a ``mamba`` mixer, a ``moe`` ffn or a frontend with
 prefix tokens raise ``NotImplementedError``: they wait for ROADMAP
@@ -22,6 +26,8 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -30,8 +36,8 @@ from repro_torch.models.base import ArchConfig, LayerSpec
 
 __all__ = [
     "check_supported", "decode_step", "features", "forward", "head_logits",
-    "init_cache", "init_head", "init_params", "lm_head", "param_count",
-    "prefill",
+    "init_cache", "init_head", "init_params", "lm_head", "lm_loss",
+    "param_count", "prefill",
 ]
 
 
@@ -191,15 +197,21 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
 
 
 def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-             impl: str = "reference") -> tuple[torch.Tensor, torch.Tensor]:
+             impl: str = "reference", remat: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backbone features (batch, seq, d_model), and the MoE aux loss
     (zero: no moe ffn is ported yet).  ``impl`` routes attention and
-    WKV6: ``"reference"`` or ``"cuda"``."""
+    WKV6: ``"reference"`` or ``"cuda"``.  ``remat`` recomputes each layer
+    in the backward pass (a no-op where autograd is not recording)."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for spec, p in zip(_layer_specs(cfg), params["layers"]):
-        x, _ = _apply_layer(cfg, spec, p, x, positions, impl)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(lambda h, spec=spec, p=p: _apply_layer(
+                cfg, spec, p, h, positions, impl)[0], x, use_reentrant=False)
+        else:
+            x, _ = _apply_layer(cfg, spec, p, x, positions, impl)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -215,9 +227,23 @@ def lm_head(params: dict) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            impl: str = "reference") -> tuple[torch.Tensor, torch.Tensor]:
-    feats, aux = features(cfg, params, tokens, impl)
+            impl: str = "reference", remat: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    feats, aux = features(cfg, params, tokens, impl, remat)
     return head_logits(cfg, lm_head(params), feats), aux
+
+
+def lm_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor,
+            aux: torch.Tensor | None = None) -> torch.Tensor:
+    """Next-token CE; labels aligned with the *token* part of the sequence
+    (a prefix's logits, if any, are dropped)."""
+    n_pre = logits.shape[1] - labels.shape[1]
+    logp = F.log_softmax(logits[:, n_pre:].float(), dim=-1)
+    nll = -torch.gather(logp[:, :-1], -1, labels[:, 1:, None])
+    loss = nll.mean()
+    if aux is not None:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,12 @@ o) mod m]``.  The wire costs one payload a leaf per offset, so structured
 graphs stay cheap (ring 2, torus 4-5) and a dense Erdős–Rényi sample may
 approach m - 1 rounds; ``impl="psum"`` realises the same matrix as one
 ``all_reduce`` of an m-row contribution instead.  The engine never
-switches between them on its own.
+switches between them on its own.  A tree's plain rounds (no int8, no
+noise, no substituted payload) ship consecutive leaves of one dtype
+laid end to end, up to ``PERMUTE_BUCKET_BYTES`` a round: the same bytes
+and each element's same sums in far fewer rounds for a tree of hundreds
+of leaves (an LM backbone), where each round costs a host round trip on
+the staged wire.
 
 Options carried by the schedule's engine rather than per call:
 
@@ -45,7 +50,8 @@ import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 __all__ = [
-    "AgentMesh", "DP_TAG", "PermuteSchedule", "PermuteWeights",
+    "AgentMesh", "DP_TAG", "PERMUTE_BUCKET_BYTES", "PermuteSchedule",
+    "PermuteWeights",
     "dequantize_int8", "dp_noise", "gather_tree",
     "permute_mix_leaf", "permute_mix_tree", "permute_schedule",
     "quantize_int8", "ring_mix_leaf", "ring_mix_tree",
@@ -54,6 +60,10 @@ __all__ = [
 # entropy tag of the local-DP noise generators (ASCII "dpno"); see the
 # Byzantine layer's tags for why a tag leads the stream's words
 DP_TAG = 0x64706E6F
+
+# the most bytes a plain permute round of a tree ships (a larger leaf
+# ships alone)
+PERMUTE_BUCKET_BYTES = 64 << 20
 
 # torch >= 2.13 names the collective all_gather_single
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
@@ -364,6 +374,13 @@ def permute_mix_leaf(x: torch.Tensor, mesh: AgentMesh,
     ``override`` is the round's ``PermuteWeights``.  Needs one agent a
     process (the agent's index is the rank).
     """
+    _check_one_agent(mesh, schedule)
+    mix = _psum_mix if impl == "psum" else _ppermute_mix
+    return mix(x, mesh, schedule, mesh.row0, compress, dp_sigma, dp_key,
+               leaf_index, payload, override)
+
+
+def _check_one_agent(mesh: AgentMesh, schedule: PermuteSchedule) -> None:
     if mesh.num_agents != schedule.num_agents:
         raise ValueError(
             f"schedule built for m={schedule.num_agents} but the mesh holds "
@@ -374,9 +391,33 @@ def permute_mix_leaf(x: torch.Tensor, mesh: AgentMesh,
             f"{mesh.local_agents} agents on each of its {mesh.world_size} "
             "processes (use the allgather backend, or launch one process "
             "an agent)")
-    mix = _psum_mix if impl == "psum" else _ppermute_mix
-    return mix(x, mesh, schedule, mesh.row0, compress, dp_sigma, dp_key,
-               leaf_index, payload, override)
+
+
+def _buckets(leaves) -> list[list[int]]:
+    """Runs of consecutive leaf indices of one dtype, each run at most
+    ``PERMUTE_BUCKET_BYTES`` (or one larger leaf)."""
+    runs, size = [], 0
+    for i, leaf in enumerate(leaves):
+        nbytes = leaf.numel() * leaf.element_size()
+        if (runs and leaf.dtype == leaves[runs[-1][0]].dtype
+                and size + nbytes <= PERMUTE_BUCKET_BYTES):
+            runs[-1].append(i)
+            size += nbytes
+        else:
+            runs.append([i])
+            size = nbytes
+    return runs
+
+
+def _ppermute_mix_bucket(xs, mesh: AgentMesh, schedule: PermuteSchedule,
+                         override=None):
+    """``_ppermute_mix`` of several plain leaves in one round an offset:
+    their values laid end to end, the sums taken element by element."""
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    mixed = _ppermute_mix(flat, mesh, schedule, mesh.row0, None, 0.0, None,
+                          override=override)
+    parts = torch.split(mixed, [x.numel() for x in xs])
+    return [part.reshape(x.shape) for part, x in zip(parts, xs)]
 
 
 def permute_mix_tree(tree, mesh: AgentMesh, schedule: PermuteSchedule,
@@ -384,8 +425,20 @@ def permute_mix_tree(tree, mesh: AgentMesh, schedule: PermuteSchedule,
                      dp_key=None, impl: str = "ppermute", payload_tree=None,
                      override: PermuteWeights | None = None):
     """``permute_mix_leaf`` on every leaf, each its own payload and noise
-    stream (``leaf_index`` in leaf order)."""
+    stream (``leaf_index`` in leaf order).  Plain permute rounds (no
+    int8, no noise, no substituted payload) ship the leaves in buckets
+    (``PERMUTE_BUCKET_BYTES``), with the same result."""
     leaves, spec = pytree.tree_flatten(tree)
+    if (impl == "ppermute" and compress is None and dp_sigma == 0.0
+            and payload_tree is None):
+        _check_one_agent(mesh, schedule)
+        mixed = [None] * len(leaves)
+        for run in _buckets(leaves):
+            outs = _ppermute_mix_bucket([leaves[j] for j in run], mesh,
+                                        schedule, override)
+            for j, out in zip(run, outs):
+                mixed[j] = out
+        return pytree.tree_unflatten(mixed, spec)
     payloads = (pytree.tree_leaves(payload_tree) if payload_tree is not None
                 else [None] * len(leaves))
     mixed = [permute_mix_leaf(leaf, mesh, schedule, compress=compress,

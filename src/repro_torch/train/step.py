@@ -1,0 +1,306 @@
+"""The INTERACT train step across a process group.
+
+Counterpart of ``repro.train.step``.  The paper's m agents are the ranks
+of a ``torch.distributed`` group, one agent a process, held by an
+``AgentMesh`` (``repro_torch.sharding.collectives``): the JAX package's
+``shard_map`` gives each agent row a local slice of 1, and here every
+leaf of a process's state carries a leading agent dim of 1 too.  Each
+agent keeps a *distinct* backbone x_i, exactly Problem (1).
+
+Consensus (eqs. 6 / 10) goes through the ``ppermute`` engine
+(``InteractConfig.consensus_engine``), which decomposes the configured
+topology's mixing matrix (ring, Erdős–Rényi or torus) into per-offset
+neighbour exchanges; int8 wire compression and local-DP noise are engine
+options.  As in the JAX package, any other consensus backend raises.
+
+One call is one INTERACT iteration (Algorithm 1), through the shared
+``consensus_descent_and_track`` step-core:
+  Step 1: x <- mix(x) - alpha u ;  y <- y - beta v
+  Step 2: (p, v) local hypergradient / inner gradient at the new iterate
+  Step 3: u <- mix(u) + p - p_prev
+
+The metrics are averaged over the group (one all-reduce), as ``pmean``
+averages them over the agent axis.  Stepping is eager.  What the JAX
+package's runtime does through XLA's partitioner raises, naming the
+ROADMAP item it waits for: ``agent_mode="pods"`` (FSDP within an agent)
+and prefixes (the frontends); ``train_state_specs`` (XLA partition
+specs) has no counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.consensus import consensus_descent_and_track, make_engine
+from repro_torch.core.consensus import MixingSpec
+from repro_torch.device import resolve_device
+from repro_torch.models import model as M
+from repro_torch.models.base import ArchConfig
+from repro_torch.sharding.collectives import AgentMesh
+from repro_torch.train.bilevel_lm import (BilevelHyper, check_hyper,
+                                          local_grads, outer_loss)
+
+__all__ = ["TrainState", "InteractConfig", "init_train_state",
+           "make_train_step", "make_eval_step"]
+
+
+class TrainState(NamedTuple):
+    x: Any            # backbone params, leaves (1, ...): this process's agent
+    y: torch.Tensor   # the agent's head (1, d_model, vocab)
+    u: Any            # tracked gradient, like x
+    v: torch.Tensor   # inner gradient, like y
+    p_prev: Any       # previous hypergradient, like x
+    t: int            # step counter
+
+
+@dataclasses.dataclass(frozen=True)
+class InteractConfig:
+    alpha: float = 1e-2          # outer step size (Theorem 1 bound applies)
+    beta: float = 0.5            # inner step size
+    self_weight: float = 1.0 / 3.0  # ring mixing w0
+    hyper: BilevelHyper = BilevelHyper()
+    # consensus engine selection (repro_torch/consensus):
+    consensus_backend: str = "ppermute"    # the only mesh-native backend
+    topology: str = "ring"                 # ring | erdos-renyi | torus
+    p_connect: float = 0.5                 # ER edge probability
+    topology_seed: int = 0                 # ER graph sample seed
+    # paper future-work extensions (conclusion, both opt-in):
+    consensus_compress: str | None = None  # "int8" compressed consensus
+    dp_sigma: float = 0.0                  # local-DP noise on shared x
+    # SVR refresh period (make_svr_train_step's when q is not given)
+    q: int | None = None
+
+    def topology_config(self):
+        """The declarative graph shared with ``repro_torch.solvers``."""
+        from repro_torch.solvers.config import TopologyConfig
+        return TopologyConfig(kind=self.topology, p_connect=self.p_connect,
+                              seed=self.topology_seed,
+                              self_weight=self.self_weight)
+
+    def mixing_spec(self, m: int) -> MixingSpec:
+        """The configured topology's mixing matrix for m agents."""
+        return self.topology_config().mixing_spec(m)
+
+    def solver_config(self, algo: str = "interact"):
+        """The equivalent ``repro_torch.solvers.SolverConfig``.
+
+        The LM path's hypergradient is the head-space Neumann series on
+        cached features, the linearize-once replay of eq. (22), so the
+        exported ``HypergradConfig`` records it as the
+        ``neumann-linearized`` backend with BilevelHyper's K and L_g
+        (round-tripped back by ``from_solver_config``).
+        """
+        from repro_torch.hypergrad import HypergradConfig
+        from repro_torch.solvers.config import SolverConfig
+        opts = {}
+        if self.consensus_compress is not None:
+            opts["compress"] = self.consensus_compress
+        if self.dp_sigma:
+            opts["dp_sigma"] = self.dp_sigma
+        hg = HypergradConfig(method="neumann", backend="neumann-linearized",
+                             neumann_k=self.hyper.neumann_k,
+                             lipschitz_g=self.hyper.lipschitz_g)
+        return SolverConfig(algo=algo, alpha=self.alpha, beta=self.beta,
+                            q=self.q, topology=self.topology_config(),
+                            backend=self.consensus_backend,
+                            backend_opts=opts, hypergrad=hg)
+
+    @classmethod
+    def from_solver_config(cls, scfg, hyper: BilevelHyper | None = None):
+        """Build the LM-runtime config from a ``SolverConfig``.
+
+        ``hyper`` defaults to ``BilevelHyper()``, with the Neumann
+        settings (K, L_g) imported from ``scfg.hypergrad`` when it
+        selects a Neumann estimator.  ``scfg.seed`` plays no role on the
+        LM path (deterministic token streams).
+        """
+        if scfg.mixing is not None:
+            raise ValueError(
+                "SolverConfig.mixing (an explicit MixingSpec) cannot drive "
+                "the distributed runtime: the mesh realises the graph from "
+                "the declarative topology; set SolverConfig.topology instead")
+        opts = dict(scfg.backend_opts)
+        if hyper is None:
+            hyper = BilevelHyper()
+            if scfg.hypergrad.resolve_backend().startswith("neumann"):
+                hyper = dataclasses.replace(
+                    hyper, neumann_k=scfg.hypergrad.neumann_k,
+                    lipschitz_g=scfg.hypergrad.lipschitz_g)
+        return cls(alpha=scfg.alpha, beta=scfg.beta,
+                   self_weight=scfg.topology.self_weight,
+                   hyper=hyper,
+                   consensus_backend=scfg.backend,
+                   topology=scfg.topology.kind,
+                   p_connect=scfg.topology.p_connect,
+                   topology_seed=scfg.topology.seed,
+                   consensus_compress=opts.get("compress"),
+                   dp_sigma=opts.get("dp_sigma", 0.0),
+                   q=scfg.q)
+
+    @classmethod
+    def coerce(cls, cfg, hyper: BilevelHyper | None = None):
+        """Accept either an InteractConfig or a ``SolverConfig``."""
+        if isinstance(cfg, cls):
+            return cfg
+        return cls.from_solver_config(cfg, hyper=hyper)
+
+    def consensus_engine(self, m: int, mesh: AgentMesh):
+        """The ``ppermute`` engine of this config on ``mesh``, its
+        per-offset permute rounds.  The JAX package falls back to its
+        psum realisation only where an old JAX cannot lower permutes
+        beside an auto model axis; an ``AgentMesh`` has no model axis.
+        """
+        if self.consensus_backend != "ppermute":
+            raise ValueError(
+                f"backend {self.consensus_backend!r} cannot run the LM train "
+                "step; the distributed runtime requires 'ppermute' (dense, "
+                "cuda and allgather serve the solvers)")
+        return make_engine("ppermute", self.mixing_spec(m), mesh.device,
+                           mesh=mesh, compress=self.consensus_compress,
+                           dp_sigma=self.dp_sigma)
+
+
+def _zeros_like_tree(tree):
+    return pytree.tree_map(torch.zeros_like, tree)
+
+
+def _squeeze(tree):
+    return pytree.tree_map(lambda l: l[0], tree)
+
+
+def _unsqueeze(tree):
+    return pytree.tree_map(lambda l: l[None], tree)
+
+
+def init_train_state(cfg: ArchConfig, seed: int = 0,
+                     device: str | torch.device | None = None) -> TrainState:
+    """This process's initial state, every leaf with a leading agent dim
+    of 1: every agent starts from the same (x0, y0), drawn from ``seed``
+    (every process of a run passes the same one), as in Algorithm 1; u,
+    v and p_prev start at zero (the first step's tracking difference
+    makes u_1 = p_1).  On the card unless ``device="cpu"``."""
+    params = M.init_params(cfg, seed, with_head=True,
+                           device=resolve_device(device))
+    y = params.pop("head")[None]
+    x = _unsqueeze(params)
+    return TrainState(x=x, y=y, u=_zeros_like_tree(x),
+                      v=torch.zeros_like(y), p_prev=_zeros_like_tree(x), t=0)
+
+
+def _local_tokens(mesh: AgentMesh, tokens: torch.Tensor) -> torch.Tensor:
+    """This process's (b, s) tokens from the global (m, b, s) batch or its
+    own (1, b, s) row."""
+    if tokens.dim() != 3:
+        raise ValueError(f"tokens must be (m, b, s) or (1, b, s), got "
+                         f"{tuple(tokens.shape)}")
+    if tokens.shape[0] == mesh.num_agents:
+        tokens = tokens[mesh.row0:mesh.row0 + 1]
+    elif tokens.shape[0] != 1:
+        raise ValueError(f"tokens carry {tokens.shape[0]} agent rows; the "
+                         f"mesh holds {mesh.num_agents}")
+    return tokens[0].to(mesh.device)
+
+
+def _split(tokens: torch.Tensor):
+    """The first half of the batch is the inner split, the second the
+    outer split."""
+    half = tokens.shape[0] // 2
+    return tokens[:half], tokens[half:]
+
+
+def pmean(mesh: AgentMesh, *values: torch.Tensor) -> torch.Tensor:
+    """The group means of the 0-dim ``values``, in one all-reduce."""
+    stacked = torch.stack([v.to(torch.float32) for v in values])
+    return mesh.all_reduce(stacked) / mesh.world_size
+
+
+def _check_rows(mesh: AgentMesh, agent_mode: str, with_prefix: bool) -> None:
+    if agent_mode == "pods":
+        raise NotImplementedError(
+            "agent_mode='pods' shards each agent's state over a pod's data "
+            "axis (FSDP within an agent); it waits with "
+            "sharding/partition.py, ROADMAP Queue A item 10")
+    if agent_mode != "rows":
+        raise ValueError(f"unknown agent_mode {agent_mode!r}")
+    if with_prefix:
+        raise NotImplementedError(
+            "with_prefix: the vlm / audio frontends wait for ROADMAP Queue A "
+            "item 12")
+    if mesh.local_agents != 1:
+        raise ValueError(
+            f"the train step runs one agent a process, but the mesh puts "
+            f"{mesh.local_agents} agents on each of its {mesh.world_size} "
+            f"processes: launch {mesh.num_agents} processes")
+
+
+def make_train_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig,
+                    *, with_prefix: bool = False, agent_mode: str = "rows"):
+    """Returns ``step(state, tokens) -> (state, metrics)``.
+
+    ``icfg`` may be an ``InteractConfig`` or a ``SolverConfig`` (coerced
+    via ``from_solver_config``).  ``mesh`` is this process's
+    ``AgentMesh`` (one agent a process).  ``tokens``: the global (m,
+    per_agent_batch, seq) batch or this process's (1, b, s) row; the
+    first half of the agent's batch is the inner split, the second the
+    outer split.  ``metrics``: ``outer_ce`` and ``grad_norm`` (of the
+    tracked gradient u), 0-dim float32 tensors averaged over the group.
+    """
+    icfg = InteractConfig.coerce(icfg)
+    _check_rows(mesh, agent_mode, with_prefix)
+    hyper = icfg.hyper
+    check_hyper(hyper, differentiate=True)
+    engine = icfg.consensus_engine(mesh.num_agents, mesh)
+
+    def step(state: TrainState, tokens, prefix=None):
+        if prefix is not None:
+            _check_rows(mesh, agent_mode, True)
+        inner_t, outer_t = _split(_local_tokens(mesh, tokens))
+        dp_key = (0, state.t) if icfg.dp_sigma > 0 else None
+
+        def grads_fn(x_new, y_new):
+            # ---- Step 2: local gradients at the new iterate -------------
+            p_new, v_new, outer_ce = local_grads(
+                cfg, hyper, _squeeze(x_new), y_new[0], inner_t, outer_t)
+            return _unsqueeze(p_new), v_new[None], outer_ce
+
+        # Steps 1-3 through the shared step-core on the ppermute engine.
+        # First iteration: p_prev and u are zero, so Step 3 sets u_1 = p_1.
+        x_new, y_new, u_new, v_new, p_new, _, outer_ce = (
+            consensus_descent_and_track(
+                engine, state.x, state.y, state.u, state.v, state.p_prev,
+                icfg.alpha, icfg.beta, grads_fn, t=state.t, dp_key=dp_key))
+
+        gsq = sum(torch.sum(torch.square(l.to(torch.float32)))
+                  for l in pytree.tree_leaves(u_new))
+        mean_ce, mean_gsq = pmean(mesh, outer_ce, gsq)
+        new_state = TrainState(x=x_new, y=y_new, u=u_new, v=v_new,
+                               p_prev=p_new, t=state.t + 1)
+        return new_state, {"outer_ce": mean_ce,
+                           "grad_norm": torch.sqrt(mean_gsq)}
+
+    return step
+
+
+def make_eval_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig):
+    """``step(state, tokens) -> outer CE`` averaged over the agents at the
+    current iterate (no update), a 0-dim float32 tensor.
+
+    A forward-only call under ``torch.no_grad``: with
+    ``hyper.attn_impl="cuda"`` it runs the flash attention (or WKV6)
+    kernel on the card, once a layer.
+    """
+    icfg = InteractConfig.coerce(icfg)
+    _check_rows(mesh, "rows", False)
+    hyper = icfg.hyper
+    check_hyper(hyper, differentiate=False)
+
+    def step(state, tokens):
+        toks = _local_tokens(mesh, tokens)
+        with torch.no_grad():
+            ce = outer_loss(cfg, hyper, _squeeze(state.x), state.y[0], toks)
+        return pmean(mesh, ce)[0]
+
+    return step

@@ -1,8 +1,8 @@
 """Package hygiene of the port: imports, devices, registries, the build.
 
 The port imports neither JAX nor the JAX package; its entry points (the
-INTERACT solver's and the LM serving path's) run on the CUDA card unless
-told otherwise and raise where there is none; a missing CUDA compiler is
+INTERACT solver's, the LM serving path's and the LM training path's) run
+on the CUDA card unless told otherwise and raise where there is none; a missing CUDA compiler is
 an error, never a fallback.
 """
 import os
@@ -40,8 +40,11 @@ bad = sorted(n for n in sys.modules
 mesh = {"repro_torch.consensus.allgather", "repro_torch.consensus.ppermute",
         "repro_torch.sharding.collectives", "repro_torch.launch.distributed",
         "repro_torch.launch.launch_local"}
+train = {"repro_torch.train.bilevel_lm", "repro_torch.train.step",
+         "repro_torch.train.svr_step", "repro_torch.data.synthetic",
+         "repro_torch.optim.optimizers", "repro_torch.launch.train"}
 print(len(names), bad, "repro_torch.solvers.sweep" in names,
-      mesh <= set(names))
+      mesh <= set(names), train <= set(names))
 """
 
 
@@ -54,6 +57,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert out[1] == "[]", out
     assert out[2] == "True", out      # the sweeps among them
     assert out[3] == "True", out      # the multi-process path too
+    assert out[4] == "True", out      # and the LM training path
 
 
 @pytest.fixture
@@ -125,6 +129,25 @@ def test_launcher_defaults_to_the_card_and_raises_without_one(no_cuda):
         launch_local.main(["--processes", "1", "--agents", "2"])
 
 
+def test_train_driver_defaults_to_the_card_and_raises_without_one(no_cuda):
+    from repro_torch.launch import train
+    args = train.parse_args([])
+    assert (args.device, args.wire, args.arch) == ("cuda", "nccl",
+                                                   "smollm-360m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--agents", "2", "--reduced"])
+
+
+def test_train_state_and_tokens_without_device_raise_without_cuda(no_cuda):
+    from repro_torch.data.synthetic import TokenTaskStream
+    from repro_torch.train.step import init_train_state
+    cfg = get_config("smollm-360m").reduced(vocab_size=64, num_layers=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TokenTaskStream(64, 2).global_batch(0, 2, 8)
+
+
 def test_serve_cli_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "rwkv6-3b", "--prompt-len", "4",
@@ -167,9 +190,12 @@ def test_registries():
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_solver(SolverConfig(algo="fedavg"))
     from repro_torch.hypergrad import HypergradConfig, available_backends
-    assert available_backends() == ("cg", "cholesky", "neumann")
+    assert available_backends() == ("cg", "cg-linearized", "cholesky",
+                                    "neumann", "neumann-linearized")
+    assert HypergradConfig(
+        backend="cg-linearized").resolve_backend() == "cg-linearized"
     with pytest.raises(ValueError, match="not available in the port"):
-        HypergradConfig(backend="cg-linearized").resolve_backend()
+        HypergradConfig(backend="lbfgs").resolve_backend()
     from repro_torch.byzantine import attack_names, combine_rule_names
     assert attack_names() == ("gaussian", "inner-outer-split", "same-value",
                               "sign-flip")

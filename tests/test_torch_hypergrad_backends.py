@@ -1,5 +1,5 @@
-"""The port's ``neumann`` and ``cholesky`` backends and ``cg_solve``
-against the JAX package's.
+"""The port's ``neumann``, ``cholesky``, ``neumann-linearized`` and
+``cg-linearized`` backends and ``cg_solve`` against the JAX package's.
 
 Inputs come from the JAX package's Section-6 instance at a small size
 (3 agents, n = 40, hidden 8; one agent's split for the single calls).
@@ -14,7 +14,12 @@ largest |value| of the JAX result:
   condition number 4: measured at most 1.2e-7, margin about 8.  (At
   condition number 100 both packages' float32 CG drift 1e-4 to 1e-2
   from a float64 CG in mid-run, so their gap measures rounding.)
-Counts (HVPs, gradients, Hessians, iterations, matvecs) match exactly.
+- ``LIN_TOL`` = 1e-6 for the linearized backends' z (the engine's solve
+  alone): measured at most 2.2e-7 (my CPU runs).
+Counts (HVPs, gradients, Hessians, iterations, matvecs) match exactly;
+the port's early-exit CG runs every trip with the late ones frozen, so
+its ``matvecs`` is the trip count where the reference's is the trips it
+ran (its ``iterations``, which the port's equals).
 """
 import numpy as np
 import pytest
@@ -187,3 +192,110 @@ def test_cg_solve_and_info_match_jax(rel_tol, iters, tol):
         float(jinfo.residual_norm), rel=1e-3, abs=1e-6)
     assert cg_solve(lambda v: split(ta @ join_t(v)), split(torch.tensor(b)),
                     iters, tol, rel_tol=rel_tol)[0].shape == (8,)
+
+
+# ---------------------------------------------------------------------------
+# the linearize-once backends
+# ---------------------------------------------------------------------------
+
+LIN_TOL = 1e-6
+LINEARIZED = {
+    "neumann-K1": dict(backend="neumann-linearized", neumann_k=1,
+                       lipschitz_g=4.0),
+    "neumann-K8": dict(backend="neumann-linearized", neumann_k=8,
+                       lipschitz_g=4.0),
+    "cg-rel": dict(backend="cg-linearized", cg_iters=32, cg_tol=1e-4,
+                   cg_rel_tol=True),
+    "cg-short": dict(backend="cg-linearized", cg_iters=6),
+    "cg-frozen-early": dict(backend="cg-linearized", cg_iters=40,
+                            cg_tol=1e-2, cg_rel_tol=True),
+}
+
+
+def _solve_z(inst, agent, kw, key=None, draw=None):
+    """z = [H_yy g]^{-1} grad_y f from each package's engine, and its
+    stats."""
+    from repro.hypergrad import get_backend as j_get_backend
+    from repro_torch.hypergrad import get_backend
+    d, td = inst["data"], inst["tdata"]
+    jb = jax.grad(inst["problem"].outer, argnums=1)(
+        inst["x"], inst["y"], (d.outer_x[agent], d.outer_y[agent]))
+    jz, js = j_get_backend(kw["backend"]).solve(
+        inst["problem"].inner, inst["x"], inst["y"], jb,
+        JHypergradConfig(**kw), ((d.inner_x[agent], d.inner_y[agent]),),
+        key)
+    tb = torch.func.grad(inst["tproblem"].outer, argnums=1)(
+        inst["tx"], inst["ty"], (td.outer_x[agent], td.outer_y[agent]))
+    tz, ts = get_backend(kw["backend"]).solve(
+        inst["tproblem"].inner, inst["tx"], inst["ty"], tb,
+        HypergradConfig(**kw), ((td.inner_x[agent], td.inner_y[agent]),),
+        draw)
+    return (jz, tuple(int(c) for c in js)), (tz, tuple(int(c) for c in ts))
+
+
+@pytest.mark.parametrize("name", sorted(LINEARIZED))
+def test_linearized_backends_match_jax(inst, name):
+    kw = LINEARIZED[name]
+    (jz, jc), (tz, tc) = _solve_z(inst, 1, kw)
+    gap = _rel_gap(tz, jz)
+    print(f"{name}: z gap {gap:.2e} (bound {LIN_TOL}), counts {tc}")
+    assert gap < LIN_TOL
+    assert tc == jc
+    (jp, jc), (tp, tc) = _one_call(inst, 1, JHypergradConfig(**kw),
+                                   HypergradConfig(**kw))
+    assert _rel_gap(tp, jp) < HG_TOL
+    assert tc == jc
+
+
+def test_neumann_linearized_stochastic_matches_jax(inst):
+    kw = dict(backend="neumann-linearized", neumann_k=6, lipschitz_g=4.0,
+              stochastic_k=True)
+    key = jax.random.PRNGKey(4)
+    k = int(jax.random.randint(key, (), 0, 6))
+    (jz, jc), (tz, tc) = _solve_z(inst, 0, kw, key=key, draw=torch.tensor(k))
+    assert _rel_gap(tz, jz) < LIN_TOL
+    assert tc == jc == (k, 1, 0)
+    with pytest.raises(ValueError, match="drawn k"):
+        _solve_z(inst, 0, kw, key=key)
+
+
+@pytest.mark.parametrize("backend", ["cg-linearized", "neumann-linearized"])
+def test_linearized_under_vmap_takes_the_same_value(inst, backend):
+    """Under vmap over agents the tangent map is a fresh jvp each
+    application (linearize has no batching rule): the same z."""
+    from repro_torch.hypergrad import get_backend
+    cfg = HypergradConfig(backend=backend, neumann_k=4, lipschitz_g=4.0,
+                          cg_iters=12)
+    tp, td = inst["tproblem"], inst["tdata"]
+
+    def z_of(ib, ob):
+        b = torch.func.grad(tp.outer, argnums=1)(inst["tx"], inst["ty"], ob)
+        return get_backend(backend).solve(tp.inner, inst["tx"], inst["ty"],
+                                          b, cfg, (ib,))[0]
+
+    batched = torch.func.vmap(z_of)((td.inner_x, td.inner_y),
+                                    (td.outer_x, td.outer_y))
+    for agent in range(3):
+        one = z_of((td.inner_x[agent], td.inner_y[agent]),
+                   (td.outer_x[agent], td.outer_y[agent]))
+        for a, b in zip(one, batched):
+            torch.testing.assert_close(a, b[agent], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rel_tol", [True, False])
+@pytest.mark.parametrize("iters,tol", [(6, 1e-8), (40, 1e-4), (40, 1e-2)],
+                         ids=["short", "converged", "frozen_early"])
+def test_cg_solve_early_exit_matches_jax(rel_tol, iters, tol):
+    a, b = _spd_system(1)
+    ja, ta = jnp.asarray(a), torch.tensor(a)
+    jx, jinfo = j_cg_solve(lambda v: ja @ v, jnp.asarray(b), iters, tol,
+                           rel_tol=rel_tol, early_exit=True,
+                           return_info=True)
+    tx, tinfo = cg_solve(lambda v: ta @ v, torch.tensor(b), iters, tol,
+                         rel_tol=rel_tol, early_exit=True, return_info=True)
+    assert _rel_gap(tx, jx) < CG_TOL
+    assert int(tinfo.iterations) == int(jinfo.iterations) == int(
+        jinfo.matvecs)
+    assert tinfo.matvecs == iters     # every trip runs; the late ones frozen
+    assert float(tinfo.residual_norm) == pytest.approx(
+        float(jinfo.residual_norm), rel=1e-3, abs=1e-6)

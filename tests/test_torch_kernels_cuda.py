@@ -83,9 +83,22 @@ the uninterrupted captured ``run_traced`` trace and state bit for bit:
 each algorithm (the resumed SVR-INTERACT graphs start mid q-period), the
 compressed wire with a warm-up and an interval (t = 3 is a silent round)
 and the guarded sign-flip row.
+
+The linearize-once backends: ``cg-linearized`` and ``neumann-linearized``
+join the captured-against-eager cases above (under the solvers' ``vmap``
+over agents their tangent map is a fresh jvp each application), and one
+solve of each outside ``vmap`` (``torch.func.linearize`` traced once) is
+captured and replayed against the eager solve at ``CAPTURE_RTOL``, its
+device counters equal.  LM training: the train step (reduced smollm-360m,
+float32, ``remat`` on, one agent) two INTERACT and two SVR-INTERACT
+steps on the card against the CPU within ``LM_CARD_CPU_TOL`` = 1e-5 of
+each leaf's scale, and the eval step with ``attn_impl="cuda"`` (the
+float32 flash kernels, once a layer) against plain attention at
+``FLASH_TOL``.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -124,6 +137,9 @@ HG_CASES = {
                                            stochastic_k=True), True),
     "cholesky": (HypergradConfig(backend="cholesky"), True),
     "cholesky-hvp-basis": (HypergradConfig(backend="cholesky"), False),
+    "cg-linearized": (HypergradConfig(backend="cg-linearized"), True),
+    "neumann-linearized": (HypergradConfig(backend="neumann-linearized"),
+                           True),
 }
 # INTERACT takes no draws, so it has no stochastic-k Neumann
 CAPTURE_CASES = [(algo, hg) for algo in ALGOS for hg in HG_CASES
@@ -156,6 +172,9 @@ FLASH_CASES = (
     + [c + (torch.bfloat16,) for c in FLASH_SHAPES]
     + [(1, 256, 256, 2, 2, 256, True, None, None, 0, torch.bfloat16),
        (1, 128, 128, 4, 2, 32, True, None, None, 0, torch.bfloat16),
+       # smollm-360m's eval step: 15 q and 5 kv heads of 64
+       (4, 256, 256, 15, 5, 64, True, None, None, 0, torch.bfloat16),
+       (4, 256, 256, 15, 5, 64, True, None, None, 0, torch.float32),
        # gemma2-2b's heads, softcap and local window over several hundred
        # tokens (32-key tiles), and a window that binds
        (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, torch.float32),
@@ -831,3 +850,94 @@ def test_killed_captured_run_resumes_bitwise(hopper, tmp_path, case,
     assert state.t == 9
     assert trace.tobytes() == want.cpu().numpy().tobytes()
     assert _bitwise(state, want_state)
+
+
+# ---------------------------------------------------------------------------
+# The linearize-once backends outside vmap, captured
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["cg-linearized", "neumann-linearized"])
+def test_linearized_solve_captures_its_tangent(hopper, backend):
+    from repro_torch.hypergrad import get_backend
+    problem, x0, y0, data = default_setup(0, n_per_agent=100, device=hopper)
+    cfg = HypergradConfig(backend=backend, cg_iters=16, neumann_k=6,
+                          lipschitz_g=4.0)
+    batch = (data.inner_x[0], data.inner_y[0])
+    b = torch.func.grad(problem.outer, argnums=1)(
+        x0, y0, (data.outer_x[0], data.outer_y[0]))
+    engine = get_backend(backend)
+    z_eager, stats_eager = engine.solve(problem.inner, x0, y0, b, cfg,
+                                        (batch,))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        engine.solve(problem.inner, x0, y0, b, cfg, (batch,))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        z, stats = engine.solve(problem.inner, x0, y0, b, cfg, (batch,))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _max_rel_gap(z, z_eager) <= CAPTURE_RTOL
+    assert [int(c) for c in stats] == [int(c) for c in stats_eager]
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card against the CPU
+# ---------------------------------------------------------------------------
+
+LM_CARD_CPU_TOL = 1e-5
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(hopper):
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.collectives import AgentMesh
+    from repro_torch.train.bilevel_lm import BilevelHyper
+    from repro_torch.train.step import (InteractConfig, init_train_state,
+                                        make_eval_step, make_train_step)
+    from repro_torch.train.svr_step import SvrTrainState, make_svr_train_step
+    cfg = get_config("smollm-360m").reduced(vocab_size=128, num_layers=2,
+                                            dtype="float32")
+    hyper = BilevelHyper(mu_g=0.5, neumann_k=2, lipschitz_g=4.0,
+                         ce_chunk=16, remat=True)
+    icfg = InteractConfig(alpha=0.05, beta=0.3, hyper=hyper)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 4, 32)))
+    host = init_train_state(cfg, 0, device="cpu")
+    tree = torch.utils._pytree
+    finals, evals = {}, {}
+    for dev in (hopper, torch.device("cpu")):
+        mesh = AgentMesh.local(1, dev)
+        state = tree.tree_map(lambda l: l.to(dev) if isinstance(
+            l, torch.Tensor) else l, host)
+        step = make_train_step(cfg, mesh, icfg)
+        for _ in range(2):
+            state, metrics = step(state, tokens)
+        svr = make_svr_train_step(cfg, mesh, icfg, q=2)
+        state = SvrTrainState(*state[:5], x_prev=host.x if dev.type == "cpu"
+                              else tree.tree_map(lambda l: l.to(dev),
+                                                 host.x),
+                              y_prev=host.y.to(dev), t=state.t)
+        for _ in range(2):
+            state, _ = svr(state, tokens)
+        finals[dev.type] = tree.tree_map(lambda l: l.cpu(),
+                                         (state.x, state.y, state.u))
+        for name in fa_ops.LAUNCHES:
+            fa_ops.LAUNCHES[name] = 0
+        evals[dev.type] = {impl: float(make_eval_step(
+            cfg, mesh, dataclasses.replace(icfg, hyper=dataclasses.replace(
+                hyper, attn_impl=impl)))(state, tokens))
+            for impl in ("reference", "cuda")}
+        launches = dict(fa_ops.LAUNCHES)
+        if dev.type == "cuda":
+            assert launches["flash_attention"] == cfg.num_layers
+            assert launches["flash_attention_f32"] == cfg.num_layers
+        else:
+            assert sum(launches.values()) == 0
+    assert _max_rel_gap(finals["cuda"], finals["cpu"]) <= LM_CARD_CPU_TOL
+    assert evals["cuda"]["cuda"] == pytest.approx(evals["cuda"]["reference"],
+                                                  rel=FLASH_TOL)
+    assert evals["cuda"]["reference"] == pytest.approx(
+        evals["cpu"]["reference"], rel=LM_CARD_CPU_TOL)

@@ -1,8 +1,9 @@
 """The port's LM serving path against the JAX package's.
 
-Reduced gemma2-2b (local/global attention, GQA, both softcaps) and
-rwkv6-3b (WKV6 time mixing, token-shift channel mixing), four layers
-each, in float32.  The
+Reduced gemma2-2b (local/global attention, GQA, both softcaps),
+rwkv6-3b (WKV6 time mixing, token-shift channel mixing), llama3.2-3b,
+qwen3-14b (q/k RMSNorm) and smollm-360m (the training driver's default),
+four layers each, in float32.  The
 JAX ``init_params`` draws the weights; ``lm_params_from_numpy`` carries
 them into the port, and the same numpy tokens go through both packages.
 On CPU tensors the port's ``impl="cuda"`` runs the kernels' plain
@@ -34,7 +35,8 @@ from repro_torch.launch.serving import (make_prefill_step,  # noqa: E402
                                         make_serve_step)
 from repro_torch.models import model as M  # noqa: E402
 
-ARCHS = ["gemma2-2b", "rwkv6-3b"]
+ARCHS = ["gemma2-2b", "rwkv6-3b", "llama3.2-3b", "qwen3-14b",
+         "smollm-360m"]
 TOL = 1e-4
 BATCH, PROMPT, DECODE = 2, 72, 4   # 72 > the reduced 64-token window
 

@@ -47,8 +47,10 @@ from repro.sharding.collectives import \
 from repro_torch.core import consensus as t_consensus  # noqa: E402
 from repro_torch.kernels.consensus_step import ops  # noqa: E402
 from repro_torch.launch import distributed as D  # noqa: E402
+from repro_torch.sharding import collectives as C  # noqa: E402
 from repro_torch.sharding.collectives import (  # noqa: E402
-    AgentMesh, _outgoing_payload, permute_mix_leaf, permute_schedule)
+    AgentMesh, _outgoing_payload, permute_mix_leaf, permute_mix_tree,
+    permute_schedule)
 
 TOL = 1e-6
 TESTS = Path(__file__).resolve().parent
@@ -349,3 +351,28 @@ def test_stream_off_the_base_offsets_raises():
     full = np.full((1, 8, 8), 1 / 8)
     with pytest.raises(ValueError, match="outside the base schedule"):
         PermuteStreamTopology(permute_schedule(ring), full, "cpu")
+
+
+@pytest.mark.parametrize("bucket_bytes", [64, 1 << 20])
+def test_plain_permute_buckets_equal_leaf_by_leaf(monkeypatch, bucket_bytes):
+    """A tree's plain rounds ship buckets of leaves; each element's sum is
+    the leaf-by-leaf one, bit for bit, across dtypes and a leaf larger
+    than a bucket.  (A ``local`` wire hands each process its own payload
+    back, as if every neighbour held the same values.)"""
+    monkeypatch.setattr(C, "PERMUTE_BUCKET_BYTES", bucket_bytes)
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(1, 3, generator=gen),
+            "b": torch.randn(1, 40, generator=gen).to(torch.bfloat16),
+            "c": [torch.randn(1, 2, 5, generator=gen),
+                  torch.randn(1, 7, generator=gen)],
+            "d": torch.randn(1, 200, generator=gen)}
+    sched = permute_schedule(t_consensus.ring_mixing(4, self_weight=0.2))
+    mesh = AgentMesh(4, 4, 1, torch.device("cpu"), "local")
+    got = permute_mix_tree(tree, mesh, sched)
+    want = torch.utils._pytree.tree_map(
+        lambda l: permute_mix_leaf(l, mesh, sched), tree)
+    for g, w in zip(torch.utils._pytree.tree_leaves(got),
+                    torch.utils._pytree.tree_leaves(want)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert len(C._buckets(torch.utils._pytree.tree_leaves(tree))) == (
+        5 if bucket_bytes == 64 else 3)

@@ -181,6 +181,13 @@ def test_measure_problem_counts_match_jax():
 @pytest.mark.parametrize("name", ["cg-linearized", "neumann-linearized",
                                   "no-such"])
 def test_unported_hypergrad_backends_raise(name):
-    with pytest.raises(ValueError):
-        thg.HypergradConfig(backend=name).resolve_backend()
-    assert thg.available_backends() == ("cg", "cholesky", "neumann")
+    """A name the port does not register raises; the linearize-once
+    backends, once unported, now resolve to themselves."""
+    cfg = thg.HypergradConfig(backend=name)
+    if name.endswith("-linearized"):
+        assert cfg.resolve_backend() == name
+    else:
+        with pytest.raises(ValueError):
+            cfg.resolve_backend()
+    assert thg.available_backends() == ("cg", "cg-linearized", "cholesky",
+                                        "neumann", "neumann-linearized")
