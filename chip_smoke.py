@@ -19,8 +19,11 @@
    strided views, each in float32 (the split pass and the split-operand
    tensor-core kernel, 2e-5) and in bfloat16 (the bf16 tensor-core
    kernel, a per-row relative gate), a float32 view misaligned for
-   16-byte loads, and the gemma2-2b serving shapes: global in both
-   dtypes, local in both; each call must add one launch to the count of
+   16-byte loads, a windowed case of 8 query heads a kv head at head
+   size 128, the gemma2-2b serving shapes (global and local) and phase
+   4i's attention shapes (jamba's 64 / 8 heads of 128 over 2048 tokens;
+   mixtral's 32 / 8 heads of 128, a 4096-token window, 2 x 4608 tokens),
+   each in both dtypes; each call must add one launch to the count of
    each kernel its dtype takes; the float32 split pass is bit-equal to its
    plain version at the serving shape and on the strided views.
    WKV6: the JAX package's test cases, every head size at a length that
@@ -28,8 +31,11 @@
    exactly 0, below 1e-4, above 0.999) and the rwkv6-3b serving shape,
    with and without an incoming state.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
-   shapes.  The batched consensus kernels (a sweep group's form: B
-   experiments in one launch): B in ``BATCH_B`` (1, 3, 4, 8: the
+   shapes (SDPA: is_causal where there is no window, the window as a
+   boolean mask where there is; without gemma2's softcap, which it cannot
+   apply; at phase 4i's shapes it computes the same function).  The
+   batched consensus kernels (a sweep group's form: B experiments in one
+   launch): B in ``BATCH_B`` (1, 3, 4, 8: the
    Figure-2 groups' 4 among them), m in {4, 5, 16}, one
    matrix shared by the batch or one each, a distinct alpha each, both
    dtypes, rows aligned and one element into their storage (the 16-byte
@@ -91,20 +97,24 @@
    warm-up steps and a round every 2 steps; INTERACT with top-5% and
    gamma = 0.5; SVR-INTERACT and D-SGD with int8; GT-DSGD over
    link-failure (p = 0.3, a 40-step stream); INTERACT over the adaptive
-   process (tau = 1).  Each row: ``solve`` on ``cuda``, 40 captured steps
+   process (tau = 1).  Each row: ``solve`` on ``cuda``, ``ROW_STEPS`` =
+   26 captured steps (40 before phase 4i joined, cut for the script's
+   time limit; 26 keeps SVR-INTERACT's refresh step; each row's checks
+   at that depth: ``ROW_RTOL`` is 26 times the one-step bound,
+   ``WIRE_RTOL`` likewise scaled)
    (counts set to 0 just before it, read just after: the wrappers count
    its graphs' warm-up steps and captures and the 6 round-latency mixes);
    its measured wire bytes must equal the port's priced
-   ``cumulative_wire_bytes`` exactly.  Then the same 40 steps by
-   ``run_traced`` in two calls (8 and 32 steps, step and eq.-11 metric
-   replayed: M_0, M_8, M_40), whose state must equal ``solve``'s bit for
-   bit and whose trace must fall; then 40 replays of those graphs
+   ``cumulative_wire_bytes`` exactly.  Then the same 26 steps by
+   ``run_traced`` in two calls (8 and 18 steps, step and eq.-11 metric
+   replayed: M_0, M_8, M_26), whose state must equal ``solve``'s bit for
+   bit and whose trace must fall; then 26 replays of those graphs
    (``replays``) alone under ``torch.profiler``, whose consensus
    kernel events (``counted_launches``, as in 4) must be the row's, with
    nothing launched from the host; 8 eager steps on ``cuda``, whose M_0,
    M_8 and state must equal the captured ones bit for bit; and ``solve`` on
    ``dense`` (it launches no kernel), whose bytes must equal the priced
-   ones and whose M_40 must be within ``TRACE_RTOL`` of cuda's
+   ones and whose M_26 must be within ``ROW_RTOL`` of cuda's
    (``WIRE_RTOL`` for the compressed rows).  Stream rows also print the
    per-link ``stream_wire_bytes`` and the mean spectral gap, and hold
    both kernels on the last round matrix against their plain versions.
@@ -116,16 +126,16 @@
    weighted sign-flip row under a NaN and norm (1e3) guard.  Clean
    INTERACT on the complete graph, captured on ``cuda`` and ``dense``,
    gives the baselines.  Each row runs as a wire row (captured ``solve``,
-   ``run_traced`` in two calls, 40 profiled replays, 8 eager steps,
+   ``run_traced`` in two calls, 26 profiled replays, 8 eager steps,
    ``dense``), with states compared bit for bit (NaN where NaN: the
    weighted rows overflow) and measured bytes equal to priced ones
-   (attacks do not change the wire).  Row gates: weighted M_40 at least
+   (attacks do not change the wire).  Row gates: weighted M_26 at least
    10x the clean one or non-finite on both backends; zero attackers
    bit for bit the clean ``dense`` run, and ``cuda`` within
-   ``TRACE_RTOL`` of the clean ``cuda`` M_40; trimmed-mean contains the
-   attacker (a finite M_40 below M_0 on both backends; its factor over
+   ``ROW_RTOL`` of the clean ``cuda`` M_26; trimmed-mean contains the
+   attacker (a finite M_26 below M_0 on both backends; its factor over
    the same rule with no attacker, the reference's 3x gate, is
-   reported); ``cuda`` and ``dense`` traces within ``TRACE_RTOL``
+   reported); ``cuda`` and ``dense`` traces within ``ROW_RTOL``
    where finite and non-finite together (the median's honest agents
    finite); the guard's counters equal across captured, eager and
    ``dense``, with a finite final state.
@@ -210,6 +220,37 @@
    ``LM_SVR_STEPS`` steps with q = ``LM_SVR_Q`` (recursive, refresh,
    recursive), finite and equal on every rank.  Prints the phase's
    seconds.
+4i. Mamba and MoE serving (``MOE_MAMBA_RUNS``, the cuts printed on the
+   phase's first line): mixtral-8x7b at its published widths (d_model
+   4096, d_ff 14336, 8 experts top 2, 32 / 8 heads of 128, a 4096-token
+   window, vocab 32000) cut to 8 of its 32 layers, batch 2, prompts of
+   4608 tokens; jamba-1.5-large at its published widths (d_model 8192,
+   d_inner 16384, d_state 16, d_conv 4, d_ff 24576, 64 / 8 heads of 128,
+   vocab 65536, top 2) cut to one period (8 of its 72 layers: attention,
+   then 7 mamba layers, moe on every other) and 8 of its 16 experts,
+   batch 1, prompts of 2048 tokens; 16 greedy decode steps each, random
+   weights from a seed.  (a) bfloat16, the flow of phase 5 (kernel
+   prefill, plain cached prefill, decode, kernel prefill of the prompt
+   and the fed tokens), gated on finite logits and on the flash launches
+   (8 a prefill for mixtral, 1 for jamba), with the same timings and
+   profiles, the peak memory and each moe layer's share of dropped token
+   slots on the kernel prefill's capacity route (``moe_drop_shares``).
+   (b) float32 at depth 2 (``MOE_MAMBA_GATE_CUTS``: mixtral's first two
+   layers; jamba's attention layer with its dense ffn and a mamba layer
+   with its moe ffn at 8 experts), the float32 flash path, gated at
+   ``SERVE_RTOL`` like with like: ``gap_a_b`` the kernel prefill against
+   the capacity route's plain prefill (``make_prefill_step(attn_impl=
+   "reference")``), ``gap_c_d`` the last decode step against the exact
+   route's cached prefill of the prompt and the fed tokens (the mamba
+   state, the conv tail and the window ring carried); the capacity
+   against exact gaps are reported beside them.  (c) the reduced float32
+   configs of tests/test_torch_lm.py on the card and on the CPU from the
+   same parameters (``CARD_CPU_RUN``: the kernel prefill, the cached
+   prefill and 4 decode steps), within ``CARD_CPU_RTOL`` of each
+   logit's scale.  Between (a) and (b), ``moe_mamba_breakdown`` times one
+   moe ffn and its expert products, and one mamba layer's scan and whole
+   block, alone at the bfloat16 prefill shapes: the dispatch's and the
+   scan's shares of a prefill.  Prints the phase's seconds.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -228,8 +269,9 @@
    three runs.
 6. Prints a ``{"kernels": [...]}`` line (with the registers and spills
    nvcc reports for each instantiation of the redesigned kernels, the
-   row-block forms with phase 4g's launches and the bf16 flash kernel
-   with phase 4h's), the
+   row-block forms with phase 4g's launches, the bf16 flash kernel with
+   phase 4h's, and the flash kernels with phase 4i's launches and their
+   times at its shapes), the
    card's name and power limit,
    then the last line ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
@@ -293,29 +335,35 @@ PRIMER_SYMBOL = "spin_kernel"    # what torch.cuda._sleep launches
 # the eager step's kernels in its order: the gap is expected to be 0).
 TRACE_RTOL = NUM_STEPS * 2e-6
 
+# The wire (4c) and Byzantine (4d) rows run ROW_STEPS steps (40 before
+# phase 4i joined, cut for the script's time limit; 26 is the least that
+# keeps SVR-INTERACT's refresh step, q = 25, in its rows), each checked
+# at that depth: ROW_RTOL is ROW_STEPS times the 2e-6 one-step bound.
+ROW_STEPS = 26
+ROW_RTOL = ROW_STEPS * 2e-6
 # The wire phase (4c): chip_smoke's rows of the compressed wire and the
 # time-varying topologies, each (algorithm, options, the consensus
-# kernels the 40 replayed steps of its captured ``solve`` launch).  A
+# kernels the ROW_STEPS replayed steps of its captured ``solve`` launch).  A
 # mixing step of the wire path is two consensus_mix launches (x and u;
 # one for D-SGD), a silent step none; a topology stream without a wire
 # is one consensus_step a step, fed a fresh matrix.
 WIRE_ROWS = {
     "sign1bit-ef-warm5-k2": ("interact", dict(
         compression=dict(kind="sign1bit", compress_after=5),
-        communication_interval=2), dict(consensus_mix=40, consensus_step=0)),
+        communication_interval=2), dict(consensus_mix=26, consensus_step=0)),
     "topk-gamma0.5": ("interact", dict(
         compression=dict(kind="topk", topk_frac=0.05, gamma=0.5)),
-        dict(consensus_mix=80, consensus_step=0)),
+        dict(consensus_mix=52, consensus_step=0)),
     "int8-ef svr-interact": ("svr-interact", dict(
         compression=dict(kind="int8")),
-        dict(consensus_mix=80, consensus_step=0)),
+        dict(consensus_mix=52, consensus_step=0)),
     "int8-ef d-sgd": ("d-sgd", dict(compression=dict(kind="int8")),
-                      dict(consensus_mix=40, consensus_step=0)),
+                      dict(consensus_mix=26, consensus_step=0)),
     "link-failure-0.3": ("gt-dsgd", dict(topology_process=dict(
         kind="link-failure", p=0.3, period=40)),
-        dict(consensus_mix=0, consensus_step=40)),
+        dict(consensus_mix=0, consensus_step=26)),
     "adaptive": ("interact", dict(topology_process=dict(
-        kind="adaptive", tau=1.0)), dict(consensus_mix=0, consensus_step=40)),
+        kind="adaptive", tau=1.0)), dict(consensus_mix=0, consensus_step=26)),
 }
 # The short eager run each wire row is held to, captured against eager,
 # bit for bit: 8 steps take sign1bit-ef-warm5-k2 through warm-up, silent
@@ -324,29 +372,29 @@ WIRE_EAGER_STEPS = 8
 # consensus_mix launches of solve's round-latency timing (time_round_us:
 # one warm call and 5 timed ones)
 ROUND_LATENCY_MIXES = 6
-# cuda against dense, M_40 relative: the uncompressed topology rows take
-# TRACE_RTOL (40 steps times the 2e-6 one-step bound); the compressed rows
-# WIRE_RTOL, the 6.4e-7 largest one-step gap of the six rows against the
-# JAX package (tests/test_torch_wire.py) times 40 steps times a margin of
-# 4 for the compressors' discontinuities (an int8 rounding, a top-k near
-# tie or a sign that a rounding difference flips), 1e-4.
-WIRE_RTOL = 1e-4
+# cuda against dense, the last M relative: the uncompressed topology rows
+# take ROW_RTOL; the compressed rows WIRE_RTOL, the 6.4e-7 largest
+# one-step gap of the six rows against the JAX package
+# (tests/test_torch_wire.py) times ROW_STEPS times a margin of 4 for the
+# compressors' discontinuities (an int8 rounding, a top-k near tie or a
+# sign that a rounding difference flips): 6.7e-5 (1e-4 at 40 steps).
+WIRE_RTOL = 6.4e-7 * ROW_STEPS * 4
 
 # The Byzantine phase (4d): chip_smoke's rows of the Byzantine layer on
 # the Section-6 instance, each (algorithm, ER edge probability (1.0: the
 # complete graph of benchmarks/bench_byzantine.py), ByzantineConfig
-# options, GuardConfig options, the consensus kernels the 40 replayed
-# steps of its captured ``solve`` launch).  An attack or a robust rule
+# options, GuardConfig options, the consensus kernels the ROW_STEPS
+# replayed steps of its captured ``solve`` launch).  An attack or a robust rule
 # puts the step on the wire path: a weighted round is two consensus_mix
 # launches, a robust rule's combine launches no consensus kernel (plain
 # PyTorch, as the reference's is jnp outside any Pallas kernel).
 SIGN_FLIP1 = dict(kind="sign-flip", num_byzantine=1, scale=25.0)
 BYZANTINE_ROWS = {
     "signflip1-weighted": ("interact", 1.0, SIGN_FLIP1, None,
-                           dict(consensus_mix=80, consensus_step=0)),
+                           dict(consensus_mix=52, consensus_step=0)),
     "signflip0-weighted": ("interact", 1.0, dict(SIGN_FLIP1,
                                                  num_byzantine=0), None,
-                           dict(consensus_mix=80, consensus_step=0)),
+                           dict(consensus_mix=52, consensus_step=0)),
     "signflip1-trimmed1": ("interact", 1.0, dict(
         SIGN_FLIP1, combine="trimmed-mean", trim=1), None,
         dict(consensus_mix=0, consensus_step=0)),
@@ -357,14 +405,14 @@ BYZANTINE_ROWS = {
         kind="gaussian", num_byzantine=2, scale=25.0, combine="krum-like"),
         None, dict(consensus_mix=0, consensus_step=0)),
     "signflip1-weighted-guard": ("interact", 1.0, SIGN_FLIP1, dict(
-        nan=True, max_norm=1e3), dict(consensus_mix=80, consensus_step=0)),
+        nan=True, max_norm=1e3), dict(consensus_mix=52, consensus_step=0)),
 }
 # benchmarks/bench_byzantine.py's gates: one sign-flip attacker under the
 # weighted rule ends beyond 10x the clean run's M (or non-finite), gated
 # here; trimmed-mean with f = 1 within 3x of the same rule with no
 # attacker, reported here and not gated: on this instance the JAX
 # package's own runs end far beyond it too (ROADMAP Queue C), so the
-# trimmed row is gated on containment (a finite M_40 below M_0)
+# trimmed row is gated on containment (a finite last M below M_0)
 WEIGHTED_DIVERGE_FACTOR = 10.0
 TRIMMED_GATE_FACTOR = 3.0
 
@@ -478,6 +526,11 @@ FLASH_SHAPES = [
 # gemma2-2b's two layer kinds at the serving shape
 GEMMA_GLOBAL = (4, 4608, 4608, 8, 4, 256, True, None, 50.0, 0)
 GEMMA_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0)
+# phase 4i's attention layers: jamba's (64 q heads over 8 kv heads, no
+# window) and mixtral's (32 over 8, a 4096-token window on every layer),
+# head size 128, no softcap, at their prefill shapes
+JAMBA_ATTN = (1, 2048, 2048, 64, 8, 128, True, None, None, 0)
+MIXTRAL_ATTN = (2, 4608, 4608, 32, 8, 128, True, 4096, None, 0)
 FLASH_CASES = (
     [c + ("float32",) for c in FLASH_SHAPES]
     + [c + ("bfloat16",) for c in FLASH_SHAPES]
@@ -487,13 +540,21 @@ FLASH_CASES = (
        (4, 256, 256, 15, 5, 64, True, None, None, 0, "bfloat16"),
        (4, 256, 256, 15, 5, 64, True, None, None, 0, "float32"),
        (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, "float32"),
-       (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, "float32")])
-# Checked and timed: both dtypes at gemma2's global and local shapes.
+       (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, "float32")]
+    # 8 q heads a kv head at head size 128, windowed and ragged
+    + [(1, 300, 300, 16, 2, 128, True, 100, None, 0, dt)
+       for dt in ("float32", "bfloat16")])
+# Checked and timed: both dtypes at gemma2's global and local shapes and
+# at phase 4i's two.
 FLASH_MAIN = {
     "global": GEMMA_GLOBAL + ("bfloat16",),
     "local": GEMMA_LOCAL + ("bfloat16",),
     "global_f32": GEMMA_GLOBAL + ("float32",),
     "local_f32": GEMMA_LOCAL + ("float32",),
+    "jamba": JAMBA_ATTN + ("bfloat16",),
+    "jamba_f32": JAMBA_ATTN + ("float32",),
+    "mixtral": MIXTRAL_ATTN + ("bfloat16",),
+    "mixtral_f32": MIXTRAL_ATTN + ("float32",),
 }
 # float32: as tests/test_kernels.py (tests/test_torch_flash_attention.py
 # emulates the split-operand kernel's arithmetic at under a third of it).
@@ -539,6 +600,24 @@ SERVE_REPS = 3
 # Float32 gate on the logits, relative to their max-abs scale: the
 # tolerance of the JAX package's tests/test_prefill_cache.py.
 SERVE_RTOL = 1e-3
+# Phase 4i, mamba and MoE serving: each model at its published widths,
+# cut in depth (and jamba in experts) to fit the one card; (cuts, batch,
+# prompt tokens, greedy decode steps) in bfloat16, then the float32 gate
+# at depth 2 (mixtral's first two layers; jamba's attention layer with
+# its dense ffn and a mamba layer with its moe ffn).
+MOE_MAMBA_RUNS = {
+    "mixtral-8x7b": (dict(num_layers=8), 2, 4608, 16),
+    "jamba-1.5-large-398b": (dict(num_layers=8, num_experts=8), 1, 2048, 16),
+}
+MOE_MAMBA_GATE_CUTS = {
+    "mixtral-8x7b": dict(num_layers=2),
+    "jamba-1.5-large-398b": dict(num_layers=2, attn_every=2, num_experts=8),
+}
+# Phase 4i's card-against-CPU run: tests/test_torch_lm.py's reduced
+# float32 configs (four layers), its batch and prompt, 4 decode steps;
+# the logits within CARD_CPU_RTOL of their max-abs scale.
+CARD_CPU_RUN = (2, 72, 4)
+CARD_CPU_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1173,6 +1252,12 @@ def check_flash(torch) -> dict:
             continue
         # SDPA in its own (b, h, s, hd) layout, made beforehand
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_call = (
+            "scaled_dot_product_attention(enable_gqa=True), "
+            + ("is_causal=True" if window is None else
+               "the causal window as a boolean attn_mask")
+            + (": the same function" if cap is None else
+               ", without the softcap, which it cannot apply"))
         if window is None:
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -1189,7 +1274,7 @@ def check_flash(torch) -> dict:
             library_ms = None
         timings[main_name] = dict(
             shape=[b, sq, skv, nh, nkv, hd], window=window, softcap=cap,
-            dtype=dt, library_ms=library_ms)
+            dtype=dt, library_ms=library_ms, library_call=library_call)
         if dt == "bfloat16":
             bound, by = flash_bound_ms(b, sq, skv, nh, nkv, hd, causal,
                                        window, q_off, q.element_size())
@@ -1305,20 +1390,52 @@ def check_wkv6(torch) -> dict:
     return dict(err=err, timing=timing)
 
 
-def serve_model(torch, arch: str, dtype: str) -> dict:
-    """One model's serving flow at full size (see the module docstring).
+def moe_drop_shares(torch, run):
+    """``(run(), shares)``: the share of token slots each call of the moe
+    ffn's capacity route dropped during ``run()``, in call order (one a
+    moe layer in a forward), from ``capacity_routing`` on the ffn's own
+    input."""
+    from repro_torch.models import moe as Moe
+    ffn, shares = Moe.moe_ffn, []
 
-    Returns the kernel launches of the run, the two logit gaps, and the
-    prefill and decode times."""
-    from repro_torch.configs import get_config
+    def recording(params, x, *, num_experts, top_k, capacity_factor=1.25,
+                  token_chunk=None, expert_parallel=False):
+        check(token_chunk is None, "moe_drop_shares: chunked routing")
+        r = Moe.capacity_routing(params, x.reshape(-1, x.shape[-1]),
+                                 num_experts=num_experts, top_k=top_k,
+                                 capacity_factor=capacity_factor)
+        shares.append(1.0 - float(r.keep.float().mean()))
+        return ffn(params, x, num_experts=num_experts, top_k=top_k,
+                   capacity_factor=capacity_factor,
+                   expert_parallel=expert_parallel)
+
+    Moe.moe_ffn = recording
+    try:
+        out = run()
+    finally:
+        Moe.moe_ffn = ffn
+    return out, shares
+
+
+def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
+                ) -> dict:
+    """One model's serving flow (see the module docstring, phases 4i and
+    5) for ``cfg`` in its dtype: float32 gated, bfloat16 profiled.
+
+    Returns the kernel launches of the run, the logit gaps, and the
+    prefill and decode times.  A moe ffn's kernel prefill routes by
+    capacity and the cached path exactly, so for a moe config ``gap_a_b``
+    holds the kernel prefill against the capacity route's plain prefill
+    and ``gap_c_d`` the last decode step against the cached prefill of
+    the prompt and the fed tokens; the capacity-against-exact gaps and
+    each moe layer's dropped share stand beside them, ungated."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch.serving import make_prefill_step, make_serve_step
     from repro_torch.models import model as M
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
-    batch, prompt_len, steps = SERVE_RUNS[arch]
+    arch, dtype, moe = cfg.name, cfg.dtype, cfg.num_experts > 0
     specs = cfg.layer_pattern() * cfg.num_periods()
     n_attn = sum(s.mixer == "attn" for s in specs)
     # flash_attention counts the flash calls of either dtype; every bf16
@@ -1341,6 +1458,10 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
         return float((x.float() - y.float()).abs().max()
                      / y.float().abs().max())
 
+    def cached_prefill(toks, max_len):
+        return M.prefill(cfg, params, None, toks,
+                         M.init_cache(cfg, batch, max_len, device=dev))
+
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1358,11 +1479,16 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
             for name in c:
                 c[name] = 0
         # (a) the kernel prefill
-        logits_a = prefill(params, tokens)
+        logits_a, drop_shares = moe_drop_shares(
+            torch, lambda: prefill(params, tokens))
         torch.cuda.synchronize()
         check(launches() == per_prefill,
               f"{arch}: a prefill launched {launches()}, expected "
               f"{per_prefill}")
+        gaps = {}
+        if moe:   # the capacity route's plain prefill
+            gaps["gap_a_b"] = gap(logits_a, make_prefill_step(
+                cfg, attn_impl="reference", device=dev)(params, tokens))
         # (b) the plain prefill into a fresh cache, with room for the
         # gated decode steps, SERVE_REPS timed runs of them and the
         # profiled step
@@ -1371,7 +1497,7 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
                              device=dev)
         logits_b, cache = M.prefill(cfg, params, None, tokens, cache)
         torch.cuda.synchronize()
-        check(launches() == per_prefill, f"{arch}: the plain prefill "
+        check(launches() == per_prefill, f"{arch}: the plain prefills "
               "launched a kernel")
         # (c) greedy decode, one token per request a step
         fed = []
@@ -1390,17 +1516,25 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
               f"{arch}: launches {counts}, expected two prefills' worth")
         finite = all(bool(torch.isfinite(x).all())
                      for x in (logits_a, logits_b, logits_c, logits_d))
-        gaps = dict(gap_a_b=gap(logits_a, logits_b),
-                    gap_c_d=gap(logits_c, logits_d))
+        if moe:
+            # the exact route's cached prefill of the same tokens
+            logits_e = cached_prefill(torch.cat([tokens] + fed, dim=1),
+                                      prompt_len + steps)[0]
+            finite = finite and bool(torch.isfinite(logits_e).all())
+            gaps.update(gap_c_d=gap(logits_c, logits_e),
+                        gap_capacity_exact_prefill=gap(logits_a, logits_b),
+                        gap_capacity_exact_decode=gap(logits_c, logits_d),
+                        drop_shares=drop_shares)
+            del logits_e
+        else:
+            gaps.update(gap_a_b=gap(logits_a, logits_b),
+                        gap_c_d=gap(logits_c, logits_d))
 
         # -- timing, after the counts were read; (a)-(d) were the warm-up
         prefill_runs = wall_ms(torch, lambda: prefill(params, tokens),
                                SERVE_REPS)
         plain_prefill_runs = wall_ms(
-            torch, lambda: M.prefill(
-                cfg, params, None, tokens,
-                M.init_cache(cfg, batch, prompt_len, device=dev)),
-            SERVE_REPS)
+            torch, lambda: cached_prefill(tokens, prompt_len), SERVE_REPS)
         decode_runs = []
         for _ in range(SERVE_REPS):
             torch.cuda.synchronize()
@@ -1419,7 +1553,8 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
                 torch, lambda: serve(params, tok, cache, position), 1)
         decode_ms = statistics.median(decode_runs)
         result = dict(
-            arch=arch, dtype=dtype, batch=batch, prompt_len=prompt_len,
+            arch=arch, dtype=dtype, layers=cfg.num_layers,
+            experts=cfg.num_experts, batch=batch, prompt_len=prompt_len,
             decode_steps=steps, launches=counts, **gaps,
             logits_scale=float(logits_b.float().abs().max()),
             prefill_ms=statistics.median(prefill_runs),
@@ -1436,13 +1571,177 @@ def serve_model(torch, arch: str, dtype: str) -> dict:
     print(f"serve: {json.dumps(result)}", flush=True)
     check(finite, f"{arch} {dtype}: non-finite logits")
     if dtype == "float32":
+        what = ("the capacity route's plain prefill" if moe
+                else "plain cached prefill")
         check(result["gap_a_b"] <= SERVE_RTOL,
-              f"{arch}: kernel prefill vs plain cached prefill gap "
+              f"{arch}: kernel prefill vs {what} gap "
               f"{result['gap_a_b']:.3e} > {SERVE_RTOL}")
+        what = "cached prefill" if moe else "kernel prefill"
         check(result["gap_c_d"] <= SERVE_RTOL,
-              f"{arch}: last decode step vs kernel prefill gap "
+              f"{arch}: last decode step vs {what} gap "
               f"{result['gap_c_d']:.3e} > {SERVE_RTOL}")
     return result
+
+
+def serve_card_vs_cpu(torch, arch: str) -> dict:
+    """Phase 4i (c): tests/test_torch_lm.py's reduced float32 ``arch`` on
+    the card and on the CPU from the same parameters: the kernel prefill
+    of the prompt, the cached prefill and ``CARD_CPU_RUN``'s decode
+    steps; the largest logit gap over them, relative to each one's scale,
+    and the card's flash launches (one kernel prefill's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.serving import make_prefill_step, make_serve_step
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cpu = torch.device("cpu")
+    cfg = get_config(arch).reduced(num_prefix_tokens=0, frontend="none",
+                                   num_layers=4)
+    batch, prompt, steps = CARD_CPU_RUN
+    params = {cpu: M.init_params(cfg, seed=0, with_head=True, device=cpu)}
+    params[dev] = torch.utils._pytree.tree_map(lambda t: t.to(dev),
+                                               params[cpu])
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps),
+                           generator=torch.Generator().manual_seed(1))
+
+    def run(device):
+        p, toks = params[device], tokens.to(device)
+        serve = make_serve_step(cfg, device=device)
+        outs = [make_prefill_step(cfg, attn_impl="cuda", device=device)(
+            p, toks[:, :prompt])]
+        logits, cache = M.prefill(cfg, p, None, toks[:, :prompt],
+                                  M.init_cache(cfg, batch, prompt + steps,
+                                               device=device))
+        outs.append(logits)
+        for t in range(prompt, prompt + steps):
+            logits, cache = serve(p, toks[:, t:t + 1], cache, t)
+            outs.append(logits)
+        return [o.float().cpu() for o in outs]
+
+    with torch.inference_mode():
+        for name in fa_ops.LAUNCHES:
+            fa_ops.LAUNCHES[name] = 0
+        card = run(dev)
+        launches = dict(fa_ops.LAUNCHES)
+        host = run(cpu)
+    gaps = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(card, host)]
+    n_attn = sum(s.mixer == "attn"
+                 for s in cfg.layer_pattern() * cfg.num_periods())
+    result = dict(arch=arch, layers=cfg.num_layers, batch=batch,
+                  prompt_len=prompt, decode_steps=steps, gaps=gaps,
+                  launches=launches)
+    print(f"serve card vs cpu: {json.dumps(result)}", flush=True)
+    check(all(bool(torch.isfinite(x).all()) for x in card + host),
+          f"{arch} reduced: non-finite logits")
+    check(max(gaps) <= CARD_CPU_RTOL,
+          f"{arch} reduced: card vs CPU logit gap {max(gaps):.3e} > "
+          f"{CARD_CPU_RTOL}")
+    check(launches["flash_attention_f32"] == n_attn
+          and launches["flash_attention_tc"] == 0,
+          f"{arch} reduced: flash launches {launches}, expected {n_attn} "
+          "float32 ones")
+    return result
+
+
+def moe_mamba_breakdown(torch, runs: dict) -> dict:
+    """Where phase 4i's bfloat16 kernel prefills spend their time: one moe
+    ffn (capacity route) and its three expert products alone, and one
+    mamba layer's scan (``_ssm_apply``) and whole block alone, each at
+    its model's prefill shape on random inputs (median CUDA-event times),
+    and their shares of the measured ``prefill_ms`` counted over the
+    model's layers.  The dispatch is the moe ffn less its expert
+    products: routing, the copy into the expert buffers, the gather back
+    and the aux."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as Mb
+    from repro_torch.models import moe as Moe
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16 = torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        for arch, (cut, batch, prompt, _) in MOE_MAMBA_RUNS.items():
+            cfg = dataclasses.replace(get_config(arch), dtype="bfloat16",
+                                      **cut)
+            specs = cfg.layer_pattern() * cfg.num_periods()
+            n_moe = sum(s.ffn == "moe" for s in specs)
+            n_mamba = sum(s.mixer == "mamba" for s in specs)
+            prefill_ms = runs[arch, "bfloat16"]["prefill_ms"]
+            x = torch.randn(batch, prompt, cfg.d_model, generator=gen,
+                            device=dev).to(bf16)
+            rec = dict(prefill_ms=prefill_ms, moe_layers=n_moe,
+                       mamba_layers=n_mamba)
+            if n_moe:
+                p = Moe.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                 cfg.num_experts, bf16, dev)
+                kw = dict(num_experts=cfg.num_experts,
+                          top_k=cfg.experts_per_token,
+                          capacity_factor=cfg.capacity_factor)
+                capacity = Moe.capacity_routing(
+                    p, x.reshape(-1, cfg.d_model), **kw).capacity
+                xe = torch.randn(cfg.num_experts, capacity, cfg.d_model,
+                                 generator=gen, device=dev).to(bf16)
+                moe_ms = time_ms(torch, lambda: Moe.moe_ffn(p, x, **kw), 3,
+                                 reps=5)
+                experts_ms = time_ms(torch, lambda: torch.bmm(
+                    F.silu(torch.bmm(xe, p["w_gate"]))
+                    * torch.bmm(xe, p["w_up"]), p["w_down"]), 3, reps=5)
+                rec.update(moe_ffn_ms=moe_ms, experts_ms=experts_ms,
+                           dispatch_ms=moe_ms - experts_ms,
+                           moe_share=n_moe * moe_ms / prefill_ms,
+                           dispatch_share=(n_moe * (moe_ms - experts_ms)
+                                           / prefill_ms))
+                del p, xe
+            if n_mamba:
+                p = Mb.init_mamba(gen, cfg.d_model, cfg.mamba_d_state,
+                                  cfg.mamba_d_conv, cfg.mamba_expand, bf16,
+                                  dev)
+                u = torch.randn(batch, prompt, cfg.mamba_expand * cfg.d_model,
+                                generator=gen, device=dev).to(bf16)
+                dt, B, C, A = Mb._ssm_params(p, u)
+                scan_ms = time_ms(torch, lambda: Mb._ssm_apply(
+                    p, u, dt, B, C, A), 1, reps=3)
+                block_ms = time_ms(torch, lambda: Mb.mamba_block(p, x), 1,
+                                   reps=3)
+                rec.update(scan_ms=scan_ms, mamba_block_ms=block_ms,
+                           scan_share=n_mamba * scan_ms / prefill_ms,
+                           mamba_share=n_mamba * block_ms / prefill_ms)
+                del p, u, dt, B, C
+            out[arch] = rec
+            del x
+    torch.cuda.empty_cache()
+    print(f"mamba and moe prefill breakdown: {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_moe_mamba_serving(torch) -> dict:
+    """Phase 4i (see the module docstring): mixtral-8x7b and jamba-1.5-large
+    served at their published widths in bfloat16, the float32 gate at
+    depth 2, and the reduced configs on the card against the CPU."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    print("mamba and moe serving: cuts " + json.dumps(
+        {arch: dict(bfloat16=cut, float32=MOE_MAMBA_GATE_CUTS[arch])
+         for arch, (cut, *_) in MOE_MAMBA_RUNS.items()}), flush=True)
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for arch, (cut, batch, prompt, steps) in MOE_MAMBA_RUNS.items():
+            if dtype == "float32":
+                cut = MOE_MAMBA_GATE_CUTS[arch]
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype, **cut)
+            runs[arch, dtype] = serve_model(torch, cfg, batch, prompt, steps)
+        if dtype == "bfloat16":
+            breakdown = moe_mamba_breakdown(torch, runs)
+    card_vs_cpu = {arch: serve_card_vs_cpu(torch, arch)
+                   for arch in MOE_MAMBA_RUNS}
+    took = time.perf_counter() - t_phase
+    print(f"mamba and moe serving phase: {took:.1f} s", flush=True)
+    return dict(runs=runs, breakdown=breakdown, card_vs_cpu=card_vs_cpu,
+                seconds=took)
 
 
 def wall_ms(torch, fn, reps: int) -> list[float]:
@@ -1759,7 +2058,7 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     for kernel in ops.LAUNCHES:
         ops.LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
-    res = solve(wire_config(algo, opts, "cuda"), NUM_STEPS, **setup)
+    res = solve(wire_config(algo, opts, "cuda"), ROW_STEPS, **setup)
     solve_wall = time.perf_counter() - t0
     wrapper = dict(ops.LAUNCHES)
     captures = {}
@@ -1777,15 +2076,15 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
     state8, head = solver.run_traced(state0, data, WIRE_EAGER_STEPS,
                                      WIRE_EAGER_STEPS, eq11)
-    state40, tail = solver.run_traced(state8, data,
-                                      NUM_STEPS - WIRE_EAGER_STEPS,
-                                      NUM_STEPS - WIRE_EAGER_STEPS, eq11)
+    state_end, tail = solver.run_traced(state8, data,
+                                      ROW_STEPS - WIRE_EAGER_STEPS,
+                                      ROW_STEPS - WIRE_EAGER_STEPS, eq11)
     trace = head.tolist() + tail.tolist()[1:]
     graphs = sorted(str(key) for key in solver.stepper.graphs)
-    # the consensus kernels the card ran in 40 replays of those graphs,
+    # the consensus kernels the card ran in ROW_STEPS replays of those graphs,
     # alone in the profiled window (every graph is captured already)
     _, replayed, windows = counted_launches(
-        torch, ops, lambda: replays(solver.stepper, state0, NUM_STEPS),
+        torch, ops, lambda: replays(solver.stepper, state0, ROW_STEPS),
         lambda wrapper: want)
     check(all(v == 0 for v in ops.LAUNCHES.values()),
           f"wire {name}: a kernel was launched from the host between "
@@ -1810,28 +2109,28 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     solve_gap = max(
         float((a - b).abs().max()) for a, b in zip(
             torch.utils._pytree.tree_leaves(res.state),
-            torch.utils._pytree.tree_leaves(state40))
+            torch.utils._pytree.tree_leaves(state_end))
         if isinstance(a, torch.Tensor))
 
-    # dense, captured through solve, and its M_40 by the eager metric
+    # dense, captured through solve, and its last M by the eager metric
     for kernel in ops.LAUNCHES:
         ops.LAUNCHES[kernel] = 0
-    res_d = solve(wire_config(algo, opts, "dense"), NUM_STEPS, **setup)
+    res_d = solve(wire_config(algo, opts, "dense"), ROW_STEPS, **setup)
     check(all(v == 0 for v in ops.LAUNCHES.values()),
           f"wire {name}: the dense run launched a kernel: {ops.LAUNCHES}")
-    m40_dense = host(res_d.state)
-    rel_dense = abs(trace[-1] - m40_dense) / abs(m40_dense)
-    tol = WIRE_RTOL if "compression" in opts else TRACE_RTOL
+    m_end_dense = host(res_d.state)
+    rel_dense = abs(trace[-1] - m_end_dense) / abs(m_end_dense)
+    tol = WIRE_RTOL if "compression" in opts else ROW_RTOL
 
     config = wire_config(algo, opts, "cuda")
     comms = solver.communications_per_step
     entries = sum(leaf[0].numel() for leaf in
                   torch.utils._pytree.tree_leaves(res.state.x))
-    priced = cumulative_wire_bytes(config.compression, entries, NUM_STEPS,
+    priced = cumulative_wire_bytes(config.compression, entries, ROW_STEPS,
                                    comms, config.communication_interval)[-1]
     rec = dict(
-        row=name, algo=algo, steps=NUM_STEPS, trace_captured=trace,
-        trace_eager=trace_e, m40_dense=m40_dense,
+        row=name, algo=algo, steps=ROW_STEPS, trace_captured=trace,
+        trace_eager=trace_e, m_end_dense=m_end_dense,
         us_per_step_captured=res.us_per_step, us_per_step_eager=us_eager,
         eager_steps=WIRE_EAGER_STEPS, graphs=graphs,
         launches_replayed=replayed, launches_replay_windows=windows,
@@ -1849,7 +2148,7 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
     stream = stream_of(solver._engine)
     if stream is not None:
         rec.update(stream_wire_bytes=stream_wire_bytes(
-            stream, config.compression, entries, NUM_STEPS, comms,
+            stream, config.compression, entries, ROW_STEPS, comms,
             config.communication_interval)[-1],
             mean_spectral_gap=stream.mean_spectral_gap,
             period=stream.num_steps)
@@ -1869,29 +2168,30 @@ def run_wire_row(torch, ops, name: str, problem, x0, y0, data) -> dict:
         check(rec["round_matrix_kernel_err"] <= F32_TOL,
               f"wire {name}: the kernels disagree on the round matrix")
     print(f"wire {name}: " + json.dumps(rec) + " (launches_replayed: the "
-          "card's kernel events in 40 replays of the row's graphs; "
+          f"card's kernel events in {ROW_STEPS} replays of the row's graphs; "
           "launches_solve_wrapper: solve's wrapper counts, its graphs' "
           "warm-up steps and captures and the round-latency mixes; "
-          "trace_captured: run_traced's M_0, M_8, M_40; trace_eager: the "
-          "eager run's M_0, M_8; us_per_step_captured: solve's)",
-          flush=True)
+          f"trace_captured: run_traced's M_0, M_8, M_{ROW_STEPS}; "
+          "trace_eager: the eager run's M_0, M_8; us_per_step_captured: "
+          "solve's)", flush=True)
     check(len(trace) == 3 and all(math.isfinite(v) for v in trace),
           f"wire {name}: trace {trace}")
-    check(trace[-1] < trace[0], f"wire {name}: M_40 = {trace[-1]} is not "
-          f"below M_0 = {trace[0]}")
+    check(trace[-1] < trace[0], f"wire {name}: M_{ROW_STEPS} = {trace[-1]} "
+          f"is not below M_0 = {trace[0]}")
     check(trace_e == trace[:2] and eager_gap == 0.0,
           f"wire {name}: captured and eager runs differ: {trace[:2]} against "
           f"{trace_e}, state gap {eager_gap}")
     check(solve_gap == 0.0, f"wire {name}: solve and run_traced differ "
           f"({solve_gap})")
-    check(rel_dense <= tol, f"wire {name}: cuda M_40 {trace[-1]} and dense "
-          f"{m40_dense} differ by {rel_dense:.3e} (tolerance {tol:.1e})")
+    check(rel_dense <= tol, f"wire {name}: cuda M_{ROW_STEPS} {trace[-1]} "
+          f"and dense {m_end_dense} differ by {rel_dense:.3e} (tolerance "
+          f"{tol:.1e})")
     check(res.measured_wire_bytes == priced
           and res_d.measured_wire_bytes == priced,
           f"wire {name}: measured {res.measured_wire_bytes} / "
           f"{res_d.measured_wire_bytes} bytes, priced {priced}")
-    check(replayed == want, f"wire {name}: the 40 replayed steps launched "
-          f"{replayed}, not {want}")
+    check(replayed == want, f"wire {name}: the {ROW_STEPS} replayed steps "
+          f"launched {replayed}, not {want}")
     return rec
 
 
@@ -1965,7 +2265,7 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
     for kernel in ops.LAUNCHES:
         ops.LAUNCHES[kernel] = 0
     t0 = time.perf_counter()
-    res = solve(config, NUM_STEPS, **setup)
+    res = solve(config, ROW_STEPS, **setup)
     solve_wall = time.perf_counter() - t0
     wrapper = dict(ops.LAUNCHES)
     captures = {}
@@ -1978,22 +2278,22 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
         captures[kernel] = eager_side // (warm + 1)
 
     walls = dict(solve=solve_wall)
-    # the same run as graphs of the step and the eq.-11 metric, 8 + 32
+    # the same run as graphs of the step and the eq.-11 metric, 8 + 18
     t0 = time.perf_counter()
     solver = make_solver(config)
     state0 = solver.init(setup["problem"], None, setup["x0"], setup["y0"],
                          data)
     state8, head = solver.run_traced(state0, data, WIRE_EAGER_STEPS,
                                      WIRE_EAGER_STEPS, eq11)
-    state40, tail = solver.run_traced(state8, data,
-                                      NUM_STEPS - WIRE_EAGER_STEPS,
-                                      NUM_STEPS - WIRE_EAGER_STEPS, eq11)
+    state_end, tail = solver.run_traced(state8, data,
+                                      ROW_STEPS - WIRE_EAGER_STEPS,
+                                      ROW_STEPS - WIRE_EAGER_STEPS, eq11)
     trace = head.tolist() + tail.tolist()[1:]
     graphs = sorted(str(key) for key in solver.stepper.graphs)
     walls["run_traced"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, replayed, windows = counted_launches(
-        torch, ops, lambda: replays(solver.stepper, state0, NUM_STEPS),
+        torch, ops, lambda: replays(solver.stepper, state0, ROW_STEPS),
         lambda wrapper: want)
     walls["profiled_replays"] = time.perf_counter() - t0
     check(all(v == 0 for v in ops.LAUNCHES.values()),
@@ -2014,23 +2314,23 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
     eager_launches = dict(ops.LAUNCHES)
     eager_equal = bits_equal(torch, state_e, state8) and bits_equal(
         torch, trace_e, trace[:2])
-    solve_equal = bits_equal(torch, res.state, state40)
+    solve_equal = bits_equal(torch, res.state, state_end)
     walls["eager"] = time.perf_counter() - t0
 
     # dense, captured through solve: no consensus kernel
     t0 = time.perf_counter()
     for kernel in ops.LAUNCHES:
         ops.LAUNCHES[kernel] = 0
-    res_d = solve(byzantine_config(name, "dense"), NUM_STEPS, **setup)
+    res_d = solve(byzantine_config(name, "dense"), ROW_STEPS, **setup)
     check(all(v == 0 for v in ops.LAUNCHES.values()),
           f"byzantine {name}: the dense run launched a kernel: "
           f"{ops.LAUNCHES}")
-    m40_dense = host(res_d.state)
+    m_end_dense = host(res_d.state)
     walls["dense"] = time.perf_counter() - t0
     comms = solver.communications_per_step
     entries = sum(leaf[0].numel() for leaf in
                   torch.utils._pytree.tree_leaves(res.state.x))
-    priced = cumulative_wire_bytes(config.compression, entries, NUM_STEPS,
+    priced = cumulative_wire_bytes(config.compression, entries, ROW_STEPS,
                                    comms, config.communication_interval)[-1]
     mask = solver._engine.attack_schedule.mask.tolist()
     honest_finite = [
@@ -2038,12 +2338,13 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
         if not mask[i] for st in (res.state, res_d.state)
         for leaf in torch.utils._pytree.tree_leaves(st.x)]
     rec = dict(
-        row=name, algo=algo, byzantine=byz, guard=guard, steps=NUM_STEPS,
+        row=name, algo=algo, byzantine=byz, guard=guard, steps=ROW_STEPS,
         byzantine_slots=[i for i, bad in enumerate(mask) if bad],
         trace_captured=[json_value(v) for v in trace],
         trace_eager=[json_value(v) for v in trace_e],
-        m40_dense=json_value(m40_dense),
-        m40_clean=clean["m40_cuda"], m40_clean_dense=clean["m40_dense"],
+        m_end_dense=json_value(m_end_dense),
+        m_end_clean=clean["m_end_cuda"],
+        m_end_clean_dense=clean["m_end_dense"],
         us_per_step_captured=res.us_per_step,
         us_per_step_eager=1e6 * took / WIRE_EAGER_STEPS,
         eager_steps=WIRE_EAGER_STEPS, graphs=graphs,
@@ -2062,9 +2363,10 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
         tripped_steps=[res.tripped_steps, res_d.tripped_steps],
         last_good_step=[res.last_good_step, res_d.last_good_step])
     print(f"byzantine {name}: " + json.dumps(rec) + " (launches_replayed: "
-          "the card's kernel events in 40 replays of the row's graphs; "
-          "trace_captured: run_traced's M_0, M_8, M_40; trace_eager: the "
-          "eager run's M_0, M_8; m40_clean: clean INTERACT on the complete "
+          f"the card's kernel events in {ROW_STEPS} replays of the row's "
+          f"graphs; trace_captured: run_traced's M_0, M_8, M_{ROW_STEPS}; "
+          "trace_eager: the eager run's M_0, M_8; m_end_clean: clean "
+          "INTERACT on the complete "
           "graph, captured; tripped_steps, last_good_step: captured solve, "
           "dense solve; wall_s: host clock of each part of the row)",
           flush=True)
@@ -2078,51 +2380,52 @@ def run_byzantine_row(torch, ops, name: str, setup: dict, eq11, host,
           and res_d.measured_wire_bytes == priced,
           f"byzantine {name}: measured {res.measured_wire_bytes} / "
           f"{res_d.measured_wire_bytes} bytes, priced {priced}")
-    check(replayed == want, f"byzantine {name}: the 40 replayed steps "
-          f"launched {replayed}, not {want}")
-    m40 = trace[-1]
+    check(replayed == want, f"byzantine {name}: the {ROW_STEPS} replayed "
+          f"steps launched {replayed}, not {want}")
+    m_end = trace[-1]
     if name == "signflip1-weighted":
-        for v in (m40, m40_dense):
+        for v in (m_end, m_end_dense):
             check(not math.isfinite(v)
-                  or v >= WEIGHTED_DIVERGE_FACTOR * clean["m40_cuda"],
-                  f"byzantine {name}: M_40 {v} is finite and below "
+                  or v >= WEIGHTED_DIVERGE_FACTOR * clean["m_end_cuda"],
+                  f"byzantine {name}: M_{ROW_STEPS} {v} is finite and below "
                   f"{WEIGHTED_DIVERGE_FACTOR}x the clean "
-                  f"{clean['m40_cuda']}")
+                  f"{clean['m_end_cuda']}")
     elif name == "signflip0-weighted":
         check(bits_equal(torch, res_d.state, clean["dense_state"]),
               f"byzantine {name}: dense is not the clean dense run")
-        rel = abs(m40 - clean["m40_cuda"]) / abs(clean["m40_cuda"])
+        rel = abs(m_end - clean["m_end_cuda"]) / abs(clean["m_end_cuda"])
         rec["cuda_vs_clean_cuda_rel"] = rel
-        check(rel <= TRACE_RTOL, f"byzantine {name}: cuda M_40 {m40} and "
-              f"clean cuda {clean['m40_cuda']} differ by {rel:.3e}")
+        check(rel <= ROW_RTOL, f"byzantine {name}: cuda M_{ROW_STEPS} "
+              f"{m_end} and clean cuda {clean['m_end_cuda']} differ by "
+              f"{rel:.3e}")
     elif name == "signflip1-trimmed1":
         # the same rule with no attacker, the reference's baseline
         zero = solve(dataclasses.replace(config, byzantine=dataclasses.replace(
-            config.byzantine, num_byzantine=0)), NUM_STEPS, **setup)
-        m40_zero = host(zero.state)
-        rec.update(m40_zero_attackers=m40_zero,
-                   factor_vs_zero_attackers=m40 / m40_zero,
-                   factor_vs_clean=m40 / clean["m40_cuda"],
+            config.byzantine, num_byzantine=0)), ROW_STEPS, **setup)
+        m_end_zero = host(zero.state)
+        rec.update(m_end_zero_attackers=m_end_zero,
+                   factor_vs_zero_attackers=m_end / m_end_zero,
+                   factor_vs_clean=m_end / clean["m_end_cuda"],
                    reference_gate_factor=TRIMMED_GATE_FACTOR)
-        print(f"byzantine {name}: M_40 {m40} against {m40_zero} with no "
-              f"attacker ({m40 / m40_zero:.2f}x; the reference's gate, "
-              f"{TRIMMED_GATE_FACTOR}x, not gated) and {clean['m40_cuda']} "
-              f"clean", flush=True)
-        for v in (m40, m40_dense):
+        print(f"byzantine {name}: M_{ROW_STEPS} {m_end} against "
+              f"{m_end_zero} with no attacker ({m_end / m_end_zero:.2f}x; "
+              f"the reference's gate, {TRIMMED_GATE_FACTOR}x, not gated) and "
+              f"{clean['m_end_cuda']} clean", flush=True)
+        for v in (m_end, m_end_dense):
             check(math.isfinite(v) and v < trace[0],
-                  f"byzantine {name}: M_40 {v} is not finite and below "
-                  f"M_0 {trace[0]}")
+                  f"byzantine {name}: M_{ROW_STEPS} {v} is not finite and "
+                  f"below M_0 {trace[0]}")
     elif name == "signflip1-median-gt-dsgd":
-        check(traces_agree([m40], [m40_dense], TRACE_RTOL),
-              f"byzantine {name}: cuda M_40 {m40} and dense {m40_dense} "
-              "disagree")
+        check(traces_agree([m_end], [m_end_dense], ROW_RTOL),
+              f"byzantine {name}: cuda M_{ROW_STEPS} {m_end} and dense "
+              f"{m_end_dense} disagree")
         check(all(honest_finite), f"byzantine {name}: an honest agent's x "
               "is not finite")
     elif name == "gaussian2-krum-svr":
         check(len(graphs) == 2, f"byzantine {name}: graphs {graphs}")
-        check(traces_agree([m40], [m40_dense], TRACE_RTOL),
-              f"byzantine {name}: cuda M_40 {m40} and dense {m40_dense} "
-              "disagree")
+        check(traces_agree([m_end], [m_end_dense], ROW_RTOL),
+              f"byzantine {name}: cuda M_{ROW_STEPS} {m_end} and dense "
+              f"{m_end_dense} disagree")
     elif name == "signflip1-weighted-guard":
         check(res.tripped_steps == res_d.tripped_steps > 0
               and res.last_good_step == res_d.last_good_step,
@@ -2147,19 +2450,19 @@ def run_byzantine(torch, ops) -> dict:
     solver.init(problem, None, x0, y0, data)
     eq11 = convergence_metric_fn(solver._problem, solver._hg_cfg, data)
     base = {b: solve(byzantine_config("signflip1-weighted", b, clean=True),
-                     NUM_STEPS, **setup) for b in ("cuda", "dense")}
+                     ROW_STEPS, **setup) for b in ("cuda", "dense")}
     host = host_metric(solver._problem, solver._hg_cfg, data,
                        base["cuda"].state)
-    clean = dict(m40_cuda=host(base["cuda"].state),
-                 m40_dense=host(base["dense"].state),
+    clean = dict(m_end_cuda=host(base["cuda"].state),
+                 m_end_dense=host(base["dense"].state),
                  dense_state=base["dense"].state)
-    print(f"byzantine clean: M_40 cuda {clean['m40_cuda']} dense "
-          f"{clean['m40_dense']} (INTERACT on the complete graph, captured "
+    print(f"byzantine clean: M_{ROW_STEPS} cuda {clean['m_end_cuda']} dense "
+          f"{clean['m_end_dense']} (INTERACT on the complete graph, captured "
           f"solve; us_per_step cuda {base['cuda'].us_per_step:.1f})",
           flush=True)
-    check(math.isfinite(clean["m40_cuda"]) and traces_agree(
-        [clean["m40_cuda"]], [clean["m40_dense"]], TRACE_RTOL),
-        "byzantine clean: cuda and dense M_40 disagree")
+    check(math.isfinite(clean["m_end_cuda"]) and traces_agree(
+        [clean["m_end_cuda"]], [clean["m_end_dense"]], ROW_RTOL),
+        f"byzantine clean: cuda and dense M_{ROW_STEPS} disagree")
     rows = {name: run_byzantine_row(torch, ops, name, setup, eq11, host,
                                     clean)
             for name in BYZANTINE_ROWS}
@@ -3195,9 +3498,15 @@ def main() -> int:
     # read just after
     lm = run_lm_training(torch)
 
+    # -- mamba and moe serving: counts to 0 just before each model's run --
+    moe_mamba = run_moe_mamba_serving(torch)
+
     # -- the serving path: counts to 0 just before each model's run --------
-    serving = {(arch, dtype): serve_model(torch, arch, dtype)
-               for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
+    from repro_torch.configs import get_config
+    serving = {(arch, dtype): serve_model(
+        torch, dataclasses.replace(get_config(arch), dtype=dtype),
+        *SERVE_RUNS[arch])
+        for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
     print(json.dumps({"serving": list(serving.values())}), flush=True)
 
     kernels = []
@@ -3293,6 +3602,22 @@ def main() -> int:
     f32_run = serving[("gemma2-2b", "float32")]["launches"]
     main = flash["timings"]["global_f32"]
     local = flash["timings"]["local_f32"]
+
+    def moe_mamba_launches(name: str, dtype: str) -> dict:
+        """Phase 4i's launches of a flash kernel: each run's (two kernel
+        prefills) and the card-against-CPU runs' (one each)."""
+        out = {f"{arch} {dtype}": rec["launches"][name]
+               for (arch, dt), rec in moe_mamba["runs"].items()
+               if dt == dtype}
+        if dtype == "float32":
+            out.update({f"{arch} reduced": rec["launches"][name]
+                        for arch, rec in moe_mamba["card_vs_cpu"].items()})
+        return out
+
+    def at_shapes(suffix: str, keys) -> dict:
+        return {f"at_{model}": {key: flash["timings"][model + suffix][key]
+                                for key in keys}
+                for model in ("jamba", "mixtral")}
     kernels.append(dict(
         name="flash_attention_f32_split", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, dtype="float32",
@@ -3303,6 +3628,10 @@ def main() -> int:
         bound_by=main["split"]["bound_by"], library_ms=None,
         library_call="none: no PyTorch call computes the scaled split",
         shape=main["shape"], local=local["split"],
+        launches_moe_mamba_serving=moe_mamba_launches(
+            "flash_attention_f32_split", "float32"),
+        **{f"at_{model}": flash["timings"][model + "_f32"]["split"]
+           for model in ("jamba", "mixtral")},
         ptxas={k: v for k, v in ptxas.items()
                if "flash_split_f32_kernel" in k}))
     kernels.append(dict(
@@ -3318,6 +3647,12 @@ def main() -> int:
         local={key: local[key] for key in (
             "ms", "call_ms", "plain_ms", "bound_ms", "bound_split_arith_ms",
             "bound_f32_fma_ms", "library_ms")},
+        launches_moe_mamba_serving=moe_mamba_launches("flash_attention_f32",
+                                                      "float32"),
+        **at_shapes("_f32", ("shape", "window", "ms", "call_ms", "plain_ms",
+                             "bound_ms", "bound_by", "bound_split_arith_ms",
+                             "bound_f32_fma_ms", "library_ms",
+                             "library_call")),
         ptxas={k: v for k, v in ptxas.items()
                if "flash_attention_f32_kernel" in k}))
     main = flash["timings"]["global"]
@@ -3336,7 +3671,11 @@ def main() -> int:
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
         library_call=sdpa, shape=main["shape"], softcap=main["softcap"],
-        local=flash["timings"]["local"]))
+        local=flash["timings"]["local"],
+        launches_moe_mamba_serving=moe_mamba_launches("flash_attention_tc",
+                                                      "bfloat16"),
+        **at_shapes("", ("shape", "window", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "library_call"))))
     main = wkv["timing"]
     kernels.append(dict(
         name="wkv6", route="cuda", source=WKV_SOURCE, replaces=WKV_REPLACES,

@@ -22,9 +22,12 @@ def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "reference",
     """prefill(params, tokens) -> last-token logits (batch, vocab).
 
     The full-sequence forward with no cache; ``attn_impl="cuda"`` routes
-    attention and WKV6 through the hand-written kernels.  Only the last
-    position's features go through the head.  Runs on ``device`` (the
-    CUDA card when None; raises where there is none).
+    attention and WKV6 through the hand-written kernels.  A moe ffn takes
+    the capacity route (``moe_ffn``), as in the JAX package, so where a
+    token is dropped this differs from the cached ``prefill``, which
+    routes exactly.  Only the last position's features go through the
+    head.  Runs on ``device`` (the CUDA card when None; raises where
+    there is none).
     """
     device = resolve_device(device)
     M.check_supported(cfg)
@@ -45,7 +48,9 @@ def make_serve_step(cfg: ArchConfig, *, attn_impl: str = "reference",
     ``init_cache``, which it updates in place.  Runs on ``device`` (the
     CUDA card when None; raises where there is none).  ``attn_impl`` is
     checked and otherwise changes nothing: it mirrors the JAX signature,
-    and the cached branches are plain attention in both packages.
+    and the cached branches are plain attention in both packages.  A moe
+    ffn routes exactly (``moe_ffn_exact``), a mamba layer steps its
+    carried state.
     """
     if attn_impl not in L.IMPLS:
         raise ValueError(f"unknown attention impl {attn_impl!r}; "

@@ -1,7 +1,7 @@
 """The LM: ArchConfig -> init / features / logits / decode.
 
-Counterpart of ``repro.models.model`` for the mixers and ffns the port
-has: attention and rwkv mixers, the dense ffn.  The JAX package stacks
+Counterpart of ``repro.models.model``: attention, mamba and rwkv
+mixers; dense and moe ffns.  The JAX package stacks
 layer parameters per period and scans over them; the port keeps one
 parameter dict per layer in ``params["layers"]`` and loops over it in
 Python, layer ``period * len(pattern) + i`` holding pattern entry ``i``.
@@ -16,9 +16,15 @@ end to end; ``lm_loss`` is the next-token cross entropy of its logits.
 checkpoints each period: only the residual stream between layers stays
 saved.
 
-Configurations with a ``mamba`` mixer, a ``moe`` ffn or a frontend with
-prefix tokens raise ``NotImplementedError``: they wait for ROADMAP
-Queue A item 12.
+The moe ffn has two routes, as in the JAX package: ``features`` and
+``forward`` take ``moe_impl="capacity"`` (``moe_ffn``, which drops the
+tokens past each expert's capacity) by default, and the cached path
+(``prefill``, ``decode_step``) runs ``moe_impl="exact"``
+(``moe_ffn_exact``, no drops).  Where a token is dropped the two compute
+different functions.
+
+A frontend's prefix tokens (the vision and audio configs) raise
+``NotImplementedError``: they wait for ROADMAP Queue A item 12.
 """
 from __future__ import annotations
 
@@ -31,6 +37,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
+from repro_torch.models import moe as Moe
 from repro_torch.models import rwkv as Rk
 from repro_torch.models.base import ArchConfig, LayerSpec
 
@@ -46,16 +54,8 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    for spec in cfg.layer_pattern():
-        if spec.mixer == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: the mamba mixer is not ported yet (ROADMAP "
-                "Queue A item 12, models/mamba.py)")
-        if spec.ffn == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the moe ffn is not ported yet (ROADMAP Queue A "
-                "item 12, models/moe.py)")
+    """Raise ``NotImplementedError`` for what the port cannot run yet:
+    a frontend's prefix tokens."""
     if cfg.frontend != "none" and cfg.num_prefix_tokens:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend's prefix tokens are "
@@ -88,11 +88,18 @@ def _init_layer(cfg: ArchConfig, spec: LayerSpec, gen: torch.Generator,
         p["attn"] = L.init_attention(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.qk_norm, dt, device)
+    elif spec.mixer == "mamba":
+        p["mamba"] = Mb.init_mamba(gen, cfg.d_model, cfg.mamba_d_state,
+                                   cfg.mamba_d_conv, cfg.mamba_expand, dt,
+                                   device)
     else:
         p["rwkv"] = Rk.init_rwkv_block(gen, cfg.d_model, cfg.rwkv_head_size,
                                        dt, device, cfg.d_ff)
     if spec.ffn == "dense" and spec.mixer != "rwkv":
         p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    elif spec.ffn == "moe":
+        p["moe"] = Moe.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                dt, device)
     return p
 
 
@@ -142,11 +149,14 @@ def param_count(params) -> int:
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, impl: str = "reference",
-                 cache: dict | None = None
-                 ) -> tuple[torch.Tensor, dict | None]:
-    """Pre-norm residual layer.  Returns (x, new_cache).  ``impl`` picks
-    the no-cache attention and WKV6 route; the cached branches are plain,
-    as in the JAX package."""
+                 cache: dict | None = None, moe_impl: str = "capacity"
+                 ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
+    """Pre-norm residual layer.  Returns (x, new_cache, aux): the moe
+    ffn's aux loss, else a float32 zero.  ``impl`` picks the no-cache
+    attention and WKV6 route; the cached branches are plain, as in the
+    JAX package.  A mamba layer with a cache prefills a fresh one from a
+    sequence and steps it from one token."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
     new_cache = cache
     if spec.mixer == "attn":
@@ -159,6 +169,16 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
             cache=None if cache is None else cache["attn"], impl=impl)
         if cache is not None:
             new_cache = {**cache, "attn": new_attn}
+    elif spec.mixer == "mamba":
+        if cache is None:
+            out = Mb.mamba_block(p["mamba"], h,
+                                 seq_chunk=cfg.mamba_seq_chunk or None)
+        elif h.shape[1] > 1:   # prefill into a fresh cache
+            out, st = Mb.mamba_prefill(p["mamba"], h)
+            new_cache = {**cache, "mamba": st}
+        else:
+            out, st = Mb.mamba_decode_step(p["mamba"], h, cache["mamba"])
+            new_cache = {**cache, "mamba": st}
     else:
         if cache is None:
             out, _, _ = Rk.rwkv_time_mix(p["rwkv"], h, cfg.rwkv_head_size,
@@ -182,10 +202,25 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
             new_cache = {**new_cache,
                          "rwkv": {**new_cache["rwkv"],
                                   "cm_last": cm_last.float()}}
-        return x + out, new_cache
+        return x + out, new_cache, aux
     if spec.ffn == "dense":
-        return x + L.gated_mlp(p["mlp"], h), new_cache
-    return x, new_cache   # ffn "none": the JAX package adds zeros
+        return x + L.gated_mlp(p["mlp"], h), new_cache, aux
+    if spec.ffn == "moe":
+        if moe_impl == "exact":
+            out, aux = Moe.moe_ffn_exact(p["moe"], h,
+                                         num_experts=cfg.num_experts,
+                                         top_k=cfg.experts_per_token)
+        elif moe_impl == "capacity":
+            out, aux = Moe.moe_ffn(p["moe"], h, num_experts=cfg.num_experts,
+                                   top_k=cfg.experts_per_token,
+                                   capacity_factor=cfg.capacity_factor,
+                                   token_chunk=cfg.moe_token_chunk or None,
+                                   expert_parallel=cfg.expert_parallel)
+        else:
+            raise ValueError(f"unknown moe_impl {moe_impl!r}; known: "
+                             "'capacity', 'exact'")
+        return x + out, new_cache, aux
+    return x, new_cache, aux   # ffn "none": the JAX package adds zeros
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
@@ -197,23 +232,30 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
 
 
 def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-             impl: str = "reference", remat: bool = False
+             impl: str = "reference", remat: bool = False,
+             moe_impl: str = "capacity"
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Backbone features (batch, seq, d_model), and the MoE aux loss
-    (zero: no moe ffn is ported yet).  ``impl`` routes attention and
-    WKV6: ``"reference"`` or ``"cuda"``.  ``remat`` recomputes each layer
-    in the backward pass (a no-op where autograd is not recording)."""
+    """Backbone features (batch, seq, d_model), and the moe ffns' aux
+    loss summed over the layers in float32 (zero without a moe ffn).
+    ``impl`` routes attention and WKV6: ``"reference"`` or ``"cuda"``;
+    ``moe_impl`` the moe ffn: ``"capacity"`` or ``"exact"``.  ``remat``
+    recomputes each layer in the backward pass (a no-op where autograd is
+    not recording)."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(_layer_specs(cfg), params["layers"]):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(lambda h, spec=spec, p=p: _apply_layer(
-                cfg, spec, p, h, positions, impl)[0], x, use_reentrant=False)
+            x, a = checkpoint(lambda h, spec=spec, p=p: _apply_layer(
+                cfg, spec, p, h, positions, impl, moe_impl=moe_impl)[::2],
+                x, use_reentrant=False)
         else:
-            x, _ = _apply_layer(cfg, spec, p, x, positions, impl)
+            x, _, a = _apply_layer(cfg, spec, p, x, positions, impl,
+                                   moe_impl=moe_impl)
+        aux = aux + a
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def head_logits(cfg: ArchConfig, head: torch.Tensor,
@@ -227,9 +269,10 @@ def lm_head(params: dict) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            impl: str = "reference", remat: bool = False
+            impl: str = "reference", remat: bool = False,
+            moe_impl: str = "capacity"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    feats, aux = features(cfg, params, tokens, impl, remat)
+    feats, aux = features(cfg, params, tokens, impl, remat, moe_impl)
     return head_logits(cfg, lm_head(params), feats), aux
 
 
@@ -255,6 +298,10 @@ def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
     if spec.mixer == "rwkv":
         return {"rwkv": Rk.init_rwkv_state(batch, cfg.d_model,
                                            cfg.rwkv_head_size, device)}
+    if spec.mixer == "mamba":
+        return {"mamba": Mb.init_mamba_state(
+            batch, cfg.d_model, cfg.mamba_d_state, cfg.mamba_d_conv,
+            cfg.mamba_expand, _dtype(cfg), device)}
     window = _window(cfg, spec)
     # SWA layers only ever need `window` slots; full layers the sequence.
     size = max_len if window is None else min(max_len, window)
@@ -269,7 +316,8 @@ def _init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> list[dict]:
     """One decode cache per layer: KV ring buffers for attention layers,
-    (wkv, token-shift) states for rwkv layers."""
+    (h, conv tail) states for mamba layers, (wkv, token-shift) states for
+    rwkv layers."""
     device = resolve_device(device)
     check_supported(cfg)
     return [_init_layer_cache(cfg, spec, batch, max_len, device)
@@ -282,7 +330,8 @@ def _decode_features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     x = _embed(cfg, params, tokens)
     new_cache = []
     for spec, p, c in zip(_layer_specs(cfg), params["layers"], cache):
-        x, nc = _apply_layer(cfg, spec, p, x, positions, cache=c)
+        x, nc, _ = _apply_layer(cfg, spec, p, x, positions, cache=c,
+                                moe_impl="exact")
         new_cache.append(nc)
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps), new_cache
 

@@ -43,8 +43,9 @@ mesh = {"repro_torch.consensus.allgather", "repro_torch.consensus.ppermute",
 train = {"repro_torch.train.bilevel_lm", "repro_torch.train.step",
          "repro_torch.train.svr_step", "repro_torch.data.synthetic",
          "repro_torch.optim.optimizers", "repro_torch.launch.train"}
+models = {"repro_torch.models.mamba", "repro_torch.models.moe"}
 print(len(names), bad, "repro_torch.solvers.sweep" in names,
-      mesh <= set(names), train <= set(names))
+      mesh <= set(names), train <= set(names), models <= set(names))
 """
 
 
@@ -53,11 +54,12 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _WALK], env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
-    assert int(out[0]) >= 57          # every module was imported
+    assert int(out[0]) >= 59          # every module was imported
     assert out[1] == "[]", out
     assert out[2] == "True", out      # the sweeps among them
     assert out[3] == "True", out      # the multi-process path too
     assert out[4] == "True", out      # and the LM training path
+    assert out[5] == "True", out      # and the mamba and moe modules
 
 
 @pytest.fixture

@@ -2,8 +2,10 @@
 
 Reduced gemma2-2b (local/global attention, GQA, both softcaps),
 rwkv6-3b (WKV6 time mixing, token-shift channel mixing), llama3.2-3b,
-qwen3-14b (q/k RMSNorm) and smollm-360m (the training driver's default),
-four layers each, in float32.  The
+qwen3-14b (q/k RMSNorm), smollm-360m (the training driver's default),
+mixtral-8x7b (moe ffn, sliding window), jamba-1.5-large (attention and
+mamba layers, moe every other layer) and dbrx-132b (moe), four layers
+each, in float32.  The
 JAX ``init_params`` draws the weights; ``lm_params_from_numpy`` carries
 them into the port, and the same numpy tokens go through both packages.
 On CPU tensors the port's ``impl="cuda"`` runs the kernels' plain
@@ -36,7 +38,7 @@ from repro_torch.launch.serving import (make_prefill_step,  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 ARCHS = ["gemma2-2b", "rwkv6-3b", "llama3.2-3b", "qwen3-14b",
-         "smollm-360m"]
+         "smollm-360m", "mixtral-8x7b", "jamba-1.5-large-398b", "dbrx-132b"]
 TOL = 1e-4
 BATCH, PROMPT, DECODE = 2, 72, 4   # 72 > the reduced 64-token window
 
@@ -80,21 +82,24 @@ def test_params_carry_over_per_layer(setup):
     assert M.param_count(params) == JM.param_count(jparams)
     pattern = len(cfg.layer_pattern())
     last = cfg.num_layers - 1
-    jlast = jparams["layers"][last % pattern]
-    key = "attn" if "attn" in jlast else "rwkv"
-    name = "wq" if key == "attn" else "w_r"
-    np.testing.assert_array_equal(
-        params["layers"][last][key][name].numpy(),
-        np.asarray(jlast[key][name][last // pattern]))
+    jlast = jax.tree_util.tree_map(lambda a: np.asarray(a)[last // pattern],
+                                   jparams["layers"][last % pattern])
+    flat, _ = jax.tree_util.tree_flatten_with_path(jlast)
+    for path, want in flat:
+        got = params["layers"][last]
+        for key in path:
+            got = got[key.key]
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("impl", ["reference", "cuda"])
 def test_features_and_forward_match_jax(setup, impl):
     jcfg, cfg, jparams, params, tokens = setup
     feats, aux = M.features(cfg, params, torch.tensor(tokens), impl=impl)
-    jfeats, _ = JM.features(jcfg, jparams, jnp.asarray(tokens))
+    jfeats, jaux = JM.features(jcfg, jparams, jnp.asarray(tokens))
     _close(feats, jfeats)
-    assert float(aux) == 0.0
+    _close(aux, jaux)     # the moe ffns' aux loss; zero without one
+    assert (float(aux) == 0.0) == (cfg.num_experts == 0)
     logits, _ = M.forward(cfg, params, torch.tensor(tokens), impl=impl)
     jlogits, _ = JM.forward(jcfg, jparams, jnp.asarray(tokens))
     assert tuple(logits.shape) == (BATCH, PROMPT + DECODE, cfg.vocab_size)
@@ -132,11 +137,13 @@ def test_prefill_then_decode_matches_jax(setup):
 
 @pytest.mark.parametrize("arch,prompt", [
     ("gemma2-2b", 12), ("gemma2-2b", 72), ("rwkv6-3b", 12),
+    ("mixtral-8x7b", 72), ("jamba-1.5-large-398b", 12),
 ])
 def test_prefill_matches_stepwise_decode(arch, prompt):
     """The port's own counterpart of tests/test_prefill_cache.py: a prefill
     leaves the caches as token-by-token decoding does (gemma2's local
-    layers wrap their 64-slot ring at prompt 72)."""
+    layers and mixtral's wrap their 64-slot ring at prompt 72; jamba's
+    mamba layers carry h and the conv tail)."""
     _, cfg = _configs(arch)
     params = M.init_params(cfg, seed=3, with_head=True, device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, prompt + DECODE),
@@ -158,15 +165,20 @@ def test_prefill_matches_stepwise_decode(arch, prompt):
         outs_b.append(lg[:, 0])
     for a, b in zip(outs_a, outs_b[prompt - 1:]):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
-    # and the kernel route's prefill of every token gives the last one
+    # and the kernel route's prefill of every token gives the last one.
+    # The kernel prefill routes a moe ffn by capacity, the cached path
+    # exactly; at a capacity factor of num_experts / top_k each expert
+    # has a slot for every token, nothing drops, and the two routes
+    # compute the same function
+    if cfg.num_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
     last = make_prefill_step(cfg, attn_impl="cuda", device="cpu")(
         params, tokens)
     torch.testing.assert_close(last, outs_b[-1], atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("jamba-1.5-large-398b", "mamba"),
-    ("mixtral-8x7b", "moe"),
     ("paligemma-3b", "frontend"),
 ])
 def test_unported_configs_raise(arch, what):

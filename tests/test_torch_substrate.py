@@ -3,8 +3,10 @@ stream, the optimizers, the chunked LM cross entropy, ``lm_loss`` and
 the bilevel ``local_grads``.
 
 ``local_grads`` runs at tests/test_distributed.py's size: reduced
-smollm-360m, gemma2-2b (both softcaps, local/global attention) and
-rwkv6-3b (WKV6), vocab 128, 2 layers, float32,
+smollm-360m, gemma2-2b (both softcaps, local/global attention),
+rwkv6-3b (WKV6), mixtral-8x7b (the moe ffn's capacity route and its aux
+in the outer loss) and jamba-1.5-large (an attention layer, then a mamba
+layer with a moe ffn), vocab 128, 2 layers, float32,
 ``BilevelHyper(mu_g=0.5, neumann_k=2, lipschitz_g=4.0, ce_chunk=16,
 remat=False)``, tokens (4, 32) split 2 / 2, with ``microbatch`` 1 and 2.
 The JAX ``init_params`` / ``init_head`` draw the weights and
@@ -45,7 +47,8 @@ from repro_torch.train.bilevel_lm import (BilevelHyper,  # noqa: E402
 
 LG_TOL = 1e-5
 OPT_TOL = 1e-7
-ARCHS = ["smollm-360m", "gemma2-2b", "rwkv6-3b"]
+ARCHS = ["smollm-360m", "gemma2-2b", "rwkv6-3b", "mixtral-8x7b",
+         "jamba-1.5-large-398b"]
 HYPER = dict(mu_g=0.5, neumann_k=2, lipschitz_g=4.0, ce_chunk=16,
              remat=False)
 np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
