@@ -11,9 +11,10 @@
 3. Kernels: each kernel against its plain PyTorch version on the card.
    Consensus: the test shapes, the main-path shape and one large shape,
    each with a symmetric and a random non-symmetric mixing matrix; then
-   consensus_mix alone on its edges (1 to 17 agents, rows of 1 to 4096
-   values in both dtypes, each also one element into its storage: the
-   16-byte path and the element path, one and two passes).  Flash
+   both consensus kernels on their edges (1 to 17 agents, rows of 1 to
+   4096 values in both dtypes, every stream also one element into its
+   storage: the 16-byte path and the element path, each staging of the
+   step and one and two passes of the mix).  Flash
    attention: the JAX package's test cases, q_offset cases, the two
    cases where its wrapper's padding shows, rows that see no key and
    strided views, each in float32 (the split pass and the split-operand
@@ -92,6 +93,14 @@
    steps, whose kernel events (``counted_launches``) must equal their
    wrapper counts (the check on the profiler count), and profiles of 3 eager and 3 captured steps
    (consensus_step once a replay).
+   Phases 4c-4h share the card: the main process runs 4c and then 4d,
+   while two worker processes of this script (``--phase-worker``, the
+   groups of ``PHASE_GROUPS``) run 4e and then 4f, and 4g and then 4h.
+   Each worker's output goes to a log that the main process prints once
+   the worker has ended; its consensus counts are set to 0 just before
+   each of its phases.  Host-clock figures of 4c-4h (us per step, walls,
+   ``vmap_speedup``) are taken with the other phases running beside
+   them; the kernel times of 3 and the profiles of 4b are taken alone.
 4c. The compressed wire and the time-varying topologies (``WIRE_ROWS``),
    on the same instance: INTERACT with sign1bit and error feedback, 5
    warm-up steps and a round every 2 steps; INTERACT with top-5% and
@@ -267,13 +276,12 @@
    them: three kernel prefills, three plain cached prefills and three
    runs of 16 decode steps, each time reported as the median and the
    three runs.
-6. Prints a ``{"kernels": [...]}`` line (with the registers and spills
-   nvcc reports for each instantiation of the redesigned kernels, the
-   row-block forms with phase 4g's launches, the bf16 flash kernel with
-   phase 4h's, and the flash kernels with phase 4i's launches and their
-   times at its shapes), the
-   card's name and power limit,
-   then the last line ``{"ok": true, "device": {...}}``.  Any failed
+6. Prints each phase's host-clock seconds, then a ``{"kernels": [...]}``
+   line (with the registers and spills nvcc reports for each
+   instantiation of the redesigned kernels, the row-block forms with
+   phase 4g's launches, the bf16 flash kernel with phase 4h's, and the
+   flash kernels with phase 4i's launches and their times at its
+   shapes), the card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -303,10 +311,11 @@ ALPHA = 0.3
 F32_TOL, BF16_TOL = 1e-5, 3e-2
 MAIN_SHAPE = (5, 760)          # m agents x D = 760 backbone parameters
 LARGE_SHAPE = (16, 4194304)    # large enough that the kernel, not the launch, sets the time
-# consensus_mix's edges: agents (17 takes two passes of 16 rows) and row
-# lengths (760 and 4096 take the 16-byte path in both dtypes, 1, 3, 123
-# and 761 in neither), each aligned and one element into its storage (a
-# misaligned base: the element path)
+# the consensus kernels' edges: agents (1, 3 and 5 take the step's
+# kBothStreams staging, 16 kEachStream, 17 its kPasses and the mix's two
+# passes of 16 rows) and row lengths (760 and 4096 take the 16-byte path
+# in both dtypes, 1, 3, 123 and 761 in neither), each aligned and one
+# element into its storage (a misaligned base: the element path)
 MIX_EDGE_M = (1, 3, 5, 16, 17)
 MIX_EDGE_D = (1, 3, 123, 760, 761, 4096)
 NUM_STEPS, RECORD_EVERY = 40, 5
@@ -491,6 +500,14 @@ LM_CARD_CPU_TOL = 1e-5
 # on an H100 (8.7e-6); the random head keeps the CE near ln(vocab), so a
 # looser bound would pass a wrong attention output
 LM_EVAL_RTOL = 1e-4
+# Phases 4e-4h run in worker processes of this script (``--phase-worker``),
+# one group of phases each, beside the main process's 4c-4d: the three
+# take about as long each, and all three are bound by the host, not the
+# card.  A worker's consensus counts start at 0 with each of its phases;
+# the main process waits for them at most PHASE_WORKER_TIMEOUT seconds
+# from their start
+PHASE_GROUPS = (("sweep", "resilience"), ("distributed", "lm"))
+PHASE_WORKER_TIMEOUT = 800
 # the row-block kernels' shapes, (rows, m, D) and the block's first row:
 # one agent of the main path's 5, and 4 rows of the large shape's 16
 ROW_SHAPES = {"main": (1, 5, 760, 2), "large": (4, 16, 4194304, 6)}
@@ -896,31 +913,50 @@ def check_kernels(torch, ops, ref, main_matrix):
                 skew = (skew / skew.sum(dim=1, keepdim=True)).contiguous()
                 tol = F32_TOL if dtype == f32 else BF16_TOL
                 kind = "float32" if dtype == f32 else "bfloat16"
-                paths, case_err = [], 0.0
+                paths = {name: [] for name in REPLACES}
+                case_err = {name: 0.0 for name in REPLACES}
                 for offset in (0, 1):
-                    buf = torch.randn(m * d + offset, generator=gen,
-                                      device=dev).to(dtype)
-                    X = buf[offset:].view(m, d)
-                    paths.append("16-byte" if ops.mix_takes_16_byte_path(
-                        X, torch.empty_like(X)) else "element")
+                    X, U, P, PP = (torch.randn(
+                        m * d + offset, generator=gen, device=dev).to(dtype)[
+                            offset:].view(m, d) for _ in range(4))
+                    for name, operands in (("consensus_step", (X, U, P, PP)),
+                                           ("consensus_mix", (X,))):
+                        paths[name].append(
+                            "16-byte" if ops.takes_16_byte_path(
+                                *operands, torch.empty_like(X))
+                            else "element")
+                    check(paths["consensus_step"] == paths["consensus_mix"],
+                          f"edge {m}x{d}: the step's operands and x take "
+                          "different paths")
                     for M in (sym, skew):
-                        g = ops.consensus_mix_kernel(M, X)
-                        w = ref.consensus_mix_ref(M, X)
+                        got = {"consensus_step": ops.consensus_step_kernel(
+                                   M, X, U, P, PP, alpha=ALPHA),
+                               "consensus_mix": (
+                                   ops.consensus_mix_kernel(M, X),)}
+                        want = {"consensus_step": ref.consensus_step_ref(
+                                    M, X, U, P, PP, alpha=ALPHA),
+                                "consensus_mix": (
+                                    ref.consensus_mix_ref(M, X),)}
                         torch.cuda.synchronize()
-                        check(g.dtype == dtype and g.shape == w.shape,
-                              f"consensus_mix {m}x{d}: dtype/shape")
-                        check(torch.allclose(g.float(), w.float(), atol=tol,
-                                             rtol=tol),
-                              f"consensus_mix {m}x{d} {kind} offset "
-                              f"{offset} disagrees with its plain version "
-                              f"beyond {tol}")
-                        case_err = max(case_err, float(
-                            (g.float() - w.float()).abs().max()))
-                err["consensus_mix"][kind] = max(err["consensus_mix"][kind],
-                                                 case_err)
-                print(f"mix edge m={m} D={d} {kind} (storage offset 0: "
-                      f"{paths[0]} path, 1: {paths[1]} path; symmetric and "
-                      f"random M): max abs err {case_err:.3e} (tol {tol})",
+                        for name in REPLACES:
+                            for g, w in zip(got[name], want[name]):
+                                check(g.dtype == dtype and g.shape == w.shape,
+                                      f"{name} {m}x{d}: dtype/shape")
+                                check(torch.allclose(g.float(), w.float(),
+                                                     atol=tol, rtol=tol),
+                                      f"{name} {m}x{d} {kind} offset "
+                                      f"{offset} disagrees with its plain "
+                                      f"version beyond {tol}")
+                                case_err[name] = max(case_err[name], float(
+                                    (g.float() - w.float()).abs().max()))
+                for name in REPLACES:
+                    err[name][kind] = max(err[name][kind], case_err[name])
+                paths = paths["consensus_step"]
+                print(f"edge m={m} D={d} {kind} (storage offset 0: "
+                      f"{paths[0]} path, 1: {paths[1]} path, both kernels; "
+                      f"symmetric and random M): max abs err step "
+                      f"{case_err['consensus_step']:.3e} mix "
+                      f"{case_err['consensus_mix']:.3e} (tol {tol})",
                       flush=True)
     return err, timings
 
@@ -965,8 +1001,8 @@ def check_batched_kernels(torch, ops, ref, main_matrix):
                             streams.append(buf.to(dtype)[offset:].view(
                                 b, m, BATCH_D))
                         X, U, P, PP = streams
-                        paths.add("16-byte" if ops.mix_takes_16_byte_path(
-                            X, torch.empty_like(X)) else "element")
+                        paths.add("16-byte" if ops.takes_16_byte_path(
+                            X, U, P, PP, torch.empty_like(X)) else "element")
                         before = dict(ops.LAUNCHES)
                         got = {"consensus_step":
                                ops.consensus_step_batched_kernel(
@@ -1060,11 +1096,13 @@ def ptxas_report(log: str) -> dict:
 
 def short_name(readable: str) -> str:
     """A demangled instantiation without its argument list, the consensus
-    kernels' ``Form`` written by name: ``void consensus_mix_kernel<float,
-    4, true, kSquare>``."""
+    kernels' ``Form`` and ``Staging`` written by name: ``void
+    consensus_mix_kernel<float, 4, true, kSquare>``."""
     readable = readable.replace("(anonymous namespace)::", "")
     for i, form in enumerate(("kSquare", "kBatch", "kBlock")):
         readable = readable.replace(f"(Form){i}", form)
+    for i, staging in enumerate(("kBothStreams", "kEachStream", "kPasses")):
+        readable = readable.replace(f"(Staging){i}", staging)
     depth = 0
     for i, c in enumerate(readable):
         depth += (c == "<") - (c == ">")
@@ -3333,6 +3371,114 @@ def profile_captured_steps(torch, solver, state, data, steps: int = 3
     return profile
 
 
+def sweep_phase(torch, ops) -> dict:
+    """Phase 4e and the wrapper counts it made (the warm-up steps and
+    captures of every graph it captured)."""
+    sweeps = run_sweep(torch, ops)
+    wrapper = dict(ops.LAUNCHES)
+    print(f"sweep phase: wrapper launches {wrapper} (the warm-up "
+          f"steps and captures of every graph the phase captured); kernel "
+          f"events in the "
+          f"Figure-2 groups' profiled replays {sweeps['launches']}",
+          flush=True)
+    for name in KERNEL_SYMBOL:
+        check(sweeps["launches"][name] >= 1, f"sweep: batched {name} never "
+              "ran in the profiled replays")
+    return dict(launches=sweeps["launches"], wrapper=wrapper,
+                seconds=sweeps["seconds"])
+
+
+# what the main process reads of each phase a worker runs
+WORKER_PHASES = {
+    "sweep": sweep_phase,
+    "resilience": lambda torch, ops: {
+        k: v for k, v in run_resilience(torch, ops).items()
+        if k in ("launches", "seconds")},
+    "distributed": lambda torch, ops: {
+        k: v for k, v in run_distributed(torch).items()
+        if k in ("layouts", "seconds")},
+    "lm": lambda torch, ops: {
+        k: v for k, v in run_lm_training(torch).items()
+        if k in ("eval_flash_launches", "seconds")},
+}
+
+
+def phase_worker(argv) -> int:
+    """``--phase-worker OUT PHASE...``: runs the named phases of
+    ``WORKER_PHASES`` in turn, the consensus counts set to 0 just before
+    each, and writes what the main process reads of them to OUT as JSON.
+    The kernel libraries are the ones the main process built."""
+    out, *names = argv
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.consensus_step import ops
+    results = {}
+    for name in names:
+        for kernel in ops.LAUNCHES:
+            ops.LAUNCHES[kernel] = 0
+        results[name] = WORKER_PHASES[name](torch, ops)
+    Path(out).write_text(json.dumps(results))
+    return 0
+
+
+def start_phase_workers() -> list:
+    """One ``--phase-worker`` process for each group of ``PHASE_GROUPS``,
+    each in a session of its own (so that ``stop_phase_workers`` stops the
+    processes it starts too), its output to a log under the git-ignored
+    ``build/phase_workers/``."""
+    import shutil
+    root = ROOT / "build" / "phase_workers"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    workers = []
+    for i, names in enumerate(PHASE_GROUPS):
+        log, out = root / f"worker{i}.log", root / f"worker{i}.json"
+        with log.open("w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--phase-worker", str(out), *names],
+                stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+        workers.append(dict(names=names, proc=proc, log=log, out=out))
+    return workers
+
+
+def finish_phase_workers(workers: list, started: float) -> dict:
+    """Waits for every worker (until ``PHASE_WORKER_TIMEOUT`` seconds after
+    ``started``), prints its output, and returns its phases' records;
+    fails on a worker that exited non-zero or did not end in time."""
+    results = {}
+    for w in workers:
+        left = started + PHASE_WORKER_TIMEOUT - time.perf_counter()
+        try:
+            rc = w["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        text = w["log"].read_text()
+        print(f"phase worker {'+'.join(w['names'])}: exit code {rc}; its "
+              f"output follows\n{text.rstrip()}", flush=True)
+        if rc != 0:
+            print(text[-4000:], file=sys.stderr, flush=True)
+        check(rc == 0, f"phase worker {'+'.join(w['names'])}: " + (
+            f"still running {PHASE_WORKER_TIMEOUT} s after its start"
+            if rc is None else f"exit code {rc}"))
+        results.update(json.loads(w["out"].read_text()))
+    return results
+
+
+def stop_phase_workers(workers: list) -> None:
+    """Kills what is left of each worker's session (the worker and the
+    processes it started)."""
+    import os
+    import signal
+    for w in workers:
+        try:
+            os.killpg(w["proc"].pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        w["proc"].wait()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3352,12 +3498,14 @@ def main() -> int:
     from repro_torch.solvers.config import TopologyConfig
 
     # one nvcc per source, all started together
+    phase_seconds = {}    # host clock, printed before the kernels line
     t0 = time.perf_counter()
     sources = [ROOT / src for src in (SOURCE, FLASH_SOURCE, WKV_SOURCE)]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(build.build, sources))
+    phase_seconds["build"] = time.perf_counter() - t0
     print(f"built {len(libs)} kernel sources for sm_90a in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{phase_seconds['build']:.2f} s", flush=True)
     ptxas = {}
     for src, lib in zip(sources, libs):
         log = lib.with_suffix(".log").read_text()
@@ -3366,6 +3514,7 @@ def main() -> int:
         ptxas.update(ptxas_report(log))
     print(f"ptxas: {json.dumps(ptxas)}", flush=True)
 
+    t0 = time.perf_counter()
     dev = torch.device("cuda", torch.cuda.current_device())
     main_matrix = torch.tensor(TopologyConfig().mixing_spec(5).matrix,
                                dtype=torch.float32, device=dev)
@@ -3375,6 +3524,8 @@ def main() -> int:
     row_err, row_timings = check_row_kernels(torch, ops, ref)
     flash = check_flash(torch)
     wkv = check_wkv6(torch)
+    phase_seconds["kernels"] = time.perf_counter() - t0
+    t_main = time.perf_counter()
 
     # -- the INTERACT path: counts to 0 just before, read just after -------
     cfg = dict(algo="interact", alpha=0.3, beta=0.3)
@@ -3465,41 +3616,36 @@ def main() -> int:
             profile["device_busy_share"] = "not measured: no device events"
         print(json.dumps({"profile": profile}), flush=True)
 
-    # -- the compressed wire and the time-varying topologies --------------
-    wire = run_wire(torch, ops)
+    phase_seconds["main_path_algorithms_profiles"] = (
+        time.perf_counter() - t_main)
 
-    # -- the Byzantine layer: attacks, robust combines, guards ------------
-    byzantine = run_byzantine(torch, ops)
+    # -- phases 4e-4h in worker processes (sweeps; resilience; across
+    # processes; LM training), each worker's counts set to 0 just before
+    # each of its phases and read just after, beside 4c-4d here
+    t0 = time.perf_counter()
+    workers = start_phase_workers()
+    try:
+        # -- the compressed wire and the time-varying topologies ----------
+        wire = run_wire(torch, ops)
 
-    # -- the batched sweeps: counts to 0 just before, read just after -----
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
-    sweeps = run_sweep(torch, ops)
-    sweep_wrapper = dict(ops.LAUNCHES)
-    print(f"sweep phase: wrapper launches {sweep_wrapper} (the warm-up "
-          f"steps and captures of every graph the phase captured); kernel "
-          f"events in the "
-          f"Figure-2 groups' profiled replays {sweeps['launches']}",
-          flush=True)
-    for name in KERNEL_SYMBOL:
-        check(sweeps["launches"][name] >= 1, f"sweep: batched {name} never "
-              "ran in the profiled replays")
+        # -- the Byzantine layer: attacks, robust combines, guards --------
+        byzantine = run_byzantine(torch, ops)
+        phase_seconds["wire_byzantine"] = time.perf_counter() - t0
 
-    # -- resilience: checkpoints, kill and resume, chaos, sweep resume ----
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
-    resilience = run_resilience(torch, ops)
-
-    # -- across processes: every worker's counts start at 0 and come back
-    # with its result
-    distributed = run_distributed(torch)
-
-    # -- LM training: every worker's counts set to 0 just before each run,
-    # read just after
-    lm = run_lm_training(torch)
+        done = finish_phase_workers(workers, t0)
+    finally:
+        stop_phase_workers(workers)
+    phase_seconds["with_workers"] = time.perf_counter() - t0
+    phase_seconds.update({f"worker {name}": rec["seconds"]
+                          for name, rec in done.items()})
+    sweeps, resilience = done["sweep"], done["resilience"]
+    sweep_wrapper = sweeps["wrapper"]
+    distributed, lm = done["distributed"], done["lm"]
 
     # -- mamba and moe serving: counts to 0 just before each model's run --
+    t0 = time.perf_counter()
     moe_mamba = run_moe_mamba_serving(torch)
+    phase_seconds["moe_mamba_serving"] = time.perf_counter() - t0
 
     # -- the serving path: counts to 0 just before each model's run --------
     from repro_torch.configs import get_config
@@ -3508,6 +3654,10 @@ def main() -> int:
         *SERVE_RUNS[arch])
         for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
     print(json.dumps({"serving": list(serving.values())}), flush=True)
+    phase_seconds["serving"] = time.perf_counter() - t0 - phase_seconds[
+        "moe_mamba_serving"]
+    print(f"phase seconds (host clock; the workers' beside "
+          f"wire_byzantine): {json.dumps(phase_seconds)}", flush=True)
 
     kernels = []
     # launches: the main path's (solve's) run, from the kernel events;
@@ -3698,4 +3848,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--lm-worker"]:
         sys.exit(lm_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase-worker"]:
+        sys.exit(phase_worker(sys.argv[2:]))
     sys.exit(main())

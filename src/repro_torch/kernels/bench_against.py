@@ -1,29 +1,33 @@
 """Time this tree's consensus kernels and WKV6 against another
-checkout's, in turns on one card.
+checkout's, in turns on one card, and compare consensus_step's bits.
 
     git archive <commit> | tar -x -C build/other     # any git-ignored dir
     PYTHONPATH=src python -m repro_torch.kernels.bench_against build/other
 
 Builds both trees' ``consensus_step.cu`` and ``wkv6.cu`` (nvcc, in
-parallel), prints each redesigned kernel's registers and spills, then
-times both trees' kernels at the shapes below in the order other, this,
-this, other (medians of warmed CUDA-event timings; the Section-6 shape
-by CUDA-graph replay): consensus_mix beside ``torch.matmul``,
-consensus_step (unbatched, alpha by value) beside the ``addmm`` pair,
-both batched forms at chip_smoke.py's sweep shape (where the other tree
-has them), and WKV6, each with the least time the card could take.
-Consensus ``this`` goes through the wrapper, which allocates its
-outputs; ``this_raw`` calls this tree's launcher on the preallocated
-buffers ``other`` writes, so that the two compare kernel to kernel.  The
-row-block forms (``row0=``) of this tree are timed at
-chip_smoke.py's ``ROW_SHAPES`` beside their plain versions and the
-library calls on the block's rows.  Each line is one JSON object; the
-last is the card's name and power limit.  Needs a CUDA card.
+parallel), prints every consensus and WKV6 kernel's registers and
+spills, then times both trees' kernels in the order other, this, this,
+other (medians of warmed CUDA-event timings; the Section-6 shapes by
+CUDA-graph replay): consensus_mix beside ``torch.matmul`` and WKV6,
+each with the least time the card could take, and ``consensus_step`` at
+chip_smoke.py's five timed shapes: 5x760 and (16, 4M) square, the sweep
+groups' (4, 5, 760) batched with one shared M, and the row blocks of
+``ROW_SHAPES`` (where the other tree has the form), beside the
+``addmm`` / ``baddbmm`` pair and the plain version.  At each of those
+shapes, in float32 and bfloat16, both trees' launchers run on the same
+inputs and ``bitwise_equal`` says whether their outputs agree bit for
+bit (float32 is timed, bfloat16 only compared).  ``this`` goes through
+the wrapper, which allocates its outputs; ``this_raw`` calls this
+tree's launcher on the preallocated buffers ``other`` writes, so that
+the two compare kernel to kernel.  The batched mix is timed as the
+batched step.  Each line is one JSON object; the last is the card's
+name and power limit.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.consensus_step import ops as mix_ops
+from repro_torch.kernels.consensus_step import ref as mix_ref
 from repro_torch.kernels.rwkv6 import ops as wkv_ops
 from repro_torch.kernels.rwkv6 import ref as wkv_ref
 
@@ -41,12 +46,14 @@ ROOT = Path(__file__).resolve().parents[3]
 MIX_SHAPES = [(16, 4194304, torch.float32, False, 5),
               (16, 4194304, torch.bfloat16, False, 5),
               (5, 760, torch.float32, True, 200)]
-# (m, D, by graph replay, calls a timing), float32
-STEP_SHAPES = [(16, 4194304, False, 5), (5, 760, True, 200)]
 # (b, s, h, N, dtype): rwkv6-3b's prefill in both dtypes
 WKV_SHAPES = [(4, 1024, 40, 64, torch.bfloat16),
               (4, 1024, 40, 64, torch.float32)]
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
+# consensus_step's launchers: the arguments between the seven pointers
+# and the 16-byte flag (or the stream, where a tree has no flag)
+_STEP_LAUNCHERS = ("repro_consensus_step", "repro_consensus_step_rows",
+                   "repro_consensus_step_batched")
 
 
 def _chip_smoke():
@@ -57,35 +64,57 @@ def _chip_smoke():
     return chip_smoke
 
 
-def _load_other(other: Path) -> tuple[ctypes.CDLL, bool, ctypes.CDLL]:
-    """The other tree's two libraries, and whether its consensus_mix takes
-    the 16-byte flag (this tree's signature) or not (before it).  Its
-    batched launchers, where it has them, get their argument types."""
+def _takes_vec(source: str, name: str) -> bool:
+    """Whether the launcher ``name`` of ``source`` takes the 16-byte flag."""
+    found = re.search(rf'extern "C" int {name}\(([^)]*)\)', source)
+    return found is not None and "int vec" in found.group(1)
+
+
+def _load_other(other: Path):
+    """The other tree's two libraries, and which of its consensus launchers
+    it has and take the 16-byte flag (``_bind_consensus``)."""
     rel_mix = mix_ops.SOURCE.relative_to(ROOT)
     rel_wkv = wkv_ops.SOURCE.relative_to(ROOT)
     sources = [other / rel_mix, other / rel_wkv, mix_ops.SOURCE,
                wkv_ops.SOURCE]
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(build.build, sources))
+    # a source both trees share builds once
+    unique = {build.library_path(src): src for src in sources}
+    with ThreadPoolExecutor(len(unique)) as pool:
+        built = dict(zip(unique, pool.map(build.build, unique.values())))
+    libs = [built[build.library_path(src)] for src in sources]
     for src, lib in zip(sources, libs):
         report = _chip_smoke().ptxas_report(lib.with_suffix(".log").read_text())
         print(json.dumps({"source": str(src), "ptxas": report}), flush=True)
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     mix = ctypes.CDLL(str(libs[0]))
-    has_vec = "int dtype, int vec" in sources[0].read_text()
-    mix.repro_consensus_mix.argtypes = (
-        [ptr] * 3 + [i32, i64, i32] + ([i32] if has_vec else []) + [ptr])
-    mix.repro_consensus_step.argtypes = [ptr] * 7 + [i32, i64,
-                                                     ctypes.c_float, i32,
-                                                     ptr]
-    if hasattr(mix, "repro_consensus_step_batched"):
-        mix.repro_consensus_step_batched.argtypes = [ptr] * 7 + [
-            i32, i64, i32, i64, ptr, i32, ptr]
-        mix.repro_consensus_mix_batched.argtypes = [ptr] * 3 + [
-            i32, i64, i32, i64, i32, i32, ptr]
+    vec = _bind_consensus(mix, sources[0].read_text())
     wkv = ctypes.CDLL(str(libs[1]))
-    wkv.repro_wkv6.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-    return mix, has_vec, wkv
+    wkv.repro_wkv6.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    return mix, vec, wkv
+
+
+def _bind_consensus(lib: ctypes.CDLL, source: str) -> dict:
+    """Argument types for the consensus launchers ``lib`` has; returns
+    {launcher: whether it takes the 16-byte flag} for those."""
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    middle = {"repro_consensus_mix": [i32, i64, i32],
+              "repro_consensus_mix_batched": [i32, i64, i32, i64, i32],
+              "repro_consensus_step": [i32, i64, f32, i32],
+              "repro_consensus_step_rows": [i32, i64, i32, i32, f32, i32],
+              "repro_consensus_step_batched": [i32, i64, i32, i64, ptr, i32]}
+    vec = {}
+    for name, args in middle.items():
+        if hasattr(lib, name):
+            vec[name] = _takes_vec(source, name)
+            pointers = 3 if "_mix" in name else 7
+            getattr(lib, name).argtypes = ([ptr] * pointers + args
+                                           + [i32] * vec[name] + [ptr])
+    return vec
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def _turns(fns: dict, **kw) -> dict:
@@ -98,99 +127,154 @@ def _turns(fns: dict, **kw) -> dict:
     return {n: [first[n], second[n]] for n in names}
 
 
-def _batched(chip_smoke, other_mix, gen, dev, stream) -> None:
-    """Both batched kernels of both trees at the sweep shape, one shared
-    M, by graph replay, beside ``baddbmm`` / ``bmm``."""
+def _step_cases(chip_smoke) -> list:
+    """chip_smoke.py's five timed consensus_step shapes: (form, launcher,
+    m, D, rows of the block or None, row0, experiments or None, by graph
+    replay, calls a timing)."""
+    main, large = chip_smoke.MAIN_SHAPE, chip_smoke.LARGE_SHAPE
+    b, m, d = chip_smoke.SWEEP_SHAPE
+    cases = [("square", _STEP_LAUNCHERS[0], *main, None, 0, None, True, 200),
+             ("square", _STEP_LAUNCHERS[0], *large, None, 0, None, False, 5),
+             ("batched", _STEP_LAUNCHERS[2], m, d, None, 0, b, True, 200)]
+    for where, (rows, m, d, row0) in chip_smoke.ROW_SHAPES.items():
+        main_shape = where == "main"
+        cases.append(("rows", _STEP_LAUNCHERS[1], m, d, rows, row0, None,
+                      main_shape, 200 if main_shape else 5))
+    return cases
+
+
+def _steps(chip_smoke, other, other_vec, gen, dev) -> None:
+    """Both trees' consensus_step launchers at ``_step_cases`` in both
+    dtypes: their outputs bit for bit, each against the plain version,
+    and in float32 their times beside this tree's wrapper, the plain
+    version and the PyTorch calls for the same function."""
+    this = mix_ops.load()
+    alpha = chip_smoke.ALPHA
+    for form, name, m, d, rows, row0, b, graph, inner in _step_cases(
+            chip_smoke):
+        for dtype in (torch.float32, torch.bfloat16):
+            table = (b, m, d) if b else (m, d)
+            block = table if rows is None else (rows, d)
+            M = torch.rand(*((1,) if b else ()), m, m, generator=gen,
+                           device=dev) + 0.05
+            M = (M / M.sum(dim=-1, keepdim=True)).contiguous()
+            x, u = (torch.randn(*table, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            p, pp = (torch.randn(*block, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            alphas = torch.full((b or 1,), alpha, device=dev)
+            outs = {tree: (torch.empty_like(p), torch.empty_like(p))
+                    for tree in ("other", "this")}
+
+            def args(tree):
+                xo, uo = outs[tree]
+                head = [t.data_ptr() for t in (M, x, u, p, pp, xo, uo)]
+                head += [m, d]
+                if form == "square":
+                    head += [alpha]
+                elif form == "rows":
+                    head += [row0, rows, alpha]
+                else:
+                    head += [b, 0, alphas.data_ptr()]
+                head.append(_CODES[dtype])
+                if tree == "this" or other_vec[name]:
+                    head.append(int(mix_ops.takes_16_byte_path(
+                        x, u, p, pp, xo, uo)))
+                return head
+
+            launch = {"this_raw": (lambda a=args("this"):
+                                   getattr(this, name)(*a, _stream()))}
+            if name in other_vec:
+                launch["other"] = (lambda a=args("other"):
+                                   getattr(other, name)(*a, _stream()))
+            for tree, fn in launch.items():
+                err = fn()
+                if err:
+                    raise RuntimeError(f"{tree} {name}: CUDA error {err}")
+            if form == "square":
+                plain = lambda: mix_ref.consensus_step_ref(
+                    M, x, u, p, pp, alpha=alpha)
+            elif form == "rows":
+                plain = lambda: mix_ref.consensus_step_rows_ref(
+                    M, x, u, p, pp, row0=row0, alpha=alpha)
+            else:
+                plain = lambda: mix_ref.consensus_step_batched_ref(
+                    M, x, u, p, pp, alphas)
+            want = plain()
+            torch.cuda.synchronize()
+
+            def err_of(got):
+                return max(float((g.float() - w.float()).abs().max())
+                           for g, w in zip(got, want))
+            rec = dict(kernel="consensus_step", form=form,
+                       shape=list(table) if rows is None else [rows, m, d],
+                       row0=row0,
+                       dtype=str(dtype)[6:],
+                       max_abs_err_this=err_of(outs["this"]))
+            if "other" in launch:
+                rec["bitwise_equal"] = all(torch.equal(a, c) for a, c in
+                                           zip(outs["this"], outs["other"]))
+                rec["max_abs_err_other"] = err_of(outs["other"])
+            if dtype == torch.float32:
+                if form == "square":
+                    fns = dict(this=lambda: mix_ops.consensus_step_kernel(
+                        M, x, u, p, pp, alpha=alpha),
+                        addmm=lambda: (torch.addmm(u, M, x, beta=-alpha),
+                                       torch.addmm(p - pp, M, u)))
+                    bound = chip_smoke.bound_ms("consensus_step", m, d, 4)
+                elif form == "rows":
+                    Mr = M[row0:row0 + rows].contiguous()
+                    ur = u[row0:row0 + rows].contiguous()
+                    fns = dict(this=lambda: mix_ops.consensus_step_kernel(
+                        M, x, u, p, pp, alpha=alpha, row0=row0),
+                        addmm=lambda: (torch.addmm(ur, Mr, x, beta=-alpha),
+                                       torch.addmm(p - pp, Mr, u)))
+                    bound = chip_smoke.row_bound_ms("consensus_step", rows,
+                                                    m, d, 4)
+                else:
+                    Mb = M.expand(b, m, m)
+                    fns = dict(this=lambda: mix_ops.consensus_step_batched_kernel(
+                        M, x, u, p, pp, alphas),
+                        baddbmm=lambda: (
+                            torch.baddbmm(u, Mb, x, beta=-alpha),
+                            torch.baddbmm(p - pp, Mb, u)))
+                    bound = chip_smoke.batched_bound_ms("consensus_step", b,
+                                                        1, m, d, 4)
+                fns = {**{k: launch[k] for k in ("other",) if k in launch},
+                       **fns, "this_raw": launch["this_raw"],
+                       "plain": plain}
+                rec["ms"] = _turns(fns, inner=inner, graph=graph)
+                rec["bound_ms"] = bound[0]
+            print(json.dumps(rec), flush=True)
+
+
+def _batched_mix(chip_smoke, other_mix, other_vec, gen, dev) -> None:
+    """Both trees' batched mix at the sweep shape, one shared M, by graph
+    replay, beside ``bmm``."""
     b, m, d = chip_smoke.SWEEP_SHAPE
     M = torch.rand(1, m, m, generator=gen, device=dev) + 0.05
     M = (M / M.sum(dim=-1, keepdim=True)).contiguous()
     Mb = M.expand(b, m, m)
-    x, u, p, pp = (torch.randn(b, m, d, generator=gen, device=dev)
-                   for _ in range(4))
-    alpha = torch.full((b,), chip_smoke.ALPHA, device=dev)
+    x = torch.randn(b, m, d, generator=gen, device=dev)
+    out = torch.empty_like(x)
     this_mix = mix_ops.load()
-    xo, uo = torch.empty_like(x), torch.empty_like(u)
-    vec = int(mix_ops.mix_takes_16_byte_path(x, xo))
-    step_args = (M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
-                 pp.data_ptr(), xo.data_ptr(), uo.data_ptr(), m, d, b, 0,
-                 alpha.data_ptr(), 0)
-    mix_args = (M.data_ptr(), x.data_ptr(), xo.data_ptr(), m, d, b, 0, 0,
-                vec)
-    cases = {
-        "consensus_step_batched": {
-            "other": lambda: other_mix.repro_consensus_step_batched(
-                *step_args, stream()),
-            "this": lambda: mix_ops.consensus_step_batched_kernel(
-                M, x, u, p, pp, alpha),
-            "this_raw": lambda: this_mix.repro_consensus_step_batched(
-                *step_args, stream()),
-            "baddbmm": lambda: (
-                torch.baddbmm(u, Mb, x, beta=-chip_smoke.ALPHA),
-                torch.baddbmm(p - pp, Mb, u))},
-        "consensus_mix_batched": {
-            "other": lambda: other_mix.repro_consensus_mix_batched(
-                *mix_args, stream()),
-            "this": lambda: mix_ops.consensus_mix_batched_kernel(M, x),
-            "this_raw": lambda: this_mix.repro_consensus_mix_batched(
-                *mix_args, stream()),
-            "bmm": lambda: torch.bmm(Mb, x)}}
-    for kernel, fns in cases.items():
-        fns["other"]()
-        got = fns["this"]()
-        got = got if isinstance(got, tuple) else (got,)
-        torch.cuda.synchronize()
-        diff = max(float((g - w).abs().max()) for g, w in zip(got, (xo, uo)))
-        ms = _turns(fns, inner=200, graph=True)
-        name = kernel.removesuffix("_batched")
-        print(json.dumps(dict(
-            kernel=kernel, shape=[b, m, d], dtype="float32", ms=ms,
-            bound_ms=chip_smoke.batched_bound_ms(name, b, 1, m, d, 4)[0],
-            max_abs_diff=diff)), flush=True)
-
-
-def _row_blocks(chip_smoke, gen, dev) -> None:
-    """This tree's row-block kernels at chip_smoke.py's ``ROW_SHAPES``,
-    float32, beside their plain versions and the library calls on the
-    block's rows (the Section-6 shape by graph replay)."""
-    from repro_torch.kernels.consensus_step import ref
-    alpha = chip_smoke.ALPHA
-    for where, (rows, m, d, row0) in chip_smoke.ROW_SHAPES.items():
-        M = torch.rand(m, m, generator=gen, device=dev) + 0.05
-        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
-        x, u = (torch.randn(m, d, generator=gen, device=dev)
-                for _ in range(2))
-        p, pp = (torch.randn(rows, d, generator=gen, device=dev)
-                 for _ in range(2))
-        Mr = M[row0:row0 + rows].contiguous()
-        ur = u[row0:row0 + rows].contiguous()
-        cases = {
-            "consensus_step_rows": {
-                "this": lambda: mix_ops.consensus_step_kernel(
-                    M, x, u, p, pp, alpha=alpha, row0=row0),
-                "plain": lambda: ref.consensus_step_rows_ref(
-                    M, x, u, p, pp, row0=row0, alpha=alpha),
-                "addmm": lambda: (torch.addmm(ur, Mr, x, beta=-alpha),
-                                  torch.addmm(p - pp, Mr, u))},
-            "consensus_mix_rows": {
-                "this": lambda: mix_ops.consensus_mix_kernel(
-                    M, x, row0=row0, rows=rows),
-                "plain": lambda: ref.consensus_mix_rows_ref(
-                    M, x, row0=row0, rows=rows),
-                "matmul": lambda: torch.matmul(Mr, x)}}
-        graph, inner = (True, 200) if where == "main" else (False, 5)
-        for kernel, fns in cases.items():
-            got, want = fns["this"](), fns["plain"]()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            torch.cuda.synchronize()
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            ms = _turns(fns, inner=inner, graph=graph)
-            name = kernel.removesuffix("_rows")
-            print(json.dumps(dict(
-                kernel=kernel, shape=[rows, m, d], row0=row0,
-                dtype="float32", ms=ms,
-                bound_ms=chip_smoke.row_bound_ms(name, rows, m, d, 4)[0],
-                max_abs_err=err)), flush=True)
+    args = (M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d, b, 0, 0,
+            int(mix_ops.mix_takes_16_byte_path(x, out)))
+    fns = {"other": lambda: other_mix.repro_consensus_mix_batched(*args,
+                                                                  _stream()),
+           "this": lambda: mix_ops.consensus_mix_batched_kernel(M, x),
+           "this_raw": lambda: this_mix.repro_consensus_mix_batched(
+               *args, _stream()),
+           "bmm": lambda: torch.bmm(Mb, x)}
+    fns["other"]()
+    got = fns["this"]()
+    torch.cuda.synchronize()
+    print(json.dumps(dict(
+        kernel="consensus_mix_batched", shape=[b, m, d], dtype="float32",
+        ms=_turns(fns, inner=200, graph=True),
+        bound_ms=chip_smoke.batched_bound_ms("consensus_mix", b, 1, m, d,
+                                             4)[0],
+        max_abs_diff=float((got - out).abs().max()))), flush=True)
 
 
 def main(argv: list[str]) -> int:
@@ -199,30 +283,26 @@ def main(argv: list[str]) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     chip_smoke = _chip_smoke()
-    other_mix, has_vec, other_wkv = _load_other(Path(argv[0]).resolve())
+    other_mix, other_vec, other_wkv = _load_other(Path(argv[0]).resolve())
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
     this_mix = mix_ops.load()
     for m, d, dtype, graph, inner in MIX_SHAPES:
         x = torch.randn(m, d, generator=gen, device=dev).to(dtype)
         M = torch.rand(m, m, generator=gen, device=dev) + 0.05
         M = (M / M.sum(dim=1, keepdim=True)).contiguous()
         out = torch.empty_like(x)
-        vec = ((int(mix_ops.mix_takes_16_byte_path(x, out)),)
-               if has_vec else ())
+        flag = int(mix_ops.mix_takes_16_byte_path(x, out))
         args = (M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d,
-                _CODES[dtype], *vec)
+                _CODES[dtype], *((flag,) if other_vec["repro_consensus_mix"]
+                                 else ()))
         raw = (M.data_ptr(), x.data_ptr(), out.data_ptr(), m, d,
-               _CODES[dtype], int(mix_ops.mix_takes_16_byte_path(x, out)))
+               _CODES[dtype], flag)
         fns = {"other": lambda: other_mix.repro_consensus_mix(*args,
-                                                              stream()),
+                                                              _stream()),
                "this": lambda: mix_ops.consensus_mix_kernel(M, x),
                "this_raw": lambda: this_mix.repro_consensus_mix(*raw,
-                                                                stream())}
+                                                                _stream())}
         if dtype == torch.float32:
             fns["matmul"] = lambda: torch.matmul(M, x)
         fns["other"]()
@@ -235,35 +315,9 @@ def main(argv: list[str]) -> int:
                                                 x.element_size())[0],
             max_abs_diff=float((got.float() - out.float()).abs().max()))),
             flush=True)
-    for m, d, graph, inner in STEP_SHAPES:
-        M = torch.rand(m, m, generator=gen, device=dev) + 0.05
-        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
-        x, u, p, pp = (torch.randn(m, d, generator=gen, device=dev)
-                       for _ in range(4))
-        xo, uo = torch.empty_like(x), torch.empty_like(u)
-        alpha = chip_smoke.ALPHA
-        args = (M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
-                pp.data_ptr(), xo.data_ptr(), uo.data_ptr(), m, d, alpha, 0)
-        fns = {"other": lambda: other_mix.repro_consensus_step(*args,
-                                                               stream()),
-               "this": lambda: mix_ops.consensus_step_kernel(
-                   M, x, u, p, pp, alpha=alpha),
-               "this_raw": lambda: this_mix.repro_consensus_step(*args,
-                                                                 stream()),
-               "addmm": lambda: (torch.addmm(u, M, x, beta=-alpha),
-                                 torch.addmm(p - pp, M, u))}
-        fns["other"]()
-        got = fns["this"]()
-        torch.cuda.synchronize()
-        ms = _turns(fns, inner=inner, graph=graph)
-        print(json.dumps(dict(
-            kernel="consensus_step", shape=[m, d], dtype="float32", ms=ms,
-            bound_ms=chip_smoke.bound_ms("consensus_step", m, d, 4)[0],
-            max_abs_diff=max(float((got[0] - xo).abs().max()),
-                             float((got[1] - uo).abs().max())))), flush=True)
-    if hasattr(other_mix, "repro_consensus_step_batched"):
-        _batched(chip_smoke, other_mix, gen, dev, stream)
-    _row_blocks(chip_smoke, gen, dev)
+    _steps(chip_smoke, other_mix, other_vec, gen, dev)
+    if "repro_consensus_mix_batched" in other_vec:
+        _batched_mix(chip_smoke, other_mix, other_vec, gen, dev)
     for b, s, h, n, dtype in WKV_SHAPES:
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
@@ -276,7 +330,7 @@ def main(argv: list[str]) -> int:
         args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), None, out.data_ptr(), state.data_ptr(), b, s,
                 h, n, _CODES[dtype])
-        fns = {"other": lambda: other_wkv.repro_wkv6(*args, stream()),
+        fns = {"other": lambda: other_wkv.repro_wkv6(*args, _stream()),
                "this": lambda: wkv_ops.wkv6(r, k, v, w, u)}
         fns["other"]()
         got, _ = fns["this"]()

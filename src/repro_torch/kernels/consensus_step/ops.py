@@ -5,6 +5,9 @@ Counterpart of ``repro.kernels.consensus_step.ops`` (pytree level) and
 on nothing else: a CPU tensor goes to the plain version in ``ref.py``, a
 CUDA tensor launches the kernel of ``csrc/consensus_step.cu`` or raises.
 ``LAUNCHES`` counts kernel launches, one per launch, and nothing else.
+Each launch moves its streams in 16-byte accesses when
+``takes_16_byte_path`` holds for all of them (inputs and outputs) and in
+element accesses otherwise; the two give the same bits.
 
 Row blocks.  ``consensus_step_kernel(..., row0=r)`` and
 ``consensus_mix_kernel(..., row0=r, rows=k)`` compute only the output
@@ -51,7 +54,7 @@ __all__ = ["LAUNCHES", "MAX_SHARED_BYTES", "ROW_LAUNCHES", "SOURCE",
            "consensus_mix_batched_kernel", "consensus_mix_kernel",
            "consensus_step", "consensus_step_batched_kernel",
            "consensus_step_kernel", "flatten_agents", "load",
-           "mix_takes_16_byte_path"]
+           "mix_takes_16_byte_path", "takes_16_byte_path"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "consensus_step.cu"
 
@@ -71,10 +74,10 @@ def load() -> ctypes.CDLL:
     lib = load_library(SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.repro_consensus_step.argtypes = [ptr] * 7 + [i32, i64, ctypes.c_float,
-                                                     i32, ptr]
+                                                     i32, i32, ptr]
     lib.repro_consensus_step.restype = i32
     lib.repro_consensus_step_rows.argtypes = [ptr] * 7 + [
-        i32, i64, i32, i32, ctypes.c_float, i32, ptr]
+        i32, i64, i32, i32, ctypes.c_float, i32, i32, ptr]
     lib.repro_consensus_step_rows.restype = i32
     lib.repro_consensus_mix.argtypes = [ptr] * 3 + [i32, i64, i32, i32, ptr]
     lib.repro_consensus_mix.restype = i32
@@ -82,7 +85,7 @@ def load() -> ctypes.CDLL:
                                                          i32, i32, ptr]
     lib.repro_consensus_mix_rows.restype = i32
     lib.repro_consensus_step_batched.argtypes = [ptr] * 7 + [
-        i32, i64, i32, i64, ptr, i32, ptr]
+        i32, i64, i32, i64, ptr, i32, i32, ptr]
     lib.repro_consensus_step_batched.restype = i32
     lib.repro_consensus_mix_batched.argtypes = [ptr] * 3 + [
         i32, i64, i32, i64, i32, i32, ptr]
@@ -223,15 +226,16 @@ def _launch_step(M, x, u, p, p_prev, x_out, u_out, alpha: float,
     lib = load()
     ptrs = (M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
             p_prev.data_ptr(), x_out.data_ptr(), u_out.data_ptr(), m, d)
+    vec = int(takes_16_byte_path(x, u, p, p_prev, x_out, u_out))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if row0 is None:
             err = lib.repro_consensus_step(*ptrs, float(alpha),
-                                           _DTYPE_CODES[x.dtype], stream)
+                                           _DTYPE_CODES[x.dtype], vec, stream)
         else:
             err = lib.repro_consensus_step_rows(
                 *ptrs, row0, p.shape[0], float(alpha), _DTYPE_CODES[x.dtype],
-                stream)
+                vec, stream)
     _raise_on_error(lib, err, "consensus_step")
     LAUNCHES["consensus_step"] += 1
     if row0 is not None:
@@ -266,20 +270,28 @@ def _launch_step_batched(M, x, u, p, p_prev, alpha, x_out, u_out) -> None:
             M.data_ptr(), x.data_ptr(), u.data_ptr(), p.data_ptr(),
             p_prev.data_ptr(), x_out.data_ptr(), u_out.data_ptr(), m, d, B,
             0 if M.shape[0] == 1 else m * m, alpha.data_ptr(),
-            _DTYPE_CODES[x.dtype], stream)
+            _DTYPE_CODES[x.dtype],
+            int(takes_16_byte_path(x, u, p, p_prev, x_out, u_out)), stream)
     _raise_on_error(lib, err, "consensus_step")
     LAUNCHES["consensus_step"] += 1
 
 
+def takes_16_byte_path(*streams: torch.Tensor) -> bool:
+    """Whether a consensus kernel may move ``streams``, every stream
+    operand of one launch (inputs and outputs, rows of one length), in
+    16-byte accesses: every row starts on a 16-byte boundary, i.e. a row is
+    a multiple of 16 bytes and every base pointer is 16-byte aligned (a
+    view with a storage offset may not be).  Otherwise the launch takes
+    element accesses.  Each stream is (rows, D) or a batch (B, m, D)."""
+    row_bytes = streams[0].shape[-1] * streams[0].element_size()
+    return row_bytes % 16 == 0 and all(t.data_ptr() % 16 == 0
+                                       for t in streams)
+
+
 def mix_takes_16_byte_path(x: torch.Tensor, out: torch.Tensor) -> bool:
-    """Whether ``consensus_mix``'s kernel may move ``x`` and ``out`` in
-    16-byte accesses: every row starts on a 16-byte boundary, i.e. a row
-    is a multiple of 16 bytes and both base pointers are 16-byte aligned
-    (a view with a storage offset may not be).  Otherwise it takes element
-    accesses.  ``x`` is (m, D) or a batch (B, m, D)."""
-    row_bytes = x.shape[-1] * x.element_size()
-    return (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
-            and out.data_ptr() % 16 == 0)
+    """``takes_16_byte_path`` of a ``consensus_mix`` launch: ``x`` and
+    ``out``."""
+    return takes_16_byte_path(x, out)
 
 
 def consensus_mix_kernel(M: torch.Tensor, x: torch.Tensor, *,

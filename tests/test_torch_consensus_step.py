@@ -135,6 +135,67 @@ def test_consensus_mix_edges_match_jax_kernel(m, d, dtype):
                                    rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,d", MIX_EDGES)
+def test_consensus_step_edges_match_jax_kernel(m, d, dtype):
+    """consensus_step on the mix's edges (17 agents: the CUDA kernel's
+    passes; 1 to 16 its two stagings), random non-symmetric M; every
+    stream aligned and every stream one element into its storage
+    (contiguous, a misaligned base: the CUDA kernel's element path), the
+    same values either way."""
+    from repro.kernels.consensus_step.kernel import consensus_step_kernel
+    rng = np.random.default_rng(m * 10007 + d + 1)
+    mix = _random_mixing(m, rng) if m > 1 else np.ones((1, 1), np.float32)
+    streams = [rng.standard_normal((m, d)).astype(np.float32)
+               for _ in range(4)]
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j_out = consensus_step_kernel(jnp.asarray(mix),
+                                  *(_jax(s, jd) for s in streams),
+                                  alpha=ALPHA)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    aligned = [_torch(s, td) for s in streams]
+    shifted = []
+    for t in aligned:
+        buf = torch.cat([torch.zeros(1, dtype=td), t.flatten()])
+        shifted.append(buf[1:].view(m, d))
+    for operands in (aligned, shifted):
+        assert all(t.is_contiguous() for t in operands)
+        port = ops.consensus_step_kernel(torch.tensor(mix), *operands,
+                                         alpha=ALPHA)
+        for k in range(2):
+            assert port[k].dtype == td and port[k].shape == (m, d)
+            np.testing.assert_allclose(_np(port[k]), _np(j_out[k]),
+                                       atol=tol, rtol=tol)
+
+
+# the six stream operands of a consensus_step launch, as
+# takes_16_byte_path receives them
+STEP_OPERANDS = ("x", "u", "p", "p_prev", "x_out", "u_out")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("misaligned", (None,) + STEP_OPERANDS)
+def test_step_takes_16_byte_path_only_when_all_six_operands_are_aligned(
+        dtype, misaligned):
+    m, d = 5, 760
+
+    def view(offset):
+        """(m, d) contiguous, ``offset`` elements into a fresh storage: 8
+        is 16 or 32 bytes (aligned), 1 is 2 or 4 (misaligned)."""
+        return torch.zeros(m * d + offset, dtype=dtype)[offset:].view(m, d)
+    operands = [view(1 if name == misaligned else 8)
+                for name in STEP_OPERANDS]
+    assert ops.takes_16_byte_path(*operands) is (misaligned is None)
+    # rows that are not a multiple of 16 bytes take the element path with
+    # every base aligned
+    rows = [torch.zeros(m, 761, dtype=dtype) for _ in STEP_OPERANDS]
+    assert not ops.takes_16_byte_path(*rows)
+    # the mix's predicate is the two-operand case
+    x, out = operands[0], operands[4]
+    assert ops.mix_takes_16_byte_path(x, out) is ops.takes_16_byte_path(
+        x, out)
+
+
 @pytest.mark.parametrize("dtype,d,offset,expect", [
     (torch.float32, 760, 0, True), (torch.float32, 4096, 0, True),
     (torch.bfloat16, 760, 0, True), (torch.bfloat16, 4096, 0, True),

@@ -1,6 +1,6 @@
-"""The port's consensus_mix, flash attention and WKV6 kernels against
-their plain versions, and its captured solver steps against its eager
-ones, on the card.
+"""The port's consensus, flash attention and WKV6 kernels against their
+plain versions, and its captured solver steps against its eager ones,
+on the card.
 
 Every test here needs an NVIDIA Hopper card and skips elsewhere.  The
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -25,14 +25,18 @@ inputs, with rows that see no key exactly 0
 WKV6: float32 2e-3, bfloat16 5e-2, as in tests/test_kernels.py, on
 every head size, lengths that are not a multiple of the kernel's
 16-token chunk, and a strong-decay draw (w exactly 0, below 1e-4 and
-above 0.999).  consensus_mix: float32 1e-5, bfloat16 3e-2, as in
-tests/test_torch_consensus_step.py, over the 16-byte and the element
-path (a row that is not a multiple of 16 bytes, or an x whose storage
-offset misaligns it), one and two passes of 16 rows, and a symmetric and
-a non-symmetric mixing matrix.  The row-block forms of both consensus
-kernels (one process's rows of the allgather backend) at the same
-tolerances, blocks at the start, middle and end of M, on both paths and
-dtypes; a block of all m rows is the square launch bit for bit.
+above 0.999).  consensus_mix and consensus_step: float32 1e-5,
+bfloat16 3e-2, as in tests/test_torch_consensus_step.py, over the
+16-byte and the element path (a row that is not a multiple of 16 bytes,
+or streams whose storage offset misaligns them), one and two passes of
+16 rows of the mix and each of the step's three stagings (1-8, 9-16 and
+more agents), and a symmetric and a non-symmetric mixing matrix; the
+step's two paths give the same bits in its square, row-block and
+batched forms.  The row-block forms of both consensus kernels (one
+process's rows of the allgather backend) at the same tolerances, blocks
+at the start, middle and end of M, both kernels down the path each case
+names, in both dtypes; a block of all m rows is the square launch bit
+for bit.
 chip_smoke.py runs these and the serving shapes.
 
 Captured stepping: each algorithm's steps replayed from CUDA graphs
@@ -60,8 +64,8 @@ Batched consensus kernels (the sweeps' form): B experiments' (B, m, D)
 streams in one launch, one matrix shared by the batch or one each, a
 distinct alpha per experiment, both dtypes, the 16-byte and the element
 path, one and two passes of 16 rows, against the batched plain versions
-at the consensus_mix tolerances; every call adds one launch to its
-wrapper's count.  A sweep group (``repro_torch.solvers.sweep``) replays
+at the consensus_mix tolerances, both kernels down the path each case
+names; every call adds one launch to its wrapper's count.  A sweep group (``repro_torch.solvers.sweep``) replays
 its captured batched step bit-equal to the same group stepped eagerly:
 each algorithm on ``cuda`` (one consensus kernel launch a step for the
 whole group), an adaptive topology (a matrix per experiment), a padded
@@ -412,6 +416,83 @@ def test_consensus_mix_kernel_matches_plain_version(hopper, m, d, dtype,
                                    rtol=tol)
 
 
+def _step_operands(m, d, dtype, offset, gen, device):
+    """x, u, p, p_prev as (m, d) views ``offset`` elements into their
+    storage (1: a misaligned base, the element path)."""
+    streams = []
+    for _ in range(4):
+        buf = torch.randn(m * d + offset, generator=gen, device=device)
+        streams.append(buf.to(dtype)[offset:].view(m, d))
+    return streams
+
+
+def _offset_copy(t, offset):
+    """``t``'s values in a contiguous view ``offset`` elements into a new
+    storage."""
+    view = t.new_empty(t.numel() + offset)[offset:].view(t.shape)
+    return view.copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matrix", ["symmetric", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", MIX_D)
+@pytest.mark.parametrize("m", MIX_M)
+def test_consensus_step_kernel_matches_plain_version(hopper, m, d, dtype,
+                                                     matrix):
+    gen = torch.Generator(device=hopper).manual_seed(m * 10007 + d + 1)
+    if matrix == "symmetric":
+        M = torch.full((m, m), 1.0 / m, device=hopper)
+    else:
+        M = torch.rand(m, m, generator=gen, device=hopper) + 0.05
+        M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+    # aligned, and one element into its storage (a misaligned base)
+    for offset in (0, 1):
+        x, u, p, pp = _step_operands(m, d, dtype, offset, gen, hopper)
+        assert mix_ops.takes_16_byte_path(x, u, p, pp) == (
+            offset == 0 and d in (760, 4096))
+        before = mix_ops.LAUNCHES["consensus_step"]
+        got = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3)
+        assert mix_ops.LAUNCHES["consensus_step"] == before + 1
+        want = mix_ref.consensus_step_ref(M, x, u, p, pp, alpha=0.3)
+        tol = MIX_TOL[dtype]
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == x.shape
+            torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["square", "rows", "batched"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 16, 17])
+def test_consensus_step_paths_give_the_same_bits(hopper, m, dtype, form):
+    # the same values aligned (the 16-byte path) and one element into their
+    # storage (the element path): each staging of the step, each form
+    gen = torch.Generator(device=hopper).manual_seed(m * 7 + 1)
+    d, b, row0, rows = 760, 3, m // 3, m - m // 3
+    M = torch.rand(m, m, generator=gen, device=hopper) + 0.05
+    M = (M / M.sum(dim=1, keepdim=True)).contiguous()
+    n = b * m if form == "batched" else m
+    aligned = _step_operands(n, d, dtype, 0, gen, hopper)
+    results = []
+    for offset in (0, 1):
+        x, u, p, pp = (_offset_copy(t, offset) for t in aligned)
+        assert mix_ops.takes_16_byte_path(x, u, p, pp) == (offset == 0)
+        if form == "square":
+            got = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3)
+        elif form == "rows":
+            got = mix_ops.consensus_step_kernel(
+                M, x, u, p[row0:row0 + rows], pp[row0:row0 + rows],
+                alpha=0.3, row0=row0)
+        else:
+            got = mix_ops.consensus_step_batched_kernel(
+                M[None], *(t.view(b, m, d) for t in (x, u, p, pp)),
+                torch.linspace(0.05, 0.4, b, device=hopper))
+        results.append(got)
+    assert all(torch.equal(a, c) for a, c in zip(*results))
+
+
 # row blocks of both consensus kernels (one process of the allgather
 # backend): (m, row0, rows) at the start, the middle and the end of M, a
 # single row, and 17 agents (two passes of 16 rows)
@@ -435,6 +516,7 @@ def test_row_block_consensus_kernels_match_plain_versions(hopper, m, row0,
         buf = torch.randn(n * d + offset, generator=gen, device=hopper)
         out.append(buf.to(dtype)[offset:].view(n, d))
     (x, u), (p, pp) = tables, blocks
+    assert mix_ops.takes_16_byte_path(x, u, p, pp) == (path == "16-byte")
     before = (dict(mix_ops.LAUNCHES), dict(mix_ops.ROW_LAUNCHES))
     got = mix_ops.consensus_step_kernel(M, x, u, p, pp, alpha=0.3, row0=row0)
     mixed = mix_ops.consensus_mix_kernel(M, x, row0=row0, rows=rows)
@@ -503,6 +585,7 @@ def test_batched_consensus_kernels_match_plain_versions(hopper, b, m,
     x, u, p, pp = streams
     assert mix_ops.mix_takes_16_byte_path(x, torch.empty_like(x)) == (
         path == "16-byte")
+    assert mix_ops.takes_16_byte_path(x, u, p, pp) == (path == "16-byte")
     alpha = torch.linspace(0.05, 0.4, b, device=hopper)
     before = dict(mix_ops.LAUNCHES)
     got = mix_ops.consensus_step_batched_kernel(M, x, u, p, pp, alpha)
