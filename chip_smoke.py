@@ -23,7 +23,9 @@
    16-byte loads, a windowed case of 8 query heads a kv head at head
    size 128, the gemma2-2b serving shapes (global and local) and phase
    4i's attention shapes (jamba's 64 / 8 heads of 128 over 2048 tokens;
-   mixtral's 32 / 8 heads of 128, a 4096-token window, 2 x 4608 tokens),
+   mixtral's 32 / 8 heads of 128, a 4096-token window, 2 x 4608 tokens)
+   and phase 4j's (paligemma-3b's 8 / 1 heads of 256 over 4 x 512
+   positions; musicgen-medium's 24 / 24 heads of 64 over 4 x 1564),
    each in both dtypes; each call must add one launch to the count of
    each kernel its dtype takes; the float32 split pass is bit-equal to its
    plain version at the serving shape and on the strided views.
@@ -34,7 +36,14 @@
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes (SDPA: is_causal where there is no window, the window as a
    boolean mask where there is; without gemma2's softcap, which it cannot
-   apply; at phase 4i's shapes it computes the same function).  The
+   apply; at phase 4i's and 4j's shapes it computes the same function).
+   ``attention_blockwise`` (plain PyTorch, the JAX package's streaming
+   softmax over kv blocks of 1024) against the plain attention at phase
+   4j's two shapes in float32: its output and its gradients with respect
+   to q, k and v (one backward of a random cotangent), each within
+   ``BLOCKWISE_RTOL`` (1e-4) of the plain tensor's scale, with each
+   route's peak device memory and times, forward alone and with the
+   backward (a ``blockwise`` line).  The
    batched consensus kernels (a sweep group's form: B experiments in one
    launch): B in ``BATCH_B`` (1, 3, 4, 8: the
    Figure-2 groups' 4 among them), m in {4, 5, 16}, one
@@ -260,6 +269,29 @@
    moe ffn and its expert products, and one mamba layer's scan and whole
    block, alone at the bfloat16 prefill shapes: the dispatch's and the
    scan's shares of a prefill.  Prints the phase's seconds.
+4j. Frontend serving (``FRONTEND_RUNS``): paligemma-3b (18 layers,
+   d_model 2048, d_ff 16384, 8 / 1 heads of 256, vocab 257,216, 256
+   prefix embeddings of width 1152) and musicgen-medium (48 layers,
+   d_model 1536, d_ff 6144, 24 / 24 heads of 64, vocab 2048, 64 prefix
+   embeddings of width 768) at their published configs, nothing cut,
+   random weights from a seed, batch 4, 256 text and 1500 audio tokens
+   after the prefix, 16 greedy decode steps; the stub frontends'
+   embeddings are ``PREFIX_SCALE`` (0.1) * N(0, 1).  (a) bfloat16, the
+   flow of phase 5 with the prefix on the kernel prefill: the kernel
+   prefill with the prefix (and its plain counterpart, reported), the
+   plain cached prefill of the tokens and the decode steps (neither
+   package's cached path takes a prefix), the kernel prefill of the
+   prompt and the fed tokens; gated on finite logits and on exactly 18
+   and 48 bf16 flash launches a kernel prefill (counts set to 0 just
+   before each model's run), with the same timings and profiles and the
+   peak memory.  (b) float32, the same flow, gated at ``SERVE_RTOL``
+   like with like: ``gap_a_b`` the kernel prefill with the prefix
+   against ``make_prefill_step(attn_impl="reference")`` with it,
+   ``gap_blockwise`` the ``"blockwise"`` prefill with the prefix against
+   the same, ``gap_c_d`` the last decode step against the kernel prefill
+   of the prompt and the fed tokens and ``gap_c_e`` against their
+   cached prefill; the float32 path's launches (split pass and kernel,
+   18 and 48 each a prefill).  Prints the phase's seconds.
 5. Serving path: gemma2-2b and rwkv6-3b at full size (published config,
    random weights from a seed), batch 4, prompts of 4608 and 1024 random
    tokens, 16 greedy decode steps.  In float32: the kernel prefill (a)
@@ -280,8 +312,9 @@
    line (with the registers and spills nvcc reports for each
    instantiation of the redesigned kernels, the row-block forms with
    phase 4g's launches, the bf16 flash kernel with phase 4h's, and the
-   flash kernels with phase 4i's launches and their times at its
-   shapes), the card's name and power limit, then the last line ``{"ok": true, "device": {...}}``.  Any failed
+   flash kernels with phase 4i's and 4j's launches and their times at
+   their shapes), the card's name and power limit, then the last line
+   ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -548,6 +581,12 @@ GEMMA_LOCAL = (4, 4608, 4608, 8, 4, 256, True, 4096, 50.0, 0)
 # head size 128, no softcap, at their prefill shapes
 JAMBA_ATTN = (1, 2048, 2048, 64, 8, 128, True, None, None, 0)
 MIXTRAL_ATTN = (2, 4608, 4608, 32, 8, 128, True, 4096, None, 0)
+# phase 4j's attention layers: paligemma-3b's (8 query heads over one kv
+# head of 256, over 256 prefix and 256 text positions) and
+# musicgen-medium's (24 over 24 heads of 64, over 64 prefix and 1500 audio
+# positions), causal, no window, no softcap, at their prefill shapes
+PALIGEMMA_ATTN = (4, 512, 512, 8, 1, 256, True, None, None, 0)
+MUSICGEN_ATTN = (4, 1564, 1564, 24, 24, 64, True, None, None, 0)
 FLASH_CASES = (
     [c + ("float32",) for c in FLASH_SHAPES]
     + [c + ("bfloat16",) for c in FLASH_SHAPES]
@@ -562,7 +601,7 @@ FLASH_CASES = (
     + [(1, 300, 300, 16, 2, 128, True, 100, None, 0, dt)
        for dt in ("float32", "bfloat16")])
 # Checked and timed: both dtypes at gemma2's global and local shapes and
-# at phase 4i's two.
+# at phase 4i's and 4j's two.
 FLASH_MAIN = {
     "global": GEMMA_GLOBAL + ("bfloat16",),
     "local": GEMMA_LOCAL + ("bfloat16",),
@@ -572,7 +611,19 @@ FLASH_MAIN = {
     "jamba_f32": JAMBA_ATTN + ("float32",),
     "mixtral": MIXTRAL_ATTN + ("bfloat16",),
     "mixtral_f32": MIXTRAL_ATTN + ("float32",),
+    "paligemma": PALIGEMMA_ATTN + ("bfloat16",),
+    "paligemma_f32": PALIGEMMA_ATTN + ("float32",),
+    "musicgen": MUSICGEN_ATTN + ("bfloat16",),
+    "musicgen_f32": MUSICGEN_ATTN + ("float32",),
 }
+# attention_blockwise (plain PyTorch: the JAX package's streaming softmax
+# over kv blocks) against the plain attention at phase 4j's two shapes in
+# float32, its output and its gradients with respect to q, k and v (of one
+# random cotangent): every difference within BLOCKWISE_RTOL of the plain
+# tensor's max-abs scale (the same float32 arithmetic in another order:
+# tests/test_torch_blockwise.py measures a few 1e-7 against the JAX one)
+BLOCKWISE_SHAPES = {"paligemma": PALIGEMMA_ATTN, "musicgen": MUSICGEN_ATTN}
+BLOCKWISE_RTOL = 1e-4
 # float32: as tests/test_kernels.py (tests/test_torch_flash_attention.py
 # emulates the split-operand kernel's arithmetic at under a third of it).
 # bfloat16: the wrapper module's per-row gate, ops.row_errors
@@ -635,6 +686,15 @@ MOE_MAMBA_GATE_CUTS = {
 # the logits within CARD_CPU_RTOL of their max-abs scale.
 CARD_CPU_RUN = (2, 72, 4)
 CARD_CPU_RTOL = 1e-4
+# Phase 4j, frontend serving: paligemma-3b and musicgen-medium at their
+# published configs, nothing cut; (batch, text or audio tokens after the
+# prefix, greedy decode steps): paligemma's 256 text tokens after its 256
+# image patches, musicgen's 1500 audio tokens (30 s at 50 Hz) after its 64
+# conditioning frames.  The stub frontends' embeddings are PREFIX_SCALE *
+# N(0, 1) from a seed, as tests/test_arch_smoke.py draws them.
+FRONTEND_RUNS = {"paligemma-3b": (4, 256, 16),
+                 "musicgen-medium": (4, 1500, 16)}
+PREFIX_SCALE = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -1374,6 +1434,70 @@ def check_flash(torch) -> dict:
     return dict(err=err, timings=timings)
 
 
+def check_blockwise(torch) -> dict:
+    """``attention_blockwise`` against ``attention_ref`` at
+    ``BLOCKWISE_SHAPES`` in float32: the output, and the gradients with
+    respect to q, k and v of one backward of a fixed random cotangent,
+    each within ``BLOCKWISE_RTOL`` of the plain tensor's scale; each
+    route's peak device memory beyond its inputs, forward alone (no
+    autograd) and forward with backward, and their times."""
+    from repro_torch.models import layers as L
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    routes = {"plain": L.attention_ref, "blockwise": L.attention_blockwise}
+    out = {}
+    for model, (b, sq, skv, nh, nkv, hd, *_) in BLOCKWISE_SHAPES.items():
+        q = torch.randn(b, sq, nh, hd, generator=gen, device=dev)
+        k, v = (torch.randn(b, skv, nkv, hd, generator=gen, device=dev)
+                for _ in range(2))
+        cot = torch.randn(b, sq, nh, hd, generator=gen, device=dev)
+        pos = torch.arange(sq, device=dev)
+        rec = dict(shape=[b, sq, skv, nh, nkv, hd])
+        results = {}
+        for name, fn in routes.items():
+            def forward():
+                with torch.no_grad():
+                    return fn(q, k, v, pos, pos)
+
+            def with_backward():
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                o = fn(*leaves, pos, pos)
+                return (o.detach(), *torch.autograd.grad(
+                    torch.sum(o * cot), leaves))
+
+            peaks = {}
+            for what, run in (("forward", forward),
+                              ("with_backward", with_backward)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                res = run()
+                torch.cuda.synchronize()
+                peaks[what] = (torch.cuda.max_memory_allocated() - base) / 1e9
+                if what == "with_backward":
+                    results[name] = res
+                del res
+            rec[name] = dict(
+                peak_gb=peaks["forward"],
+                peak_gb_with_backward=peaks["with_backward"],
+                ms=time_ms(torch, forward, 1, reps=3),
+                ms_with_backward=time_ms(torch, with_backward, 1, reps=3))
+        gaps = {}
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            got, want = results["blockwise"][i], results["plain"][i]
+            gaps[name] = float((got - want).abs().max()
+                               / want.abs().max())
+        rec["gaps"] = gaps
+        print(f"blockwise {model}: {json.dumps(rec)}", flush=True)
+        check(all(g <= BLOCKWISE_RTOL for g in gaps.values()),
+              f"blockwise {model}: gaps {gaps} beyond {BLOCKWISE_RTOL} of "
+              "the plain attention's scale")
+        out[model] = rec
+        del q, k, v, cot, results
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_wkv6(torch) -> dict:
     """The WKV6 kernel against its plain version on every case; time and
     bound at the serving shape (no library call computes WKV6)."""
@@ -1457,8 +1581,8 @@ def moe_drop_shares(torch, run):
 
 def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
                 ) -> dict:
-    """One model's serving flow (see the module docstring, phases 4i and
-    5) for ``cfg`` in its dtype: float32 gated, bfloat16 profiled.
+    """One model's serving flow (see the module docstring, phases 4i, 4j
+    and 5) for ``cfg`` in its dtype: float32 gated, bfloat16 profiled.
 
     Returns the kernel launches of the run, the logit gaps, and the
     prefill and decode times.  A moe ffn's kernel prefill routes by
@@ -1466,7 +1590,14 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
     holds the kernel prefill against the capacity route's plain prefill
     and ``gap_c_d`` the last decode step against the cached prefill of
     the prompt and the fed tokens; the capacity-against-exact gaps and
-    each moe layer's dropped share stand beside them, ungated."""
+    each moe layer's dropped share stand beside them, ungated.  A config
+    with a frontend's prefix tokens prefills with ``PREFIX_SCALE *
+    N(0, 1)`` prefix embeddings (the kernel prefill, timed with them);
+    ``gap_a_b`` holds it against the plain prefill with the same prefix
+    and ``gap_blockwise`` the blockwise one against that too; the cached
+    path takes no prefix, so ``gap_c_d`` holds the last decode step
+    against the kernel prefill of the prompt and the fed tokens and
+    ``gap_c_e`` against their cached prefill."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch.serving import make_prefill_step, make_serve_step
@@ -1474,6 +1605,7 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
 
     dev = torch.device("cuda", torch.cuda.current_device())
     arch, dtype, moe = cfg.name, cfg.dtype, cfg.num_experts > 0
+    frontend = cfg.frontend != "none" and cfg.num_prefix_tokens > 0
     specs = cfg.layer_pattern() * cfg.num_periods()
     n_attn = sum(s.mixer == "attn" for s in specs)
     # flash_attention counts the flash calls of either dtype; every bf16
@@ -1507,26 +1639,38 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
         torch.cuda.synchronize()
         print(f"serve {arch} {dtype}: {M.param_count(params):,} parameters "
               f"made in {time.perf_counter() - t0:.1f} s", flush=True)
-        tokens = torch.randint(
-            0, cfg.vocab_size, (batch, prompt_len), device=dev,
-            generator=torch.Generator(device=dev).manual_seed(1))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                               device=dev, generator=gen)
+        prefix = None
+        if frontend:   # the stub frontend's embeddings
+            prefix = PREFIX_SCALE * torch.randn(
+                batch, cfg.num_prefix_tokens, cfg.frontend_dim, device=dev,
+                generator=gen)
         prefill = make_prefill_step(cfg, attn_impl="cuda", device=dev)
         serve = make_serve_step(cfg, device=dev)
 
         for c in counters.values():
             for name in c:
                 c[name] = 0
-        # (a) the kernel prefill
+        # (a) the kernel prefill, with the prefix where there is one
         logits_a, drop_shares = moe_drop_shares(
-            torch, lambda: prefill(params, tokens))
+            torch, lambda: prefill(params, tokens, prefix))
         torch.cuda.synchronize()
         check(launches() == per_prefill,
               f"{arch}: a prefill launched {launches()}, expected "
               f"{per_prefill}")
         gaps = {}
-        if moe:   # the capacity route's plain prefill
+        if moe or frontend:   # the plain prefill of the same inputs
             gaps["gap_a_b"] = gap(logits_a, make_prefill_step(
-                cfg, attn_impl="reference", device=dev)(params, tokens))
+                cfg, attn_impl="reference", device=dev)(params, tokens,
+                                                        prefix))
+        if frontend and dtype == "float32":
+            gaps["gap_blockwise"] = gap(make_prefill_step(
+                cfg, attn_impl="blockwise", device=dev)(params, tokens,
+                                                        prefix),
+                make_prefill_step(cfg, attn_impl="reference", device=dev)(
+                    params, tokens, prefix))
         # (b) the plain prefill into a fresh cache, with room for the
         # gated decode steps, SERVE_REPS timed runs of them and the
         # profiled step
@@ -1564,12 +1708,20 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
                         gap_capacity_exact_decode=gap(logits_c, logits_d),
                         drop_shares=drop_shares)
             del logits_e
+        elif frontend:
+            # the cached prefill of the prompt and the fed tokens
+            logits_e = cached_prefill(torch.cat([tokens] + fed, dim=1),
+                                      prompt_len + steps)[0]
+            finite = finite and bool(torch.isfinite(logits_e).all())
+            gaps.update(gap_c_d=gap(logits_c, logits_d),
+                        gap_c_e=gap(logits_c, logits_e))
+            del logits_e
         else:
             gaps.update(gap_a_b=gap(logits_a, logits_b),
                         gap_c_d=gap(logits_c, logits_d))
 
         # -- timing, after the counts were read; (a)-(d) were the warm-up
-        prefill_runs = wall_ms(torch, lambda: prefill(params, tokens),
+        prefill_runs = wall_ms(torch, lambda: prefill(params, tokens, prefix),
                                SERVE_REPS)
         plain_prefill_runs = wall_ms(
             torch, lambda: cached_prefill(tokens, prompt_len), SERVE_REPS)
@@ -1586,13 +1738,14 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
         profiles = {}
         if dtype == "bfloat16":   # where a served token's time goes
             profiles["prefill"] = device_profile(
-                torch, lambda: prefill(params, tokens), 1)
+                torch, lambda: prefill(params, tokens, prefix), 1)
             profiles["decode_step"] = device_profile(
                 torch, lambda: serve(params, tok, cache, position), 1)
         decode_ms = statistics.median(decode_runs)
         result = dict(
             arch=arch, dtype=dtype, layers=cfg.num_layers,
             experts=cfg.num_experts, batch=batch, prompt_len=prompt_len,
+            prefix_len=cfg.num_prefix_tokens if frontend else 0,
             decode_steps=steps, launches=counts, **gaps,
             logits_scale=float(logits_b.float().abs().max()),
             prefill_ms=statistics.median(prefill_runs),
@@ -1604,12 +1757,13 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
             decode_tokens_per_s=1e3 * batch / decode_ms,
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             profiles=profiles)
-    del params, cache, logits, logits_a, logits_b, logits_c, logits_d
+    del params, cache, logits, logits_a, logits_b, logits_c, logits_d, prefix
     torch.cuda.empty_cache()
     print(f"serve: {json.dumps(result)}", flush=True)
     check(finite, f"{arch} {dtype}: non-finite logits")
     if dtype == "float32":
         what = ("the capacity route's plain prefill" if moe
+                else "the plain prefill with the prefix" if frontend
                 else "plain cached prefill")
         check(result["gap_a_b"] <= SERVE_RTOL,
               f"{arch}: kernel prefill vs {what} gap "
@@ -1618,6 +1772,13 @@ def serve_model(torch, cfg, batch: int, prompt_len: int, steps: int
         check(result["gap_c_d"] <= SERVE_RTOL,
               f"{arch}: last decode step vs {what} gap "
               f"{result['gap_c_d']:.3e} > {SERVE_RTOL}")
+        if frontend:
+            check(result["gap_blockwise"] <= SERVE_RTOL,
+                  f"{arch}: blockwise prefill vs the plain one gap "
+                  f"{result['gap_blockwise']:.3e} > {SERVE_RTOL}")
+            check(result["gap_c_e"] <= SERVE_RTOL,
+                  f"{arch}: last decode step vs cached prefill gap "
+                  f"{result['gap_c_e']:.3e} > {SERVE_RTOL}")
     return result
 
 
@@ -1780,6 +1941,22 @@ def run_moe_mamba_serving(torch) -> dict:
     print(f"mamba and moe serving phase: {took:.1f} s", flush=True)
     return dict(runs=runs, breakdown=breakdown, card_vs_cpu=card_vs_cpu,
                 seconds=took)
+
+
+def run_frontend_serving(torch) -> dict:
+    """Phase 4j (see the module docstring): paligemma-3b and
+    musicgen-medium served at their published configs with their stub
+    frontends' prefix embeddings, bfloat16 and float32."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        for arch, (batch, prompt, steps) in FRONTEND_RUNS.items():
+            cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+            runs[arch, dtype] = serve_model(torch, cfg, batch, prompt, steps)
+    took = time.perf_counter() - t_phase
+    print(f"frontend serving phase: {took:.1f} s", flush=True)
+    return dict(runs=runs, seconds=took)
 
 
 def wall_ms(torch, fn, reps: int) -> list[float]:
@@ -3523,6 +3700,7 @@ def main() -> int:
                                                          main_matrix)
     row_err, row_timings = check_row_kernels(torch, ops, ref)
     flash = check_flash(torch)
+    blockwise = check_blockwise(torch)
     wkv = check_wkv6(torch)
     phase_seconds["kernels"] = time.perf_counter() - t0
     t_main = time.perf_counter()
@@ -3647,15 +3825,20 @@ def main() -> int:
     moe_mamba = run_moe_mamba_serving(torch)
     phase_seconds["moe_mamba_serving"] = time.perf_counter() - t0
 
+    # -- frontend serving: counts to 0 just before each model's run -------
+    t0 = time.perf_counter()
+    frontends = run_frontend_serving(torch)
+    phase_seconds["frontend_serving"] = time.perf_counter() - t0
+
     # -- the serving path: counts to 0 just before each model's run --------
+    t0 = time.perf_counter()
     from repro_torch.configs import get_config
     serving = {(arch, dtype): serve_model(
         torch, dataclasses.replace(get_config(arch), dtype=dtype),
         *SERVE_RUNS[arch])
         for arch in SERVE_RUNS for dtype in ("float32", "bfloat16")}
     print(json.dumps({"serving": list(serving.values())}), flush=True)
-    phase_seconds["serving"] = time.perf_counter() - t0 - phase_seconds[
-        "moe_mamba_serving"]
+    phase_seconds["serving"] = time.perf_counter() - t0
     print(f"phase seconds (host clock; the workers' beside "
           f"wire_byzantine): {json.dumps(phase_seconds)}", flush=True)
 
@@ -3764,10 +3947,18 @@ def main() -> int:
                         for arch, rec in moe_mamba["card_vs_cpu"].items()})
         return out
 
+    def frontend_launches(name: str, dtype: str) -> dict:
+        """Phase 4j's launches of a flash kernel: each run's two kernel
+        prefills (one with the prefix, one of the prompt and the fed
+        tokens)."""
+        return {f"{arch} {dtype}": rec["launches"][name]
+                for (arch, dt), rec in frontends["runs"].items()
+                if dt == dtype}
+
     def at_shapes(suffix: str, keys) -> dict:
         return {f"at_{model}": {key: flash["timings"][model + suffix][key]
                                 for key in keys}
-                for model in ("jamba", "mixtral")}
+                for model in ("jamba", "mixtral", "paligemma", "musicgen")}
     kernels.append(dict(
         name="flash_attention_f32_split", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, dtype="float32",
@@ -3780,8 +3971,10 @@ def main() -> int:
         shape=main["shape"], local=local["split"],
         launches_moe_mamba_serving=moe_mamba_launches(
             "flash_attention_f32_split", "float32"),
+        launches_frontend_serving=frontend_launches(
+            "flash_attention_f32_split", "float32"),
         **{f"at_{model}": flash["timings"][model + "_f32"]["split"]
-           for model in ("jamba", "mixtral")},
+           for model in ("jamba", "mixtral", "paligemma", "musicgen")},
         ptxas={k: v for k, v in ptxas.items()
                if "flash_split_f32_kernel" in k}))
     kernels.append(dict(
@@ -3799,6 +3992,8 @@ def main() -> int:
             "bound_f32_fma_ms", "library_ms")},
         launches_moe_mamba_serving=moe_mamba_launches("flash_attention_f32",
                                                       "float32"),
+        launches_frontend_serving=frontend_launches("flash_attention_f32",
+                                                    "float32"),
         **at_shapes("_f32", ("shape", "window", "ms", "call_ms", "plain_ms",
                              "bound_ms", "bound_by", "bound_split_arith_ms",
                              "bound_f32_fma_ms", "library_ms",
@@ -3824,6 +4019,8 @@ def main() -> int:
         local=flash["timings"]["local"],
         launches_moe_mamba_serving=moe_mamba_launches("flash_attention_tc",
                                                       "bfloat16"),
+        launches_frontend_serving=frontend_launches("flash_attention_tc",
+                                                    "bfloat16"),
         **at_shapes("", ("shape", "window", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "library_call"))))
     main = wkv["timing"]
@@ -3837,6 +4034,7 @@ def main() -> int:
         library_call="none: no PyTorch call computes WKV6",
         shape=main["shape"], dtype=main["dtype"],
         ptxas={k: v for k, v in ptxas.items() if "wkv6_kernel" in k}))
+    print(json.dumps({"blockwise": blockwise}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

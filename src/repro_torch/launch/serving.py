@@ -17,24 +17,37 @@ from repro_torch.models.base import ArchConfig
 __all__ = ["make_prefill_step", "make_serve_step"]
 
 
+def _check_impl(attn_impl: str) -> None:
+    if attn_impl not in L.IMPLS:
+        raise ValueError(f"unknown attention impl {attn_impl!r}; "
+                         f"known: {L.IMPLS}")
+
+
 def make_prefill_step(cfg: ArchConfig, *, attn_impl: str = "reference",
                       device: str | torch.device | None = None):
-    """prefill(params, tokens) -> last-token logits (batch, vocab).
+    """prefill(params, tokens, prefix=None) -> last-token logits (batch,
+    vocab).
 
     The full-sequence forward with no cache; ``attn_impl="cuda"`` routes
-    attention and WKV6 through the hand-written kernels.  A moe ffn takes
+    attention and WKV6 through the hand-written kernels,
+    ``"blockwise"`` attention through ``attention_blockwise``.  ``prefix``
+    (batch, num_prefix_tokens, frontend_dim), a frontend's embeddings, is
+    moved to the step's device and put before the tokens.  A moe ffn takes
     the capacity route (``moe_ffn``), as in the JAX package, so where a
     token is dropped this differs from the cached ``prefill``, which
     routes exactly.  Only the last position's features go through the
     head.  Runs on ``device`` (the CUDA card when None; raises where
     there is none).
     """
+    _check_impl(attn_impl)
     device = resolve_device(device)
-    M.check_supported(cfg)
 
-    def prefill(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(params: dict, tokens: torch.Tensor,
+                prefix: torch.Tensor | None = None) -> torch.Tensor:
+        if prefix is not None:
+            prefix = prefix.to(device)
         feats, _aux = M.features(cfg, params, tokens.to(device),
-                                 impl=attn_impl)
+                                 prefix_embed=prefix, impl=attn_impl)
         return M.head_logits(cfg, M.lm_head(params), feats[:, -1, :])
 
     return prefill
@@ -50,13 +63,10 @@ def make_serve_step(cfg: ArchConfig, *, attn_impl: str = "reference",
     checked and otherwise changes nothing: it mirrors the JAX signature,
     and the cached branches are plain attention in both packages.  A moe
     ffn routes exactly (``moe_ffn_exact``), a mamba layer steps its
-    carried state.
+    carried state.  Like the cached path, it takes no prefix.
     """
-    if attn_impl not in L.IMPLS:
-        raise ValueError(f"unknown attention impl {attn_impl!r}; "
-                         f"known: {L.IMPLS}")
+    _check_impl(attn_impl)
     device = resolve_device(device)
-    M.check_supported(cfg)
 
     def serve(params: dict, token: torch.Tensor, cache: list[dict],
               position: int) -> tuple[torch.Tensor, list[dict]]:

@@ -3,11 +3,13 @@
 Counterpart of ``repro.models.layers``, with its layouts at every public
 function: q (b, s, h, hd), ``wq`` (d, h, hd), ``wo`` (h, hd, d).
 Parameters are plain dicts of tensors.  ``attention`` takes
-``impl="reference"`` (the plain ``attention_ref``) or ``impl="cuda"``
-(the hand-written flash kernel of ``repro_torch.kernels.flash_attention``
-on CUDA tensors, its plain version on CPU tensors) on its no-cache
-branch; its cached prefill and ring-buffer decode branches are plain, as
-in the JAX package.
+``impl="reference"`` (the plain ``attention_ref``), ``impl="blockwise"``
+(``attention_blockwise``: the streaming softmax over kv blocks, plain
+PyTorch as the JAX package's is XLA code) or ``impl="cuda"`` (the
+hand-written flash kernel of ``repro_torch.kernels.flash_attention`` on
+CUDA tensors, its plain version on CPU tensors) on its no-cache branch;
+its cached prefill and ring-buffer decode branches are plain, as in the
+JAX package.
 
 Supported attention variants: grouped-query (num_kv_heads < num_heads)
 and MQA, causal masking, sliding window, attention-logit softcapping,
@@ -19,16 +21,24 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = [
-    "IMPLS", "apply_rope", "attention", "attention_ref", "gated_mlp",
+    "IMPLS", "apply_rope", "attention", "attention_blockwise",
+    "attention_ref", "gated_mlp",
     "init_attention", "init_mlp", "init_normal", "init_rms_norm",
     "rms_norm", "rope_frequencies", "softcap",
 ]
 
 # How attention and WKV6 run on their kernel paths: the plain PyTorch
-# version, or the hand-written kernel (its plain version on CPU tensors).
-IMPLS = ("reference", "cuda")
+# version, attention's streaming softmax over kv blocks (WKV6 runs its
+# plain version there, as in the JAX package), or the hand-written kernel
+# (its plain version on CPU tensors).
+IMPLS = ("reference", "blockwise", "cuda")
+
+# the position ``attention_blockwise`` gives padded keys: the JAX
+# package's int32 max, past every query, so the causal mask hides them
+PAD_POSITION = 2 ** 31 - 1
 
 Params = dict
 
@@ -141,6 +151,68 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, qlen, nh, hd).to(q.dtype)
 
 
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor,
+                        kv_positions: torch.Tensor,
+                        window: int | None = None,
+                        logit_softcap: float | None = None,
+                        block_k: int = 1024) -> torch.Tensor:
+    """Streaming-softmax GQA attention over kv blocks of ``block_k``.
+
+    Counterpart of the JAX ``attention_blockwise``: the same online
+    softmax recurrence in float32 (running max, rescaled sum and
+    accumulator), never holding the (q_len, kv_len) scores, so peak
+    attention memory is O(q_len * block_k).  k, v and their positions are
+    padded to a block multiple, the padded keys at ``PAD_POSITION``, which
+    the causal mask hides; masked scores are -1e30.  Under autograd each
+    block is recomputed in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant), as ``jax.checkpoint`` does there.
+    """
+    b, sq, nh, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    group = nh // nkv
+    scale = 1.0 / float(hd) ** 0.5
+    pad = (-skv) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = F.pad(kv_positions, (0, pad), value=PAD_POSITION)
+    qg = q.reshape(b, sq, nkv, group, hd).float()
+
+    def block(acc, mx, lse, kc, vc, pc):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc.float()) * scale
+        s = softcap(s, logit_softcap)
+        mask = q_positions[:, None] >= pc[None, :]
+        if window is not None:
+            mask = mask & (q_positions[:, None] - pc[None, :] < window)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(mx, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(mx - m_new)
+        lse = lse * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p,
+                                                   vc.float())
+        return acc, m_new, lse
+
+    acc = torch.zeros((b, nkv, group, sq, hd), dtype=torch.float32,
+                      device=q.device)
+    mx = torch.full((b, nkv, group, sq), -1e30, dtype=torch.float32,
+                    device=q.device)
+    lse = torch.zeros((b, nkv, group, sq), dtype=torch.float32,
+                      device=q.device)
+    remat = torch.is_grad_enabled()
+    for lo in range(0, k.shape[1], block_k):
+        xs = (k[:, lo:lo + block_k], v[:, lo:lo + block_k],
+              kv_positions[lo:lo + block_k])
+        if remat:
+            acc, mx, lse = checkpoint(block, acc, mx, lse, *xs,
+                                      use_reentrant=False)
+        else:
+            acc, mx, lse = block(acc, mx, lse, *xs)
+    out = acc / torch.clamp(lse, min=1e-30)[..., None]
+    return out.movedim(3, 1).reshape(b, sq, nh, hd).to(q.dtype)
+
+
 def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
               num_heads: int, num_kv_heads: int, head_dim: int,
               rope_theta: float, window: int | None,
@@ -202,6 +274,9 @@ def attention(params: Params, x: torch.Tensor, positions: torch.Tensor, *,
             from repro_torch.kernels.flash_attention import ops as fa_ops
             out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
                                          logit_softcap=logit_softcap)
+        elif impl == "blockwise":
+            out = attention_blockwise(q, k, v, positions, positions, window,
+                                      logit_softcap)
         else:
             out = attention_ref(q, k, v, positions, positions, window,
                                 logit_softcap)

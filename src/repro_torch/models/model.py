@@ -23,8 +23,13 @@ tokens past each expert's capacity) by default, and the cached path
 (``moe_ffn_exact``, no drops).  Where a token is dropped the two compute
 different functions.
 
-A frontend's prefix tokens (the vision and audio configs) raise
-``NotImplementedError``: they wait for ROADMAP Queue A item 12.
+The vision and audio frontends are stubs, as in the JAX package:
+``features`` and ``forward`` take ``prefix_embed``, precomputed patch or
+frame embeddings (batch, num_prefix_tokens, frontend_dim), which go
+through the ``frontend_proj`` parameter and are put before the scaled
+token embeddings; positions run over prefix and tokens.  The cached
+path (``prefill``, ``decode_step``) takes no prefix, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -43,23 +48,14 @@ from repro_torch.models import rwkv as Rk
 from repro_torch.models.base import ArchConfig, LayerSpec
 
 __all__ = [
-    "check_supported", "decode_step", "features", "forward", "head_logits",
-    "init_cache", "init_head", "init_params", "lm_head", "lm_loss",
-    "param_count", "prefill",
+    "decode_step", "features", "forward", "head_logits", "init_cache",
+    "init_head", "init_params", "lm_head", "lm_loss", "param_count",
+    "prefill",
 ]
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet:
-    a frontend's prefix tokens."""
-    if cfg.frontend != "none" and cfg.num_prefix_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend's prefix tokens are "
-            "not ported yet (ROADMAP Queue A item 12)")
 
 
 def _window(cfg: ArchConfig, spec: LayerSpec) -> int | None:
@@ -107,11 +103,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, with_head: bool = False,
                 device: str | torch.device | None = None) -> dict:
     """Backbone parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (the JAX package's distributions, other
-    numbers): {"embed", "final_norm", "layers": [one dict per layer]}
-    and, with ``with_head``, "head"."""
+    numbers): {"embed", "final_norm", "layers": [one dict per layer]},
+    "frontend_proj" (frontend_dim, d_model) for a config with a
+    frontend's prefix tokens and, with ``with_head``, "head"."""
     device = resolve_device(device)
     cfg.validate()
-    check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     dt = _dtype(cfg)
     params: dict[str, Any] = {
@@ -121,6 +117,10 @@ def init_params(cfg: ArchConfig, seed: int = 0, with_head: bool = False,
         "layers": [_init_layer(cfg, spec, gen, device)
                    for spec in _layer_specs(cfg)],
     }
+    if cfg.frontend != "none" and cfg.num_prefix_tokens:
+        fd = cfg.frontend_dim or cfg.d_model
+        params["frontend_proj"] = L.init_normal(
+            gen, (fd, cfg.d_model), 1.0 / math.sqrt(fd), dt, device)
     if with_head:
         params["head"] = init_head(cfg, gen, device)
     return params
@@ -223,26 +223,36 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
     return x, new_cache, aux   # ffn "none": the JAX package adds zeros
 
 
-def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor
-           ) -> torch.Tensor:
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+           prefix_embed: torch.Tensor | None = None) -> torch.Tensor:
+    """The scaled token embeddings, after the prefix (cast to their
+    dtype and projected by ``frontend_proj`` where there is one; not
+    scaled) when one is given."""
     embed = params["embed"]
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=embed.dtype,
                          device=embed.device)
-    return embed[tokens] * scale
+    x = embed[tokens] * scale
+    if prefix_embed is None:
+        return x
+    pre = prefix_embed.to(x.dtype)
+    if "frontend_proj" in params:
+        pre = pre @ params["frontend_proj"]
+    return torch.cat([pre, x], dim=1)
 
 
 def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+             prefix_embed: torch.Tensor | None = None,
              impl: str = "reference", remat: bool = False,
              moe_impl: str = "capacity"
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Backbone features (batch, seq, d_model), and the moe ffns' aux
-    loss summed over the layers in float32 (zero without a moe ffn).
-    ``impl`` routes attention and WKV6: ``"reference"`` or ``"cuda"``;
-    ``moe_impl`` the moe ffn: ``"capacity"`` or ``"exact"``.  ``remat``
-    recomputes each layer in the backward pass (a no-op where autograd is
-    not recording)."""
-    check_supported(cfg)
-    x = _embed(cfg, params, tokens)
+    """Backbone features (batch, [prefix +] seq, d_model), and the moe
+    ffns' aux loss summed over the layers in float32 (zero without a moe
+    ffn).  ``prefix_embed`` (batch, prefix, frontend_dim) goes before the
+    tokens.  ``impl`` routes attention and WKV6: ``"reference"``,
+    ``"blockwise"`` or ``"cuda"``; ``moe_impl`` the moe ffn:
+    ``"capacity"`` or ``"exact"``.  ``remat`` recomputes each layer in
+    the backward pass (a no-op where autograd is not recording)."""
+    x = _embed(cfg, params, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(_layer_specs(cfg), params["layers"]):
@@ -269,10 +279,12 @@ def lm_head(params: dict) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            prefix_embed: torch.Tensor | None = None,
             impl: str = "reference", remat: bool = False,
             moe_impl: str = "capacity"
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    feats, aux = features(cfg, params, tokens, impl, remat, moe_impl)
+    feats, aux = features(cfg, params, tokens, prefix_embed, impl, remat,
+                          moe_impl)
     return head_logits(cfg, lm_head(params), feats), aux
 
 
@@ -319,7 +331,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     (h, conv tail) states for mamba layers, (wkv, token-shift) states for
     rwkv layers."""
     device = resolve_device(device)
-    check_supported(cfg)
     return [_init_layer_cache(cfg, spec, batch, max_len, device)
             for spec in _layer_specs(cfg)]
 

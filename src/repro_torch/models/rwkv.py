@@ -7,12 +7,13 @@ learned bonus u:
     o_t = r_t . (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-``rwkv_time_mix`` runs the recurrence with ``impl="reference"`` (the
-plain ``wkv6_ref``, a loop over time) or ``impl="cuda"`` (the
+``rwkv_time_mix`` runs the recurrence with ``impl="cuda"`` (the
 hand-written WKV6 kernel of ``repro_torch.kernels.rwkv6`` on CUDA
-tensors, its plain version on CPU tensors).  Decode carries the
-(heads, N, N) state, O(1) per token.  Channel mixing is the RWKV variant
-of a gated MLP with token shift.
+tensors, its plain version on CPU tensors) and with every other impl of
+``IMPLS`` (``"reference"``, ``"blockwise"``) the plain ``wkv6_ref``, a
+loop over time, as the JAX package sends every impl but its kernel's to
+its reference.  Decode carries the (heads, N, N) state, O(1) per token.
+Channel mixing is the RWKV variant of a gated MLP with token shift.
 """
 from __future__ import annotations
 

@@ -34,11 +34,18 @@ holds one chunk's (tokens, vocab) logits at a time; the backward keeps
 what each chunk's softmax needs, as the JAX package's scan keeps its
 residuals.
 
+A frontend's prefix embeddings (``prefix``, ``prefix_inner``,
+``prefix_outer``) go before the tokens in the backbone, and their
+features are dropped from the CE by aligning on the label length; as in
+the JAX package, ``local_grads`` accumulates no microbatches when a
+prefix is given.  ``attn_impl="blockwise"`` runs the streaming-softmax
+attention, which recomputes each kv block in the backward pass.
+
 Refused, each naming what it waits for: ``attn_impl="cuda"`` on a
 gradient path (neither package has a backward kernel for flash attention
 or WKV6; forward-only calls under ``torch.no_grad`` run it, as the eval
-step does), ``seq_shard`` and ``batch_shard`` (XLA residual-stream
-layouts), and prefixes (the vision and audio frontends).
+step does), and ``seq_shard`` and ``batch_shard`` (XLA residual-stream
+layouts).
 ``unroll_scans`` is accepted and changes nothing: the port's loops are
 Python loops.
 """
@@ -70,7 +77,7 @@ class BilevelHyper:
     lipschitz_g: float = 2.0     # L_g scale of the Neumann series
     ce_chunk: int = DEFAULT_CE_CHUNK
     remat: bool = True
-    attn_impl: str = "reference"  # "reference" | "cuda" (forward only)
+    attn_impl: str = "reference"  # or "blockwise"; "cuda" forward only
     seq_shard: bool = False   # XLA layout: refused
     batch_shard: bool = False  # XLA layout: refused
     microbatch: int = 1        # gradient-accumulation microbatches
@@ -95,13 +102,6 @@ def check_hyper(hyper: BilevelHyper, differentiate: bool) -> None:
             "WKV6 kernels have no backward kernel in either package.  Use "
             "attn_impl='reference' for training; the cuda kernels run in "
             "forward-only calls under torch.no_grad() (make_eval_step)")
-
-
-def _check_prefix(prefix) -> None:
-    if prefix is not None:
-        raise NotImplementedError(
-            "a prefix (vlm / audio frontend embeddings) waits for the "
-            "frontends, ROADMAP Queue A item 12")
 
 
 def ridge(y: torch.Tensor, mu: float) -> torch.Tensor:
@@ -141,10 +141,9 @@ def chunked_ce(cfg: ArchConfig, head: torch.Tensor, feats: torch.Tensor,
 
 
 def _backbone(cfg: ArchConfig, x, tokens, prefix, hyper: BilevelHyper):
-    _check_prefix(prefix)
     check_hyper(hyper, differentiate=torch.is_grad_enabled())
-    return M.features(cfg, x, tokens, impl=hyper.attn_impl,
-                      remat=hyper.remat)
+    return M.features(cfg, x, tokens, prefix_embed=prefix,
+                      impl=hyper.attn_impl, remat=hyper.remat)
 
 
 def inner_loss(cfg: ArchConfig, hyper: BilevelHyper, x, y, tokens,
@@ -194,11 +193,11 @@ def _head_logits_and_tangent(cfg: ArchConfig, y, z, fc):
 
 
 def _inner_directional(cfg: ArchConfig, hyper: BilevelHyper, x, y, z,
-                       tokens) -> torch.Tensor:
+                       tokens, prefix=None) -> torch.Tensor:
     """d/de g(x, y + e z) at e = 0, differentiable in x: per chunk
     ``softmax(l) . dl - dl[gold]``, summed over tokens over n, plus
     ``mu <y, z>``."""
-    feats, _ = _backbone(cfg, x, tokens, None, hyper)
+    feats, _ = _backbone(cfg, x, tokens, prefix, hyper)
     ft, lt = _next_token_pairs(feats, tokens)
     n = ft.shape[0]
     total = torch.zeros((), dtype=torch.float32, device=ft.device)
@@ -256,14 +255,15 @@ def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
     v = grad_y g                                        (inner gradient)
 
     ``x`` is the backbone's parameter dict, ``y`` the (d_model, vocab)
-    head, the token splits (b, s).  Raises before it computes anything
-    on what ``check_hyper`` refuses and on a prefix.
+    head, the token splits (b, s), the prefixes their splits' frontend
+    embeddings (b, prefix, frontend_dim) or None.  Microbatches are
+    accumulated only where no prefix is given, as in the JAX package.
+    Raises before it computes anything on what ``check_hyper`` refuses.
     """
     check_hyper(hyper, differentiate=True)
-    _check_prefix(prefix_inner)
-    _check_prefix(prefix_outer)
     k = hyper.microbatch
-    use_mb = (k > 1 and outer_tokens.shape[0] % k == 0
+    use_mb = (k > 1 and prefix_outer is None and prefix_inner is None
+              and outer_tokens.shape[0] % k == 0
               and inner_tokens.shape[0] % k == 0)
 
     # --- outer: grad wrt both x and y (one fwd+bwd through the backbone).
@@ -273,13 +273,15 @@ def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
             (x, y), outer_tokens, k, (0, 1))
     else:
         outer_val, (gx_f, gy_f) = _value_and_grad(
-            lambda xp, yh: outer_loss(cfg, hyper, xp, yh, outer_tokens),
+            lambda xp, yh: outer_loss(cfg, hyper, xp, yh, outer_tokens,
+                                      prefix_outer),
             (x, y), (0, 1))
 
     # --- inner features, computed once and reused by the head-space HVPs.
     y = y.detach()
     with torch.no_grad():
-        feats_in, _ = _backbone(cfg, x, inner_tokens, None, hyper)
+        feats_in, _ = _backbone(cfg, x, inner_tokens, prefix_inner,
+                                hyper)
     z, v = _neumann_head(cfg, hyper, y, feats_in, inner_tokens, gy_f)
 
     # --- cross term H_xy(g) z = grad_x d/de g(x, y + e z)  (one fwd+bwd).
@@ -290,7 +292,8 @@ def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
     else:
         _, (gx_cross,) = _value_and_grad(
             lambda xp: _inner_directional(cfg, hyper, xp, y, z,
-                                          inner_tokens), (x,), (0,))
+                                          inner_tokens, prefix_inner),
+            (x,), (0,))
 
     p = pytree.tree_map(lambda a, b: a - b, gx_f, gx_cross)
     return p, v, outer_val

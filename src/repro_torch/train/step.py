@@ -20,11 +20,13 @@ One call is one INTERACT iteration (Algorithm 1), through the shared
   Step 3: u <- mix(u) + p - p_prev
 
 The metrics are averaged over the group (one all-reduce), as ``pmean``
-averages them over the agent axis.  Stepping is eager.  What the JAX
-package's runtime does through XLA's partitioner raises, naming the
-ROADMAP item it waits for: ``agent_mode="pods"`` (FSDP within an agent)
-and prefixes (the frontends); ``train_state_specs`` (XLA partition
-specs) has no counterpart.
+averages them over the agent axis.  Stepping is eager.  With a frontend
+(``with_prefix=True``) the step takes each agent's prefix embeddings
+beside its tokens and splits them into inner and outer halves as it
+splits the tokens.  What the JAX package's runtime does through XLA's
+partitioner raises, naming the ROADMAP item it waits for:
+``agent_mode="pods"`` (FSDP within an agent); ``train_state_specs`` (XLA
+partition specs) has no counterpart.
 """
 from __future__ import annotations
 
@@ -190,23 +192,27 @@ def init_train_state(cfg: ArchConfig, seed: int = 0,
                       v=torch.zeros_like(y), p_prev=_zeros_like_tree(x), t=0)
 
 
-def _local_tokens(mesh: AgentMesh, tokens: torch.Tensor) -> torch.Tensor:
-    """This process's (b, s) tokens from the global (m, b, s) batch or its
-    own (1, b, s) row."""
-    if tokens.dim() != 3:
-        raise ValueError(f"tokens must be (m, b, s) or (1, b, s), got "
-                         f"{tuple(tokens.shape)}")
+def _local_tokens(mesh: AgentMesh, tokens: torch.Tensor, ndim: int = 3
+                  ) -> torch.Tensor:
+    """This process's row of a global (m, b, ...) batch or its own (1, b,
+    ...) row: the tokens (``ndim`` 3, (b, s)) or a frontend's prefix
+    embeddings (``ndim`` 4, (b, prefix, frontend_dim))."""
+    if tokens.dim() != ndim:
+        raise ValueError(f"expected an (m, b, ...) or (1, b, ...) batch of "
+                         f"{ndim} dims, got {tuple(tokens.shape)}")
     if tokens.shape[0] == mesh.num_agents:
         tokens = tokens[mesh.row0:mesh.row0 + 1]
     elif tokens.shape[0] != 1:
-        raise ValueError(f"tokens carry {tokens.shape[0]} agent rows; the "
-                         f"mesh holds {mesh.num_agents}")
+        raise ValueError(f"the batch carries {tokens.shape[0]} agent rows; "
+                         f"the mesh holds {mesh.num_agents}")
     return tokens[0].to(mesh.device)
 
 
-def _split(tokens: torch.Tensor):
+def _split(tokens: torch.Tensor | None):
     """The first half of the batch is the inner split, the second the
-    outer split."""
+    outer split (``(None, None)`` for no prefix)."""
+    if tokens is None:
+        return None, None
     half = tokens.shape[0] // 2
     return tokens[:half], tokens[half:]
 
@@ -217,7 +223,7 @@ def pmean(mesh: AgentMesh, *values: torch.Tensor) -> torch.Tensor:
     return mesh.all_reduce(stacked) / mesh.world_size
 
 
-def _check_rows(mesh: AgentMesh, agent_mode: str, with_prefix: bool) -> None:
+def _check_rows(mesh: AgentMesh, agent_mode: str) -> None:
     if agent_mode == "pods":
         raise NotImplementedError(
             "agent_mode='pods' shards each agent's state over a pod's data "
@@ -225,10 +231,6 @@ def _check_rows(mesh: AgentMesh, agent_mode: str, with_prefix: bool) -> None:
             "sharding/partition.py, ROADMAP Queue A item 10")
     if agent_mode != "rows":
         raise ValueError(f"unknown agent_mode {agent_mode!r}")
-    if with_prefix:
-        raise NotImplementedError(
-            "with_prefix: the vlm / audio frontends wait for ROADMAP Queue A "
-            "item 12")
     if mesh.local_agents != 1:
         raise ValueError(
             f"the train step runs one agent a process, but the mesh puts "
@@ -238,32 +240,37 @@ def _check_rows(mesh: AgentMesh, agent_mode: str, with_prefix: bool) -> None:
 
 def make_train_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig,
                     *, with_prefix: bool = False, agent_mode: str = "rows"):
-    """Returns ``step(state, tokens) -> (state, metrics)``.
+    """Returns ``step(state, tokens, prefix=None) -> (state, metrics)``.
 
     ``icfg`` may be an ``InteractConfig`` or a ``SolverConfig`` (coerced
     via ``from_solver_config``).  ``mesh`` is this process's
     ``AgentMesh`` (one agent a process).  ``tokens``: the global (m,
     per_agent_batch, seq) batch or this process's (1, b, s) row; the
     first half of the agent's batch is the inner split, the second the
-    outer split.  ``metrics``: ``outer_ce`` and ``grad_norm`` (of the
-    tracked gradient u), 0-dim float32 tensors averaged over the group.
+    outer split.  ``prefix``: a frontend's embeddings, the global (m, b,
+    prefix, frontend_dim) batch or this process's row, split as the
+    tokens are (``with_prefix`` mirrors the JAX signature: the step takes
+    a prefix either way).  ``metrics``: ``outer_ce`` and ``grad_norm``
+    (of the tracked gradient u), 0-dim float32 tensors averaged over the
+    group.
     """
     icfg = InteractConfig.coerce(icfg)
-    _check_rows(mesh, agent_mode, with_prefix)
+    _check_rows(mesh, agent_mode)
     hyper = icfg.hyper
     check_hyper(hyper, differentiate=True)
     engine = icfg.consensus_engine(mesh.num_agents, mesh)
 
     def step(state: TrainState, tokens, prefix=None):
-        if prefix is not None:
-            _check_rows(mesh, agent_mode, True)
         inner_t, outer_t = _split(_local_tokens(mesh, tokens))
+        pre_in, pre_out = _split(None if prefix is None
+                                 else _local_tokens(mesh, prefix, ndim=4))
         dp_key = (0, state.t) if icfg.dp_sigma > 0 else None
 
         def grads_fn(x_new, y_new):
             # ---- Step 2: local gradients at the new iterate -------------
             p_new, v_new, outer_ce = local_grads(
-                cfg, hyper, _squeeze(x_new), y_new[0], inner_t, outer_t)
+                cfg, hyper, _squeeze(x_new), y_new[0], inner_t, outer_t,
+                prefix_inner=pre_in, prefix_outer=pre_out)
             return _unsqueeze(p_new), v_new[None], outer_ce
 
         # Steps 1-3 through the shared step-core on the ppermute engine.
@@ -293,7 +300,7 @@ def make_eval_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig):
     kernel on the card, once a layer.
     """
     icfg = InteractConfig.coerce(icfg)
-    _check_rows(mesh, "rows", False)
+    _check_rows(mesh, "rows")
     hyper = icfg.hyper
     check_hyper(hyper, differentiate=False)
 

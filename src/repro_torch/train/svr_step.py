@@ -71,7 +71,7 @@ def make_svr_train_step(cfg: ArchConfig, mesh: AgentMesh,
             raise ValueError("refresh period q not given and not set on "
                              "the config")
         q = icfg.q
-    _check_rows(mesh, agent_mode, False)
+    _check_rows(mesh, agent_mode)
     hyper = icfg.hyper
     check_hyper(hyper, differentiate=True)
     engine = icfg.consensus_engine(mesh.num_agents, mesh)

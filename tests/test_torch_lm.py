@@ -178,17 +178,6 @@ def test_prefill_matches_stepwise_decode(arch, prompt):
     torch.testing.assert_close(last, outs_b[-1], atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("paligemma-3b", "frontend"),
-])
-def test_unported_configs_raise(arch, what):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=what):
-        M.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_prefill_step(cfg, device="cpu")
-
-
 def test_unknown_impl_raises(setup):
     _, cfg, _, params, tokens = setup
     with pytest.raises(ValueError, match="unknown"):

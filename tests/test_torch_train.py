@@ -290,13 +290,12 @@ def _mesh():
     return AgentMesh(4, 4, 0, torch.device("cpu"), "gloo")
 
 
-def _lg_call(hyper, **kw):
+def _lg_call(hyper):
     _, cfg = _configs()
     state = init_train_state(cfg, 0, device="cpu")
     x = torch.utils._pytree.tree_map(lambda l: l[0], state.x)
     toks = torch.zeros((4, 8), dtype=torch.int64)
-    return lambda: local_grads(cfg, hyper, x, state.y[0], toks[:2], toks[2:],
-                               **kw)
+    return lambda: local_grads(cfg, hyper, x, state.y[0], toks[:2], toks[2:])
 
 
 REFUSED = {
@@ -304,8 +303,6 @@ REFUSED = {
         cfg, _mesh(), InteractConfig(), agent_mode="pods"), "item 10"),
     "svr_agent_mode_pods": (lambda cfg: make_svr_train_step(
         cfg, _mesh(), InteractConfig(), q=2, agent_mode="pods"), "item 10"),
-    "with_prefix": (lambda cfg: make_train_step(
-        cfg, _mesh(), InteractConfig(), with_prefix=True), "item 12"),
     "seq_shard": (lambda cfg: make_train_step(cfg, _mesh(), InteractConfig(
         hyper=BilevelHyper(seq_shard=True))), "item 10"),
     "batch_shard": (lambda cfg: make_eval_step(cfg, _mesh(), InteractConfig(
@@ -315,8 +312,6 @@ REFUSED = {
         "no backward kernel"),
     "attn_cuda_local_grads": (lambda cfg: _lg_call(
         BilevelHyper(attn_impl="cuda"))(), "no backward kernel"),
-    "prefix_local_grads": (lambda cfg: _lg_call(
-        BilevelHyper(), prefix_inner=torch.zeros(2, 4, 8))(), "item 12"),
     "production_mesh": (lambda cfg: driver.main(
         ["--reduced", "--device", "cpu", "--wire", "gloo",
          "--production-mesh"]), "item 10"),
