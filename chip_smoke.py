@@ -26,7 +26,10 @@
    mixtral's 32 / 8 heads of 128, a 4096-token window, 2 x 4608 tokens)
    and phase 4j's (paligemma-3b's 8 / 1 heads of 256 over 4 x 512
    positions; musicgen-medium's 24 / 24 heads of 64 over 4 x 1564),
-   each in both dtypes; each call must add one launch to the count of
+   each in both dtypes, and the LM training phases' eval steps (4h, 4k:
+   4 x 256 tokens of smollm-360m's 15 / 5 heads of 64, mixtral's 32 / 8
+   of 128 under its window and jamba's 64 / 8 of 128) in bfloat16, the
+   dtype they train in; each call must add one launch to the count of
    each kernel its dtype takes; the float32 split pass is bit-equal to its
    plain version at the serving shape and on the strided views.
    WKV6: the JAX package's test cases, every head size at a length that
@@ -34,9 +37,10 @@
    exactly 0, below 1e-4, above 0.999) and the rwkv6-3b serving shape,
    with and without an incoming state.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
-   shapes (SDPA: is_causal where there is no window, the window as a
-   boolean mask where there is; without gemma2's softcap, which it cannot
-   apply; at phase 4i's and 4j's shapes it computes the same function).
+   shapes (SDPA: is_causal where there is no window or the window spans
+   every key, the window as a boolean mask where it does not; without
+   gemma2's softcap, which it cannot apply; at phase 4i's, 4j's and the
+   eval steps' shapes it computes the same function).
    ``attention_blockwise`` (plain PyTorch, the JAX package's streaming
    softmax over kv blocks of 1024) against the plain attention at phase
    4j's two shapes in float32: its output and its gradients with respect
@@ -102,14 +106,15 @@
    steps, whose kernel events (``counted_launches``) must equal their
    wrapper counts (the check on the profiler count), and profiles of 3 eager and 3 captured steps
    (consensus_step once a replay).
-   Phases 4c-4h share the card: the main process runs 4c and then 4d,
-   while two worker processes of this script (``--phase-worker``, the
-   groups of ``PHASE_GROUPS``) run 4e and then 4f, and 4g and then 4h.
-   Each worker's output goes to a log that the main process prints once
-   the worker has ended; its consensus counts are set to 0 just before
-   each of its phases.  Host-clock figures of 4c-4h (us per step, walls,
-   ``vmap_speedup``) are taken with the other phases running beside
-   them; the kernel times of 3 and the profiles of 4b are taken alone.
+   Phases 4c-4h and 4k share the card: the main process runs 4c and then
+   4d, while two worker processes of this script (``--phase-worker``, the
+   groups of ``PHASE_GROUPS``) run 4e and then 4f, and 4g, 4h and then
+   4k.  Each worker's output goes to a log that the main process prints
+   once the worker has ended; its consensus counts are set to 0 just
+   before each of its phases.  Host-clock figures of 4c-4h (us per step,
+   walls, ``vmap_speedup``) are taken with the other phases running
+   beside them; the kernel times of 3 and the profiles of 4b are taken
+   alone.
 4c. The compressed wire and the time-varying topologies (``WIRE_ROWS``),
    on the same instance: INTERACT with sign1bit and error feedback, 5
    warm-up steps and a round every 2 steps; INTERACT with top-5% and
@@ -216,28 +221,49 @@
    the process): ``consensus_step`` once a step a rank on ``allgather``,
    none on ``ppermute``.  Prints each layout's eager ``us_per_step`` and
    ``round_latency_us`` beside its wire.
-4h. LM training (``repro_torch.train``): smollm-360m at its published
-   config (32 layers, d_model 960, 15 / 5 heads of 64, d_ff 2560, vocab
-   49152, bfloat16, random weights from a seed), 4 agents, one process
-   each (``LM_AGENTS``; this script's ``--lm-worker`` mode), all on the
-   one card over gloo staged through host memory, the ring topology with
-   self-weight 1/3 and the JAX driver's settings (alpha 0.02, beta 0.5,
-   mu_g 0.1, K = 3, L_g = 2.0, 4 x 256 tokens an agent from
-   ``TokenTaskStream``, ``ce_chunk`` 256, ``remat`` on).  First the
-   reduced float32 config of tests/test_torch_train.py, 2 INTERACT steps
-   on the card and on the CPU in the same group: x and u within
-   ``LM_CARD_CPU_TOL`` of each leaf's scale.  Then (a) INTERACT,
-   ``LM_INTERACT_STEPS`` steps (the first a warm-up): s/step, tokens/s
-   an agent, ``outer_ce`` and ``grad_norm`` finite and equal on every
-   rank, no kernel launched (the gradient path runs plain attention),
-   each process's peak device memory; (c) ``make_eval_step`` at the
-   trained state with ``attn_impl="reference"`` and twice with
-   ``"cuda"``: each ``cuda`` call launches the bf16 flash kernel exactly
-   once a layer (32; counts set to 0 just before each call), its outer
-   CE within ``LM_EVAL_RTOL`` of the reference's; (b) SVR-INTERACT,
-   ``LM_SVR_STEPS`` steps with q = ``LM_SVR_Q`` (recursive, refresh,
-   recursive), finite and equal on every rank.  Prints the phase's
-   seconds.
+4h. LM training (``repro_torch.train``; ``LM_RUNS``, the runs of
+   ``LM_PHASE_RUNS["lm"]``): smollm-360m at its published config (32
+   layers, d_model 960, 15 / 5 heads of 64, d_ff 2560, vocab 49152,
+   bfloat16, random weights from a seed), 4 agents, one process each
+   (this script's ``--lm-worker`` mode), all on the one card over gloo
+   staged through host memory, the ring topology with self-weight 1/3 and
+   the JAX driver's settings (alpha 0.02, beta 0.5, mu_g 0.1, K = 3, L_g
+   = 2.0, 4 x 256 tokens an agent from ``TokenTaskStream``, ``ce_chunk``
+   256, ``remat`` on).  First the reduced float32 config of
+   tests/test_torch_train.py, 2 INTERACT steps on the card and on the
+   CPU in the same group: x and u within ``LM_CARD_CPU_TOL`` of each
+   leaf's scale.  Then (a) INTERACT, 4 steps (the first a warm-up):
+   s/step and the staged mixes' seconds in it (each mix timed between
+   two synchronises), tokens/s an agent, ``outer_ce`` and ``grad_norm``
+   finite and equal on every rank, no kernel launched (the gradient path
+   runs plain attention), each process's peak device memory, the ranks'
+   state digests; (c) ``make_eval_step`` at the trained state with
+   ``attn_impl="reference"`` and twice with ``"cuda"``: each ``cuda``
+   call launches the bf16 flash kernel exactly once an attention layer
+   (32; counts set to 0 just before each call), its outer CE within
+   ``LM_EVAL_RTOL`` of the reference's; (b) SVR-INTERACT, 3 steps with q
+   = 2 (recursive, refresh, recursive), finite and equal on every rank.
+   Prints each run's ``lm training`` line and the phase's seconds.
+4k. LM training of the MoE and hybrid models (``LM_PHASE_RUNS
+   ["lm_moe_mamba"]``), after 4h in its worker, each run as 4h's with
+   its own cut and steps: mixtral-8x7b at its published widths (d_model
+   4096, 32 / 8 heads of 128, its 4096-token window, 8 experts of d_ff
+   14336, top 2, vocab 32000) cut to 1 of its 32 layers, 2 agents, 2
+   INTERACT steps and 2 SVR-INTERACT steps with q = 2 (recursive,
+   refresh); then jamba-1.5-large at its published widths (d_model 8192,
+   64 / 8 heads of 128, d_inner 16384, d_state 16, d_ff 24576, top 2,
+   vocab 65536) cut to one 2-layer period (attention with a dense ffn,
+   then mamba with a moe ffn) and 4 of its 16 experts, 1 agent, 2
+   INTERACT steps and no SVR-INTERACT (``LM_RUNS`` says why); each with
+   its reduced float32 config on the card against the CPU.  Besides 4h's
+   checks: in the warm-up step each moe layer's capacity route is taken
+   5 times (the outer loss's forward and its recompute in the backward
+   pass, the inner features, the cross term's forward and its
+   recompute), and each recompute routes every token to the same slots
+   as its forward (a digest of the route); the dropped-slot share of
+   each call is printed.  The eval step launches the bf16 flash kernel
+   once (one attention layer in each cut).  Prints each run's ``lm
+   training`` line and the phase's seconds.
 4i. Mamba and MoE serving (``MOE_MAMBA_RUNS``, the cuts printed on the
    phase's first line): mixtral-8x7b at its published widths (d_model
    4096, d_ff 14336, 8 experts top 2, 32 / 8 heads of 128, a 4096-token
@@ -311,9 +337,10 @@
 6. Prints each phase's host-clock seconds, then a ``{"kernels": [...]}``
    line (with the registers and spills nvcc reports for each
    instantiation of the redesigned kernels, the row-block forms with
-   phase 4g's launches, the bf16 flash kernel with phase 4h's, and the
-   flash kernels with phase 4i's and 4j's launches and their times at
-   their shapes), the card's name and power limit, then the last line
+   phase 4g's launches, the bf16 flash kernel with phase 4h's and 4k's
+   and its times at their eval steps' shapes, and the flash kernels with
+   phase 4i's and 4j's launches and their times at their shapes), the
+   card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.  Any failed
    check raises, so the script exits non-zero and prints no result.
 """
@@ -511,35 +538,71 @@ DIST_LAYOUTS = (("allgather", 5, "gloo"), ("ppermute", 5, "gloo"),
                 ("allgather", 1, "nccl"))
 DIST_STEPS, DIST_RECORD_EVERY, DIST_INNER_STEPS = 20, 10, 300
 DIST_TIMEOUT = 300
-# The LM training phase (4h): smollm-360m at its published config, one
-# agent a process on the one card over gloo staged through host memory,
-# the JAX training driver's settings (src/repro/launch/train.py)
-LM_ARCH, LM_AGENTS = "smollm-360m", 4
+# The LM training phases (4h, 4k): each run trains an arch at its
+# published widths (bfloat16, random weights from a seed) with the cut
+# stated, one agent a process, all on the one card over gloo staged through
+# host memory, with the JAX training driver's settings
+# (src/repro/launch/train.py): the ring topology, LM_BATCH x LM_SEQ tokens
+# an agent a step, LM_HYPER, LM_ALPHA, LM_BETA.  A run's INTERACT steps
+# (the first a warm-up) and its SVR-INTERACT steps with refresh period q
+# (none where svr_steps is 0).
+LM_RUNS = {
+    # 4h: smollm-360m at its published config, nothing cut
+    "smollm-360m": dict(cut={}, agents=4, interact_steps=4, svr_steps=3,
+                        q=2),
+    # 4k: mixtral-8x7b (arXiv:2401.04088) cut to 1 of its 32 layers, all 8
+    # experts: a 1.58 B-parameter backbone (3.16 GB); 2 agents, whose ring
+    # of 2 is one permute round a mix (weight 2/3 on the one peer)
+    "mixtral-8x7b": dict(cut=dict(num_layers=1), agents=2, interact_steps=2,
+                         svr_steps=2, q=2),
+    # 4k: jamba-1.5-large (arXiv:2403.19887) cut to one period of 2 layers
+    # (attention with a dense ffn, then mamba with a moe ffn), as phase 4i's
+    # float32 gate cuts it, and to 4 of its 16 experts, the most that fit:
+    # a 4.11 B-parameter backbone (7.66 GiB), of which an INTERACT step
+    # holds about 7 at its peak (the state's 3, the mixes' 2, the new
+    # hypergradient and tracked gradient) beside the float32 copies the
+    # update makes of the largest leaf (4 x 805 M values): 68.2 GiB
+    # allocated, 70.7 reserved, of the 74.1 an H100 80GB had free at its
+    # start; the scan whole (no ``mamba_seq_chunk``: chunks leave the peak
+    # as it is); a fifth expert adds 1.13 GiB to the backbone and about 9
+    # to the peak; 1 agent; no SVR-INTERACT, whose recursive step holds 2
+    # backbones more
+    "jamba-1.5-large-398b": dict(
+        cut=dict(num_layers=2, attn_every=2, num_experts=4), agents=1,
+        interact_steps=2, svr_steps=0, q=2),
+}
+# the runs of each LM training phase, in order (each run's processes end
+# before the next run's start)
+LM_PHASE_RUNS = {"lm": ("smollm-360m",),
+                 "lm_moe_mamba": ("mixtral-8x7b", "jamba-1.5-large-398b")}
 LM_BATCH, LM_SEQ = 4, 256
-LM_INTERACT_STEPS, LM_SVR_STEPS, LM_SVR_Q = 4, 3, 2
 LM_HYPER = dict(mu_g=0.1, neumann_k=3, lipschitz_g=2.0, ce_chunk=256,
                 remat=True)
 LM_ALPHA, LM_BETA = 0.02, 0.5
 LM_TIMEOUT = 600
 # the card against the CPU at tests/test_torch_train.py's reduced float32
-# settings, 2 INTERACT steps: cuBLAS against the CPU's BLAS, float32
-# rounding (the port's gaps to the JAX package there are about 3e-6)
+# settings (each run's arch reduced), 2 INTERACT steps: cuBLAS against the
+# CPU's BLAS, float32 rounding (the port's gaps to the JAX package there
+# are about 3e-6)
 LM_REDUCED = dict(vocab_size=128, num_layers=2, dtype="float32")
 LM_REDUCED_HYPER = dict(mu_g=0.5, neumann_k=2, lipschitz_g=4.0, ce_chunk=16,
                         remat=False)
 LM_CARD_CPU_TOL = 1e-5
 # the eval step's outer CE with the bf16 flash kernel against plain
-# attention in bfloat16, relative: about 11 times the largest gap measured
-# on an H100 (8.7e-6); the random head keeps the CE near ln(vocab), so a
-# looser bound would pass a wrong attention output
+# attention in bfloat16, relative: about 3 times the largest gap measured
+# on an H100 (3.0e-5, smollm-360m after 4 steps; 4.7e-6 and 1.1e-5 at
+# 4k's cuts); the random head keeps the CE near ln(vocab), so a looser
+# bound would pass a wrong attention output
 LM_EVAL_RTOL = 1e-4
-# Phases 4e-4h run in worker processes of this script (``--phase-worker``),
-# one group of phases each, beside the main process's 4c-4d: the three
-# take about as long each, and all three are bound by the host, not the
-# card.  A worker's consensus counts start at 0 with each of its phases;
-# the main process waits for them at most PHASE_WORKER_TIMEOUT seconds
-# from their start
-PHASE_GROUPS = (("sweep", "resilience"), ("distributed", "lm"))
+# Phases 4e-4h and 4k run in worker processes of this script
+# (``--phase-worker``), one group of phases each, beside the main process's
+# 4c-4d: the first three groups take about as long each, and all are bound
+# by the host, not the card; 4k follows 4h in its worker, so that no other
+# training run's memory meets its own on the card.  A worker's consensus
+# counts start at 0 with each of its phases; the main process waits for
+# them at most PHASE_WORKER_TIMEOUT seconds from their start
+PHASE_GROUPS = (("sweep", "resilience"),
+                ("distributed", "lm", "lm_moe_mamba"))
 PHASE_WORKER_TIMEOUT = 800
 # the row-block kernels' shapes, (rows, m, D) and the block's first row:
 # one agent of the main path's 5, and 4 rows of the large shape's 16
@@ -592,16 +655,23 @@ FLASH_CASES = (
     + [c + ("bfloat16",) for c in FLASH_SHAPES]
     + [(1, 256, 256, 2, 2, 256, True, None, None, 0, "bfloat16"),
        (1, 128, 128, 4, 2, 32, True, None, None, 0, "bfloat16"),
-       # smollm-360m's eval step (phase 4h): 15 q and 5 kv heads of 64
-       (4, 256, 256, 15, 5, 64, True, None, None, 0, "bfloat16"),
+       # smollm-360m's eval step (phase 4h) in float32 (bfloat16: in
+       # FLASH_MAIN)
        (4, 256, 256, 15, 5, 64, True, None, None, 0, "float32"),
        (1, 600, 600, 8, 4, 256, True, 4096, 50.0, 0, "float32"),
        (2, 520, 520, 8, 4, 256, True, 200, 50.0, 0, "float32")]
     # 8 q heads a kv head at head size 128, windowed and ragged
     + [(1, 300, 300, 16, 2, 128, True, 100, None, 0, dt)
        for dt in ("float32", "bfloat16")])
+# the LM training phases' eval steps (4h, 4k), bfloat16 at LM_BATCH x
+# LM_SEQ tokens: smollm-360m's 15 q and 5 kv heads of 64; mixtral's 32
+# over 8 of 128 with its 4096-token window, wider than the sequence;
+# jamba's 64 over 8 of 128
+SMOLLM_TRAIN = (4, 256, 256, 15, 5, 64, True, None, None, 0)
+MIXTRAL_TRAIN = (4, 256, 256, 32, 8, 128, True, 4096, None, 0)
+JAMBA_TRAIN = (4, 256, 256, 64, 8, 128, True, None, None, 0)
 # Checked and timed: both dtypes at gemma2's global and local shapes and
-# at phase 4i's and 4j's two.
+# at phase 4i's and 4j's two; bfloat16 at the eval steps' three.
 FLASH_MAIN = {
     "global": GEMMA_GLOBAL + ("bfloat16",),
     "local": GEMMA_LOCAL + ("bfloat16",),
@@ -615,6 +685,9 @@ FLASH_MAIN = {
     "paligemma_f32": PALIGEMMA_ATTN + ("float32",),
     "musicgen": MUSICGEN_ATTN + ("bfloat16",),
     "musicgen_f32": MUSICGEN_ATTN + ("float32",),
+    "smollm_train": SMOLLM_TRAIN + ("bfloat16",),
+    "mixtral_train": MIXTRAL_TRAIN + ("bfloat16",),
+    "jamba_train": JAMBA_TRAIN + ("bfloat16",),
 }
 # attention_blockwise (plain PyTorch: the JAX package's streaming softmax
 # over kv blocks) against the plain attention at phase 4j's two shapes in
@@ -1350,13 +1423,15 @@ def check_flash(torch) -> dict:
             continue
         # SDPA in its own (b, h, s, hd) layout, made beforehand
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        # a window no narrower than the keys masks nothing causal does not
+        windowed = window is not None and window < skv
         library_call = (
             "scaled_dot_product_attention(enable_gqa=True), "
-            + ("is_causal=True" if window is None else
-               "the causal window as a boolean attn_mask")
+            + ("the causal window as a boolean attn_mask" if windowed else
+               "is_causal=True")
             + (": the same function" if cap is None else
                ", without the softcap, which it cannot apply"))
-        if window is None:
+        if not windowed:
             lib = lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         else:
@@ -1552,21 +1627,30 @@ def check_wkv6(torch) -> dict:
     return dict(err=err, timing=timing)
 
 
-def moe_drop_shares(torch, run):
+def moe_drop_shares(torch, run, routes: list | None = None):
     """``(run(), shares)``: the share of token slots each call of the moe
     ffn's capacity route dropped during ``run()``, in call order (one a
-    moe layer in a forward), from ``capacity_routing`` on the ffn's own
-    input."""
+    moe layer in a forward; a recompute in the backward pass calls again),
+    from ``capacity_routing`` on the ffn's own input.  ``routes``, where
+    given, gets each call's route: a digest of its experts, positions and
+    kept slots."""
+    import hashlib
+
     from repro_torch.models import moe as Moe
     ffn, shares = Moe.moe_ffn, []
 
     def recording(params, x, *, num_experts, top_k, capacity_factor=1.25,
                   token_chunk=None, expert_parallel=False):
         check(token_chunk is None, "moe_drop_shares: chunked routing")
-        r = Moe.capacity_routing(params, x.reshape(-1, x.shape[-1]),
-                                 num_experts=num_experts, top_k=top_k,
-                                 capacity_factor=capacity_factor)
+        with torch.no_grad():
+            r = Moe.capacity_routing(params, x.reshape(-1, x.shape[-1]),
+                                     num_experts=num_experts, top_k=top_k,
+                                     capacity_factor=capacity_factor)
         shares.append(1.0 - float(r.keep.float().mean()))
+        if routes is not None:
+            kept = torch.cat([r.experts, r.positions, r.keep.long()])
+            routes.append(hashlib.sha256(
+                kept.cpu().numpy().tobytes()).hexdigest()[:16])
         return ffn(params, x, num_experts=num_experts, top_k=top_k,
                    capacity_factor=capacity_factor,
                    expert_parallel=expert_parallel)
@@ -3262,18 +3346,61 @@ def _rel_leaf_gap(torch, got, want) -> float:
                                strict=True))
 
 
+def state_digest(torch, state) -> str:
+    """A digest of a train state's tensors: each one's float64 sum and
+    2-norm, taken on its device (a host copy of a full-width state would
+    take seconds)."""
+    import hashlib
+    leaves = [l for l in torch.utils._pytree.tree_leaves(state)
+              if isinstance(l, torch.Tensor)]
+    sums = torch.stack([v for l in leaves for v in (
+        torch.sum(l, dtype=torch.float64),
+        torch.linalg.vector_norm(l, dtype=torch.float64))])
+    return hashlib.sha256(repr(sums.tolist()).encode()).hexdigest()[:16]
+
+
+def timed_mixes(torch, dev, run):
+    """``(run(), seconds)``: ``run()`` with each consensus mix of the
+    ``ppermute`` engine (the staged permute rounds) timed on the host
+    clock between two synchronises: the seconds of each mix in it."""
+    from repro_torch.consensus.ppermute import PermuteEngine
+    mix, seconds = PermuteEngine.mix, []
+
+    def timed(self, tree, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = mix(self, tree, **kw)
+        torch.cuda.synchronize(dev)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    PermuteEngine.mix = timed
+    try:
+        out = run()
+    finally:
+        PermuteEngine.mix = mix
+    return out, seconds
+
+
 def lm_worker(argv) -> int:
-    """One agent of phase 4h: ``chip_smoke.py --lm-worker`` with the
-    worker arguments ``launch_local.launch_workers`` gives (``--out
+    """One agent of an LM training run (phases 4h and 4k): ``chip_smoke.py
+    --lm-worker --run ARCH`` (a key of ``LM_RUNS``) with the worker
+    arguments ``launch_local.launch_workers`` gives (``--out
     DIR/result.json --worker --process-id RANK --coordinator HOST:PORT
     --go FILE``).
 
-    Joins the gloo group of ``LM_AGENTS`` processes on the card, runs the
-    phase's checks on its agent (the module docstring, 4h) and writes its
-    record to ``DIR/rank<RANK>.json``; the parent gates on them."""
+    Joins the gloo group of the run's processes on the card, runs the
+    phase's checks on its agent (the module docstring, 4h and 4k) and
+    writes its record to ``DIR/rank<RANK>.json``; the parent gates on
+    them."""
     import argparse
     import os
 
+    # jamba's cut runs its step within about 11 GiB of the card's 79: the
+    # allocator maps its blocks into growing segments rather than keeping
+    # differently sized ones apart (read when torch first allocates)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -3283,33 +3410,36 @@ def lm_worker(argv) -> int:
     from repro_torch.launch import distributed as D
     from repro_torch.launch.launch_local import _await_go
     from repro_torch.sharding.collectives import AgentMesh
-    from repro_torch.train.bilevel_lm import BilevelHyper, local_grads
-    from repro_torch.train.step import (InteractConfig, _split, _squeeze,
-                                        init_train_state, make_eval_step,
-                                        make_train_step)
+    from repro_torch.train.bilevel_lm import BilevelHyper
+    from repro_torch.train.step import (InteractConfig, init_train_state,
+                                        make_eval_step, make_train_step)
     from repro_torch.train.svr_step import (init_svr_train_state,
                                             make_svr_train_step)
     ap = argparse.ArgumentParser()
     for flag in ("--out", "--coordinator", "--go"):
         ap.add_argument(flag, required=True)
+    ap.add_argument("--run", required=True, choices=sorted(LM_RUNS))
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--worker", action="store_true")
     args = ap.parse_args(argv)
     rank, out_dir = args.process_id, Path(args.out).parent
+    arch, run = args.run, LM_RUNS[args.run]
+    agents = run["agents"]
     _await_go(args.go, LM_TIMEOUT)
     # the processes share the host's cores (the CPU run, the staging)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // LM_AGENTS))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // agents))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tree = torch.utils._pytree
     t_phase = time.perf_counter()
     D.initialize(D.DistributedConfig(
-        coordinator=args.coordinator, num_processes=LM_AGENTS,
+        coordinator=args.coordinator, num_processes=agents,
         process_id=rank, wire="gloo", device="cuda", timeout_s=LM_TIMEOUT))
-    mesh = D.agent_mesh(LM_AGENTS)
+    mesh = D.agent_mesh(agents)
     dev = mesh.device
-    rec = dict(rank=rank, wire=mesh.wire, device=str(dev))
     sync = lambda: torch.cuda.synchronize(dev)
+    rec = dict(rank=rank, wire=mesh.wire, device=str(dev),
+               card_free_gb_at_start=torch.cuda.mem_get_info(dev)[0] / 2**30)
 
     def zero_counts():
         for name in fa_ops.LAUNCHES:
@@ -3317,16 +3447,16 @@ def lm_worker(argv) -> int:
 
     # -- the reduced float32 config on the card and on the CPU -------------
     t0 = time.perf_counter()
-    rcfg = get_config(LM_ARCH).reduced(**LM_REDUCED)
+    rcfg = get_config(arch).reduced(**LM_REDUCED)
     ricfg = InteractConfig(alpha=0.05, beta=0.3,
                            hyper=BilevelHyper(**LM_REDUCED_HYPER))
     rtokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, rcfg.vocab_size, (LM_AGENTS, 4, 32)))
+        0, rcfg.vocab_size, (agents, 4, 32)))
     host0 = init_train_state(rcfg, 0, device="cpu")
     finals = {}
     for where in ("cuda", "cpu"):
         on = (mesh if where == "cuda" else
-              AgentMesh(LM_AGENTS, mesh.world_size, mesh.rank,
+              AgentMesh(agents, mesh.world_size, mesh.rank,
                         torch.device("cpu"), "gloo"))
         state = tree.tree_map(lambda l: l.to(on.device) if isinstance(
             l, torch.Tensor) else l, host0)
@@ -3339,11 +3469,15 @@ def lm_worker(argv) -> int:
         u_gap=_rel_leaf_gap(torch, finals["cuda"][1], finals["cpu"][1]),
         seconds=time.perf_counter() - t0)
 
-    # -- (a) INTERACT at the published width -------------------------------
-    cfg = get_config(LM_ARCH)
+    # -- (a) INTERACT at the published widths, cut as stated -------------
+    cfg = dataclasses.replace(get_config(arch), **run["cut"])
+    specs = cfg.layer_pattern() * (cfg.num_layers
+                                   // len(cfg.layer_pattern()))
+    rec["attn_layers"] = sum(s.mixer == "attn" for s in specs)
+    rec["moe_layers"] = sum(s.ffn == "moe" for s in specs)
     icfg = InteractConfig(alpha=LM_ALPHA, beta=LM_BETA,
                           hyper=BilevelHyper(**LM_HYPER))
-    stream = TokenTaskStream(cfg.vocab_size, LM_AGENTS, seed=7)
+    stream = TokenTaskStream(cfg.vocab_size, agents, seed=7)
     batch = lambda t: stream.agent_batch(rank, t, LM_BATCH, LM_SEQ,
                                          device=dev)[None]
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3353,36 +3487,32 @@ def lm_worker(argv) -> int:
     sync()
     init_s = time.perf_counter() - t0
     zero_counts()
-    steps = []
-    for t in range(LM_INTERACT_STEPS):
+    steps, routes, dropped = [], [], []
+    for t in range(run["interact_steps"]):
         t0 = time.perf_counter()
-        state, metrics = step(state, batch(t))
+        call = lambda: step(state, batch(t))
+        if t == 0:
+            # the warm-up step's moe calls: each layer's forward, its
+            # recompute in the backward pass, the inner features, the cross
+            # term's forward and its recompute
+            call = lambda: moe_drop_shares(torch, lambda: step(
+                state, batch(0)), routes)
+        out, mixes = timed_mixes(torch, dev, call)
+        if t == 0:
+            out, dropped = out
+        state, metrics = out
+        del out    # the state's only holder is ``state``: freed below
         row = {k: float(v) for k, v in metrics.items()}
         sync()
-        steps.append(dict(row, seconds=time.perf_counter() - t0))
+        steps.append(dict(row, seconds=time.perf_counter() - t0,
+                          mix_seconds=sum(mixes), mixes=len(mixes)))
     rec["interact"] = dict(
         steps=steps, init_seconds=init_s, launches=dict(fa_ops.LAUNCHES),
         peak_bytes=torch.cuda.max_memory_allocated(dev),
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
         params=sum(l.numel() for l in tree.tree_leaves(state.x)),
-        head=state.y[0].numel())
-
-    # where a step's time goes: its local gradients alone, and its two
-    # consensus mixes (x and u) alone, each once at the trained state
-    inner, outer = _split(batch(0)[0])
-    sync()
-    t0 = time.perf_counter()
-    local_grads(cfg, icfg.hyper, _squeeze(state.x), state.y[0], inner, outer)
-    sync()
-    t_grads = time.perf_counter() - t0
-    engine = icfg.consensus_engine(LM_AGENTS, mesh)
-    t0 = time.perf_counter()
-    engine.mix(state.x)
-    engine.mix(state.u)
-    sync()
-    rec["breakdown"] = dict(local_grads_seconds=t_grads,
-                            mixes_seconds=time.perf_counter() - t0,
-                            rounds_per_mix=engine.rounds_per_mix,
-                            leaves=len(tree.tree_leaves(state.x)))
+        head=state.y[0].numel(), digest=state_digest(torch, state),
+        moe_routes=routes, moe_dropped=dropped)
 
     # -- (c) the eval step, plain attention and the flash kernel ----------
     evals = []
@@ -3391,7 +3521,7 @@ def lm_worker(argv) -> int:
             icfg, hyper=BilevelHyper(**LM_HYPER, attn_impl=impl)))
         zero_counts()
         t0 = time.perf_counter()
-        ce = float(ev(state, batch(LM_INTERACT_STEPS)))
+        ce = float(ev(state, batch(run["interact_steps"])))
         sync()
         evals.append(dict(impl=impl, outer_ce=ce,
                           seconds=time.perf_counter() - t0,
@@ -3401,105 +3531,117 @@ def lm_worker(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- (b) SVR-INTERACT: recursive, refresh, recursive --------------------
-    torch.cuda.reset_peak_memory_stats(dev)
-    state = init_svr_train_state(cfg, 0, device=dev)
-    step = make_svr_train_step(cfg, mesh, icfg, q=LM_SVR_Q)
-    zero_counts()
-    steps = []
-    for t in range(LM_SVR_STEPS):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch(t))
-        row = {k: float(v) for k, v in metrics.items()}
-        sync()
-        steps.append(dict(row, seconds=time.perf_counter() - t0))
-    finite = all(bool(torch.isfinite(l).all())
-                 for l in tree.tree_leaves((state.x, state.y, state.u)))
-    rec["svr"] = dict(steps=steps, state_finite=finite,
-                      launches=dict(fa_ops.LAUNCHES),
-                      peak_bytes=torch.cuda.max_memory_allocated(dev))
+    # -- (b) SVR-INTERACT from the initial state ---------------------------
+    if run["svr_steps"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_svr_train_state(cfg, 0, device=dev)
+        step = make_svr_train_step(cfg, mesh, icfg, q=run["q"])
+        zero_counts()
+        steps = []
+        for t in range(run["svr_steps"]):
+            t0 = time.perf_counter()
+            (state, metrics), mixes = timed_mixes(
+                torch, dev, lambda: step(state, batch(t)))
+            row = {k: float(v) for k, v in metrics.items()}
+            sync()
+            steps.append(dict(row, seconds=time.perf_counter() - t0,
+                              mix_seconds=sum(mixes)))
+        finite = all(bool(torch.isfinite(l).all())
+                     for l in tree.tree_leaves((state.x, state.y, state.u)))
+        rec["svr"] = dict(steps=steps, state_finite=finite,
+                          launches=dict(fa_ops.LAUNCHES),
+                          peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          digest=state_digest(torch, state))
     rec["seconds"] = time.perf_counter() - t_phase
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
     D.shutdown()
     return 0
 
 
-def run_lm_training(torch) -> dict:
-    """Phase 4h (see the module docstring): ``LM_AGENTS`` worker processes
-    of this script on the card, started through the localhost launcher's
-    ``launch_workers`` (their errors go to this script's), gated here on
-    their records."""
-    import shutil
-
-    from repro_torch.launch.launch_local import launch_workers
-
-    t_phase = time.perf_counter()
-    root = ROOT / "build" / "lm_training"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    failed = launch_workers(str(ROOT / "chip_smoke.py"), ["--lm-worker"],
-                            LM_AGENTS, str(root / "result.json"), LM_TIMEOUT)
-    check(not failed, f"lm training: failed workers (rank, exit code) "
-          f"{failed}; their errors are above")
+def lm_run_summary(arch: str, root: Path, card: str) -> dict:
+    """Gates one LM training run on its ranks' records (``lm_worker``'s)
+    and returns its summary."""
+    run = LM_RUNS[arch]
     ranks = [json.loads((root / f"rank{r}.json").read_text())
-             for r in range(LM_AGENTS)]
-
+             for r in range(run["agents"])]
+    what = f"lm training {arch}"
     for rec in ranks:
         gap = max(rec["card_vs_cpu"]["x_gap"], rec["card_vs_cpu"]["u_gap"])
-        check(gap <= LM_CARD_CPU_TOL, f"lm training rank {rec['rank']}: the "
+        check(gap <= LM_CARD_CPU_TOL, f"{what} rank {rec['rank']}: the "
               f"card is {gap:.3e} from the CPU (x and u, reduced config), "
               f"beyond {LM_CARD_CPU_TOL}")
-    for name in ("interact", "svr"):
-        rows = [[{k: v for k, v in s.items() if k != "seconds"}
+    names = ("interact", "svr") if run["svr_steps"] else ("interact",)
+    for name in names:
+        rows = [[{k: v for k, v in s.items() if "seconds" not in k}
                  for s in rec[name]["steps"]] for rec in ranks]
-        check(all(r == rows[0] for r in rows), f"lm training {name}: the "
+        check(all(r == rows[0] for r in rows), f"{what} {name}: the "
               f"ranks' metrics differ: {rows}")
         check(all(math.isfinite(v) for s in rows[0] for v in s.values()),
-              f"lm training {name}: non-finite metrics {rows[0]}")
+              f"{what} {name}: non-finite metrics {rows[0]}")
         check(all(sum(rec[name]["launches"].values()) == 0 for rec in ranks),
-              f"lm training {name}: the gradient path launched a kernel: "
+              f"{what} {name}: the gradient path launched a kernel: "
               f"{[rec[name]['launches'] for rec in ranks]}")
-    check(all(rec["svr"]["state_finite"] for rec in ranks),
-          "lm training svr: non-finite state")
-    check([s["refresh"] for s in ranks[0]["svr"]["steps"]]
-          == [float((t + 1) % LM_SVR_Q == 0) for t in range(LM_SVR_STEPS)],
-          f"lm training svr: refresh flags {ranks[0]['svr']['steps']}")
-    from repro_torch.configs import get_config
-    layers = get_config(LM_ARCH).num_layers
+    if run["svr_steps"]:
+        check(all(rec["svr"]["state_finite"] for rec in ranks),
+              f"{what} svr: non-finite state")
+        want = [float((t + 1) % run["q"] == 0)
+                for t in range(run["svr_steps"])]
+        check([s["refresh"] for s in ranks[0]["svr"]["steps"]] == want,
+              f"{what} svr: refresh flags {ranks[0]['svr']['steps']}")
+    moe = ranks[0]["moe_layers"]
+    for rec in ranks:
+        # in call order: the outer loss's forward and its recompute (the
+        # layers in reverse), the inner features, the cross term's forward
+        # and its recompute; each recompute routes as its forward did
+        r = rec["interact"]["moe_routes"]
+        check(len(r) == 5 * moe, f"{what} rank {rec['rank']}: {len(r)} moe "
+              f"calls in the warm-up step, not 5 x {moe}")
+        passes = [r[i * moe:(i + 1) * moe] for i in range(5)]
+        check(passes[1] == passes[0][::-1] and passes[4] == passes[3][::-1],
+              f"{what} rank {rec['rank']}: a recompute in the backward "
+              f"pass routed otherwise than its forward: {passes}")
     for rec in ranks:
         ref, *kernel = rec["eval"]
-        check(sum(ref["launches"].values()) == 0, f"lm eval reference "
+        check(sum(ref["launches"].values()) == 0, f"{what} eval reference "
               f"launched {ref['launches']}")
+        n = rec["attn_layers"]
         for call in kernel:
-            want = dict(flash_attention=layers, flash_attention_tc=layers,
+            want = dict(flash_attention=n, flash_attention_tc=n,
                         flash_attention_f32_split=0, flash_attention_f32=0)
-            check(call["launches"] == want, f"lm eval rank {rec['rank']}: "
-                  f"the cuda call launched {call['launches']}, not {want}")
+            check(call["launches"] == want, f"{what} eval rank "
+                  f"{rec['rank']}: the cuda call launched "
+                  f"{call['launches']}, not {want}")
             rel = abs(call["outer_ce"] - ref["outer_ce"]) / abs(
                 ref["outer_ce"])
-            check(rel <= LM_EVAL_RTOL, f"lm eval rank {rec['rank']}: outer "
-                  f"CE {call['outer_ce']} with the flash kernel, "
+            check(rel <= LM_EVAL_RTOL, f"{what} eval rank {rec['rank']}: "
+                  f"outer CE {call['outer_ce']} with the flash kernel, "
                   f"{ref['outer_ce']} plain ({rel:.3e} > {LM_EVAL_RTOL})")
     check(len({json.dumps([e["outer_ce"] for e in rec["eval"]])
-               for rec in ranks}) == 1, "lm eval: the ranks' CE differ")
+               for rec in ranks}) == 1, f"{what} eval: the ranks' CE differ")
 
-    timed = [s["seconds"] for s in ranks[0]["interact"]["steps"][1:]]
-    s_per_step = max(statistics.median(
-        [s["seconds"] for s in rec["interact"]["steps"][1:]])
-        for rec in ranks)
+    def per_step(name: str, key: str) -> float:
+        """The slowest rank's median over the timed steps (the warm-up
+        left out where there are more)."""
+        return max(statistics.median(
+            [s[key] for s in rec[name]["steps"][1:] or rec[name]["steps"]])
+            for rec in ranks)
+    s_per_step = per_step("interact", "seconds")
     ev = ranks[0]["eval"]
     summary = dict(
-        arch=LM_ARCH, agents=LM_AGENTS, wire=ranks[0]["wire"],
+        arch=arch, cut=run["cut"], agents=run["agents"],
+        wire=ranks[0]["wire"], card=card,
         tokens_per_agent_step=LM_BATCH * LM_SEQ,
         params=ranks[0]["interact"]["params"],
         head=ranks[0]["interact"]["head"],
+        attn_layers=ranks[0]["attn_layers"], moe_layers=moe,
         interact_steps=ranks[0]["interact"]["steps"],
         interact_s_per_step=s_per_step,
-        interact_step_seconds_rank0=timed,
+        interact_mix_s_per_step=per_step("interact", "mix_seconds"),
+        interact_step_seconds=[[s["seconds"] for s in rec["interact"]["steps"]]
+                               for rec in ranks],
         tokens_per_s_per_agent=LM_BATCH * LM_SEQ / s_per_step,
-        svr_steps=ranks[0]["svr"]["steps"],
-        svr_step_seconds=[[s["seconds"] for s in rec["svr"]["steps"]]
-                          for rec in ranks],
+        moe_dropped_warmup=ranks[0]["interact"]["moe_dropped"],
+        digests=dict(interact=[rec["interact"]["digest"] for rec in ranks]),
         eval={e["impl"] + str(i): dict(outer_ce=e["outer_ce"],
                                        seconds=e["seconds"],
                                        launches=e["launches"])
@@ -3509,17 +3651,57 @@ def run_lm_training(torch) -> dict:
         eval_flash_launches=sum(e["launches"]["flash_attention_tc"]
                                 for rec in ranks for e in rec["eval"]),
         card_vs_cpu=[rec["card_vs_cpu"] for rec in ranks],
-        breakdown=[rec["breakdown"] for rec in ranks],
         init_seconds=[rec["interact"]["init_seconds"] for rec in ranks],
+        card_free_gb_at_start=[rec["card_free_gb_at_start"]
+                               for rec in ranks],
         peak_gb=[dict(interact=rec["interact"]["peak_bytes"] / 2**30,
-                      svr=rec["svr"]["peak_bytes"] / 2**30)
+                      interact_reserved=(rec["interact"]["peak_reserved_bytes"]
+                                         / 2**30),
+                      **({"svr": rec["svr"]["peak_bytes"] / 2**30}
+                         if run["svr_steps"] else {}))
                  for rec in ranks],
-        worker_seconds=[rec["seconds"] for rec in ranks],
-        seconds=time.perf_counter() - t_phase)
-    print(f"lm training: {json.dumps(summary)}", flush=True)
-    print(f"lm training phase: {summary['seconds']:.1f} s", flush=True)
-    shutil.rmtree(root, ignore_errors=True)
+        worker_seconds=[rec["seconds"] for rec in ranks])
+    if run["svr_steps"]:
+        summary.update(
+            svr_steps=ranks[0]["svr"]["steps"],
+            svr_step_seconds=[[s["seconds"] for s in rec["svr"]["steps"]]
+                              for rec in ranks])
+        summary["digests"]["svr"] = [rec["svr"]["digest"] for rec in ranks]
     return summary
+
+
+def run_lm_training(torch, phase: str = "lm") -> dict:
+    """Phase 4h or 4k (see the module docstring; ``phase`` a key of
+    ``LM_PHASE_RUNS``): each run's worker processes of this script on the
+    card in turn, started through the localhost launcher's
+    ``launch_workers`` (their errors go to this script's), gated here on
+    their records."""
+    import shutil
+
+    from repro_torch.launch.launch_local import launch_workers
+
+    t_phase = time.perf_counter()
+    card = gpu_name_and_power_limit()
+    root = ROOT / "build" / phase
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for arch in LM_PHASE_RUNS[phase]:
+        t0 = time.perf_counter()
+        failed = launch_workers(
+            str(ROOT / "chip_smoke.py"), ["--lm-worker", "--run", arch],
+            LM_RUNS[arch]["agents"], str(root / arch / "result.json"),
+            LM_TIMEOUT)
+        check(not failed, f"lm training {arch}: failed workers (rank, exit "
+              f"code) {failed}; their errors are above")
+        runs[arch] = summary = lm_run_summary(arch, root / arch, card)
+        summary["wall_seconds"] = time.perf_counter() - t0
+        print(f"lm training {arch}: {json.dumps(summary)}", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"lm training phase {phase}: {seconds:.1f} s", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(runs=runs, seconds=seconds,
+                eval_flash_launches={a: r["eval_flash_launches"]
+                                     for a, r in runs.items()})
 
 
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
@@ -3574,9 +3756,10 @@ WORKER_PHASES = {
     "distributed": lambda torch, ops: {
         k: v for k, v in run_distributed(torch).items()
         if k in ("layouts", "seconds")},
-    "lm": lambda torch, ops: {
-        k: v for k, v in run_lm_training(torch).items()
-        if k in ("eval_flash_launches", "seconds")},
+    **{phase: lambda torch, ops, phase=phase: {
+        k: v for k, v in run_lm_training(torch, phase).items()
+        if k in ("eval_flash_launches", "seconds")}
+       for phase in LM_PHASE_RUNS},
 }
 
 
@@ -3810,6 +3993,8 @@ def main() -> int:
         byzantine = run_byzantine(torch, ops)
         phase_seconds["wire_byzantine"] = time.perf_counter() - t0
 
+        # what this process keeps cached leaves the card to phase 4k
+        torch.cuda.empty_cache()
         done = finish_phase_workers(workers, t0)
     finally:
         stop_phase_workers(workers)
@@ -3818,7 +4003,10 @@ def main() -> int:
                           for name, rec in done.items()})
     sweeps, resilience = done["sweep"], done["resilience"]
     sweep_wrapper = sweeps["wrapper"]
-    distributed, lm = done["distributed"], done["lm"]
+    distributed = done["distributed"]
+    lm_eval_launches = {arch: n for phase in LM_PHASE_RUNS
+                        for arch, n in done[phase][
+                            "eval_flash_launches"].items()}
 
     # -- mamba and moe serving: counts to 0 just before each model's run --
     t0 = time.perf_counter()
@@ -3955,10 +4143,12 @@ def main() -> int:
                 for (arch, dt), rec in frontends["runs"].items()
                 if dt == dtype}
 
-    def at_shapes(suffix: str, keys) -> dict:
+    def at_shapes(suffix: str, keys, models=("jamba", "mixtral",
+                                              "paligemma", "musicgen")
+                  ) -> dict:
         return {f"at_{model}": {key: flash["timings"][model + suffix][key]
                                 for key in keys}
-                for model in ("jamba", "mixtral", "paligemma", "musicgen")}
+                for model in models}
     kernels.append(dict(
         name="flash_attention_f32_split", route="cuda", source=FLASH_SOURCE,
         replaces=FLASH_REPLACES, dtype="float32",
@@ -4006,11 +4196,12 @@ def main() -> int:
         replaces=FLASH_REPLACES, dtype="bfloat16",
         launches=serving[("gemma2-2b", "bfloat16")]["launches"][
             "flash_attention_tc"],
-        launches_lm_eval=lm["eval_flash_launches"],
+        launches_lm_eval=lm_eval_launches,
         launches_lm_eval_from=(
-            f"phase 4h: make_eval_step(attn_impl='cuda') on smollm-360m, "
-            f"2 calls on each of {LM_AGENTS} agents' processes, one launch "
-            "a layer each"),
+            "phases 4h and 4k: make_eval_step(attn_impl='cuda'), 2 calls "
+            "on each agent's process of each run (agents: "
+            f"{ {arch: run['agents'] for arch, run in LM_RUNS.items()} }), "
+            "one launch an attention layer each"),
         max_abs_err=flash["err"]["bfloat16"],
         max_row_rel_err=flash["err"]["bfloat16_row"],
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
@@ -4022,7 +4213,9 @@ def main() -> int:
         launches_frontend_serving=frontend_launches("flash_attention_tc",
                                                     "bfloat16"),
         **at_shapes("", ("shape", "window", "ms", "plain_ms", "bound_ms",
-                         "bound_by", "library_ms", "library_call"))))
+                         "bound_by", "library_ms", "library_call"),
+                    ("jamba", "mixtral", "paligemma", "musicgen",
+                     "smollm_train", "mixtral_train", "jamba_train"))))
     main = wkv["timing"]
     kernels.append(dict(
         name="wkv6", route="cuda", source=WKV_SOURCE, replaces=WKV_REPLACES,

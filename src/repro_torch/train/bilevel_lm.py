@@ -13,9 +13,9 @@ convex.
 Hypergradient (eq. 5 / 22) exploits the readout structure: H_yy(g)
 touches x only through the backbone features, so the K-term Neumann
 series runs in *head space* on cached features (``_neumann_head``: the
-head gradient linearized once with ``torch.func.linearize``, K - 1
-replays of its tangent), and the single cross term H_xy z is one extra
-backward through the backbone.
+head gradient linearized once in closed form, ``_linearize_head``, K - 1
+applications of its tangent map), and the single cross term H_xy z is
+one extra backward through the backbone.
 
 The cross term.  H_xy(g) z = grad_x d/de g(x, y + e z), and the tangent
 touches only the head: per chunk of tokens the directional derivative
@@ -56,7 +56,6 @@ import dataclasses
 import torch
 from torch.utils import _pytree as pytree
 
-from repro_torch.hypergrad.engine import linearize
 from repro_torch.hypergrad.neumann import neumann_truncated_apply
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig
@@ -160,23 +159,70 @@ def outer_loss(cfg: ArchConfig, hyper: BilevelHyper, x, y, tokens,
     return ce + cfg.router_aux_weight * aux
 
 
-def _head_loss_on_feats(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
-                        labels) -> torch.Tensor:
-    return (chunked_ce(cfg, y, feats, labels, hyper.ce_chunk)
-            + ridge(y, hyper.mu_g))
+def _linearize_head(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
+                    labels):
+    """``(v, hvp)``: v = grad_y g at the cached features, and ``hvp(T) =
+    H_yy(g) T``, the head gradient linearized once at y in closed form.
+
+    Per chunk of tokens (features f, n tokens in all) the linearization
+    keeps the softmax p of the logits and, with a final softcap, tau =
+    tanh(raw / cap) of the raw logits f y, all float32 (chunk, vocab).
+    The CE's gradient with respect to the logits is g = (p - onehot) / n,
+    with respect to the raw logits g (1 - tau^2).  Along T the raw logits
+    move by dr = f T and the logits by dl = (1 - tau^2) dr, so
+
+      d g = p (dl - <p, dl>) / n,
+      d (g (1 - tau^2)) = d g (1 - tau^2) - 2 g tau (1 - tau^2) dr / cap,
+
+    and H_yy T is the sum over chunks of f^T times that, plus mu T; the
+    products with f^T run in float32.  ``torch.func.linearize`` gives the
+    same map, but its folded constants hold tens of head-sized tensors,
+    more than an 80 GB card has left beside jamba-1.5-large's training
+    state at its 8192 x 65,536 head, and outlive the call until a garbage
+    collection; this one holds the chunks' residuals and two float32
+    heads.
+    """
+    ft, lt = _next_token_pairs(feats, labels)
+    n = ft.shape[0]
+    cap = cfg.final_logit_softcap
+    chunks = []
+    v = y.to(torch.float32, copy=True).mul_(hyper.mu_g)
+    for lo, hi in _chunk_bounds(n, hyper.ce_chunk):
+        fc = ft[lo:hi]
+        raw = (fc @ y).float()
+        tau = None if cap is None else torch.tanh(raw / cap)
+        p = torch.softmax(raw if cap is None else cap * tau, dim=-1)
+        g = p.clone()
+        g[torch.arange(hi - lo, device=g.device), lt[lo:hi]] -= 1.0
+        g = g / n
+        v.addmm_(fc.float().T, g if cap is None else g * (1 - tau * tau))
+        chunks.append((fc, p, tau, g))
+
+    def hvp(t: torch.Tensor) -> torch.Tensor:
+        out = t.to(torch.float32, copy=True).mul_(hyper.mu_g)
+        for fc, p, tau, g in chunks:
+            dr = (fc @ t).float()
+            dl = dr if cap is None else (1 - tau * tau) * dr
+            dg = p * (dl - torch.sum(p * dl, dim=-1, keepdim=True)) / n
+            if cap is not None:
+                dg = (dg * (1 - tau * tau)
+                      - 2 * g * tau * (1 - tau * tau) * dr / cap)
+            out.addmm_(fc.float().T, dg)
+        return out.to(t.dtype)
+
+    return v.to(y.dtype), hvp
 
 
 def _neumann_head(cfg, hyper: BilevelHyper, y, feats, labels, b):
     """``(z, v)``: z = [H_yy g]^{-1} b by the K-term Neumann series in
     head space, v = grad_y g at the cached features.
 
-    The head gradient is linearized once (``torch.func.linearize`` at y;
-    its value is v) and the K-term chain of eq. (22) replays the stored
-    tangent through ``neumann_truncated_apply(skip_last=True)``: K - 1
+    The head gradient is linearized once (``_linearize_head`` at y; its
+    value is v) and the K-term chain of eq. (22) applies its tangent map
+    through ``neumann_truncated_apply(skip_last=True)``: K - 1
     head-space HVPs.
     """
-    v, hvp = linearize(torch.func.grad(
-        lambda yy: _head_loss_on_feats(cfg, hyper, yy, feats, labels)), y)
+    v, hvp = _linearize_head(cfg, hyper, y, feats, labels)
     z, _count = neumann_truncated_apply(hvp, b, hyper.neumann_k,
                                         hyper.lipschitz_g, skip_last=True)
     return z, v
@@ -295,5 +341,6 @@ def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
                                           inner_tokens, prefix_inner),
             (x,), (0,))
 
-    p = pytree.tree_map(lambda a, b: a - b, gx_f, gx_cross)
+    # p in grad_x f's own buffers: no third backbone-sized tree at the peak
+    p = pytree.tree_map(lambda a, b: a.sub_(b), gx_f, gx_cross)
     return p, v, outer_val

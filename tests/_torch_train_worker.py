@@ -1,10 +1,12 @@
-"""One rank of the LM train-step checks in tests/test_torch_train.py.
+"""One rank of the LM train-step checks in tests/test_torch_train.py and
+tests/test_torch_train_moe_mamba.py.
 
-    python tests/_torch_train_worker.py WORLD RANK PORT OUT_DIR
+    python tests/_torch_train_worker.py WORLD RANK PORT OUT_DIR [ARCH]
 
-Every rank of a gloo group of WORLD processes (one agent a process)
-reads ``OUT_DIR/inputs.pkl`` (the JAX package's initial ``TrainState``
-and the tokens, as numpy) and, once the test has written it,
+Every rank of a gloo group of WORLD processes (one agent a process, so
+m = WORLD; ARCH names the reduced config, ``SETTINGS["arch"]`` when not
+given) reads ``OUT_DIR/inputs.pkl`` (the JAX package's initial
+``TrainState`` and the tokens, as numpy) and, once the test has written it,
 ``OUT_DIR/svr_inputs.pkl`` (a mid-run SVR-INTERACT state), carries its
 agent's rows into the port (``train_state_from_numpy``), and runs the
 port's entry points on them: ``SETTINGS["interact_steps"]`` INTERACT
@@ -47,7 +49,8 @@ def _load_when_written(path: Path, timeout: float = 240.0):
     return pickle.loads(path.read_bytes())
 
 
-def main(world: int, rank: int, port: int, out_dir: str) -> None:
+def main(world: int, rank: int, port: int, out_dir: str,
+         arch: str = SETTINGS["arch"]) -> None:
     import dataclasses
 
     import torch
@@ -66,12 +69,12 @@ def main(world: int, rank: int, port: int, out_dir: str) -> None:
         coordinator=f"127.0.0.1:{port}", num_processes=world,
         process_id=rank, wire="gloo", device="cpu", timeout_s=240))
     s = SETTINGS
-    mesh = D.agent_mesh(s["m"])
+    mesh = D.agent_mesh(world)
     with open(Path(out_dir) / "inputs.pkl", "rb") as f:
         inputs = pickle.load(f)
-    cfg = get_config(s["arch"]).reduced(vocab_size=s["vocab_size"],
-                                        num_layers=s["num_layers"],
-                                        dtype="float32")
+    cfg = get_config(arch).reduced(vocab_size=s["vocab_size"],
+                                   num_layers=s["num_layers"],
+                                   dtype="float32")
     to_port = lambda fields: train_state_from_numpy(
         collections.namedtuple("JState", list(fields))(**fields), cfg, "cpu",
         mesh.rank)
@@ -112,4 +115,5 @@ def main(world: int, rank: int, port: int, out_dir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         *sys.argv[5:6])
