@@ -26,16 +26,19 @@
    mixtral's 32 / 8 heads of 128, a 4096-token window, 2 x 4608 tokens)
    and phase 4j's (paligemma-3b's 8 / 1 heads of 256 over 4 x 512
    positions; musicgen-medium's 24 / 24 heads of 64 over 4 x 1564),
-   each in both dtypes, and the LM training phases' eval steps (4h, 4k:
-   4 x 256 tokens of smollm-360m's 15 / 5 heads of 64, mixtral's 32 / 8
-   of 128 under its window and jamba's 64 / 8 of 128) in bfloat16, the
+   each in both dtypes, and the LM training phases' eval steps (4h, 4k,
+   4l: 4 x 256 tokens of smollm-360m's 15 / 5 heads of 64, mixtral's 32 /
+   8 of 128 under its window, jamba's 64 / 8 of 128, gemma2-2b's 8 / 4 of
+   256 with its softcap and paligemma-3b's 8 / 1 of 256) in bfloat16, the
    dtype they train in; each call must add one launch to the count of
    each kernel its dtype takes; the float32 split pass is bit-equal to its
    plain version at the serving shape and on the strided views.
    WKV6: the JAX package's test cases, every head size at a length that
    is not a multiple of its 16-token chunk, a strong-decay draw (w
    exactly 0, below 1e-4, above 0.999) and the rwkv6-3b serving shape,
-   with and without an incoming state.  Times (median of warmed
+   with and without an incoming state, and phase 4l's eval shape (4 x 256
+   tokens).  Consensus times in bfloat16 too, at the main-path and the
+   large shape.  Times (median of warmed
    CUDA-event timings), bounds and library yardsticks at the main-path
    shapes (SDPA: is_causal where there is no window or the window spans
    every key, the window as a boolean mask where it does not; without
@@ -106,10 +109,14 @@
    steps, whose kernel events (``counted_launches``) must equal their
    wrapper counts (the check on the profiler count), and profiles of 3 eager and 3 captured steps
    (consensus_step once a replay).
-   Phases 4c-4h and 4k share the card: the main process runs 4c and then
-   4d, while two worker processes of this script (``--phase-worker``, the
-   groups of ``PHASE_GROUPS``) run 4e and then 4f, and 4g, 4h and then
-   4k.  Each worker's output goes to a log that the main process prints
+   Phases 4c-4h, 4k and 4l share the card: the main process runs 4c and
+   then 4d, while three worker processes of this script
+   (``--phase-worker``, the groups of ``PHASE_GROUPS``) run 4e; 4g and
+   then 4f; and the LM training phases 4l, 4h and then 4k, one training
+   run at a time.  The workers start after phase 3 and import (the first
+   LM run's processes too) beside 4 and 4b; they start their phases once
+   4b's profiles are taken.  Each worker's output goes to a log that the
+   main process prints
    once the worker has ended; its consensus counts are set to 0 just
    before each of its phases.  Host-clock figures of 4c-4h (us per step,
    walls, ``vmap_speedup``) are taken with the other phases running
@@ -232,7 +239,8 @@
    256, ``remat`` on).  First the reduced float32 config of
    tests/test_torch_train.py, 2 INTERACT steps on the card and on the
    CPU in the same group: x and u within ``LM_CARD_CPU_TOL`` of each
-   leaf's scale.  Then (a) INTERACT, 4 steps (the first a warm-up):
+   leaf's scale.  Then (a) INTERACT, 2 steps (the first a warm-up; 4
+   before phase 4l joined, cut for the script's time limit):
    s/step and the staged mixes' seconds in it (each mix timed between
    two synchronises), tokens/s an agent, ``outer_ce`` and ``grad_norm``
    finite and equal on every rank, no kernel launched (the gradient path
@@ -241,8 +249,9 @@
    ``attn_impl="reference"`` and twice with ``"cuda"``: each ``cuda``
    call launches the bf16 flash kernel exactly once an attention layer
    (32; counts set to 0 just before each call), its outer CE within
-   ``LM_EVAL_RTOL`` of the reference's; (b) SVR-INTERACT, 3 steps with q
-   = 2 (recursive, refresh, recursive), finite and equal on every rank.
+   ``LM_EVAL_RTOL`` of the reference's; (b) SVR-INTERACT, 2 steps with q
+   = 2 (recursive, refresh; 3 before phase 4l joined, cut for the
+   script's time limit), finite and equal on every rank.
    Prints each run's ``lm training`` line and the phase's seconds.
 4k. LM training of the MoE and hybrid models (``LM_PHASE_RUNS
    ["lm_moe_mamba"]``), after 4h in its worker, each run as 4h's with
@@ -255,7 +264,8 @@
    vocab 65536) cut to one 2-layer period (attention with a dense ffn,
    then mamba with a moe ffn) and 4 of its 16 experts, 1 agent, 2
    INTERACT steps and no SVR-INTERACT (``LM_RUNS`` says why); each with
-   its reduced float32 config on the card against the CPU.  Besides 4h's
+   its reduced float32 config on the card against the CPU (4k runs
+   after 4l and 4h in their worker).  Besides 4h's
    checks: in the warm-up step each moe layer's capacity route is taken
    5 times (the outer loss's forward and its recompute in the backward
    pass, the inner features, the cross term's forward and its
@@ -264,6 +274,28 @@
    each call is printed.  The eval step launches the bf16 flash kernel
    once (one attention layer in each cut).  Prints each run's ``lm
    training`` line and the phase's seconds.
+4l. LM training at full size (``LM_PHASE_RUNS["lm_dense_ssm_vlm"]``),
+   first in the LM worker, each run as 4h's, 1 agent, nothing cut:
+   gemma2-2b (26 layers, d_model 2304, 8 / 4 heads of 256, d_ff 9216,
+   vocab 256,000, softcaps 50 and 30, local and global layers with a
+   4096-token window) and rwkv6-3b (32 layers, d_model 2560, 40 heads of
+   64, d_ff 8960, vocab 65,536), each 2 INTERACT and 2 SVR-INTERACT steps
+   with q = 2 (recursive, refresh); paligemma-3b (18 layers, d_model 2048,
+   8 / 1 heads of 256, d_ff 16384, vocab 257,216) with its 256 prefix
+   embeddings of width 1152 (``PREFIX_SCALE`` * N(0, 1) from a seed, each
+   step's (1, 4, 256, 1152) batch split inner and outer as the tokens),
+   2 INTERACT steps through ``make_train_step(..., with_prefix=True)``,
+   no SVR-INTERACT (neither package's SVR step takes a prefix); the
+   reduced float32 config on the card against the CPU (paligemma's with
+   its prefix; rwkv6's within its own ``card_cpu_tol``).  The eval step
+   (no prefix in either package) launches the bf16 flash kernel once an
+   attention layer (26 and 18 a call) and WKV6 once an rwkv layer (32),
+   nothing else; no train step launches a kernel (the gradient paths run
+   plain attention and the plain WKV6 token loop).  rwkv6's line also
+   gives the token loop (``wkv6_ref``) timed alone at a split's shape
+   and its estimated share of an INTERACT step.  In 4h, 4k and 4l each
+   run's processes import (``torch._dynamo`` too) while the run before it
+   trains, across the phases.
 4i. Mamba and MoE serving (``MOE_MAMBA_RUNS``, the cuts printed on the
    phase's first line): mixtral-8x7b at its published widths (d_model
    4096, d_ff 14336, 8 experts top 2, 32 / 8 heads of 128, a 4096-token
@@ -336,9 +368,11 @@
    three runs.
 6. Prints each phase's host-clock seconds, then a ``{"kernels": [...]}``
    line (with the registers and spills nvcc reports for each
-   instantiation of the redesigned kernels, the row-block forms with
-   phase 4g's launches, the bf16 flash kernel with phase 4h's and 4k's
-   and its times at their eval steps' shapes, and the flash kernels with
+   instantiation of the redesigned kernels, the consensus kernels'
+   bfloat16 times, the row-block forms with phase 4g's launches, the bf16
+   flash kernel with phases 4h's, 4k's and 4l's launches and its times at
+   their eval steps' shapes, WKV6 with phase 4l's launches and its time
+   at its eval shape, and the flash kernels with
    phase 4i's and 4j's launches and their times at their shapes), the
    card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.  Any failed
@@ -538,17 +572,21 @@ DIST_LAYOUTS = (("allgather", 5, "gloo"), ("ppermute", 5, "gloo"),
                 ("allgather", 1, "nccl"))
 DIST_STEPS, DIST_RECORD_EVERY, DIST_INNER_STEPS = 20, 10, 300
 DIST_TIMEOUT = 300
-# The LM training phases (4h, 4k): each run trains an arch at its
+# The LM training phases (4h, 4k, 4l): each run trains an arch at its
 # published widths (bfloat16, random weights from a seed) with the cut
 # stated, one agent a process, all on the one card over gloo staged through
 # host memory, with the JAX training driver's settings
 # (src/repro/launch/train.py): the ring topology, LM_BATCH x LM_SEQ tokens
 # an agent a step, LM_HYPER, LM_ALPHA, LM_BETA.  A run's INTERACT steps
 # (the first a warm-up) and its SVR-INTERACT steps with refresh period q
-# (none where svr_steps is 0).
+# (none where svr_steps is 0).  A config with a frontend takes its prefix
+# embeddings in every INTERACT step (``make_train_step(...,
+# with_prefix=True)``).
 LM_RUNS = {
-    # 4h: smollm-360m at its published config, nothing cut
-    "smollm-360m": dict(cut={}, agents=4, interact_steps=4, svr_steps=3,
+    # 4h: smollm-360m at its published config, nothing cut; 2 INTERACT
+    # and 2 SVR-INTERACT steps (4 and 3 before phase 4l joined, cut for
+    # the script's time limit)
+    "smollm-360m": dict(cut={}, agents=4, interact_steps=2, svr_steps=2,
                         q=2),
     # 4k: mixtral-8x7b (arXiv:2401.04088) cut to 1 of its 32 layers, all 8
     # experts: a 1.58 B-parameter backbone (3.16 GB); 2 agents, whose ring
@@ -570,11 +608,26 @@ LM_RUNS = {
     "jamba-1.5-large-398b": dict(
         cut=dict(num_layers=2, attn_every=2, num_experts=4), agents=1,
         interact_steps=2, svr_steps=0, q=2),
+    # 4l: gemma2-2b (arXiv:2408.00118) and rwkv6-3b (arXiv:2404.05892) at
+    # their published configs, nothing cut, 1 agent each
+    "gemma2-2b": dict(cut={}, agents=1, interact_steps=2, svr_steps=2, q=2),
+    # rwkv6-3b: its reduced float32 config on the card within 2e-4 of the
+    # CPU (see LM_CARD_CPU_TOL)
+    "rwkv6-3b": dict(cut={}, agents=1, interact_steps=2, svr_steps=2, q=2,
+                     card_cpu_tol=2e-4),
+    # 4l: paligemma-3b (arXiv:2407.07726) at its published config, nothing
+    # cut, with its 256 prefix embeddings; 1 agent; no SVR-INTERACT:
+    # neither package's SVR step takes a prefix
+    "paligemma-3b": dict(cut={}, agents=1, interact_steps=2, svr_steps=0,
+                         q=2),
 }
-# the runs of each LM training phase, in order (each run's processes end
-# before the next run's start)
+# the runs of each LM training phase, in order: no two runs' processes
+# use the card at once (a run's processes start, and import, while the run
+# before it trains, and join their group once it has ended)
 LM_PHASE_RUNS = {"lm": ("smollm-360m",),
-                 "lm_moe_mamba": ("mixtral-8x7b", "jamba-1.5-large-398b")}
+                 "lm_moe_mamba": ("mixtral-8x7b", "jamba-1.5-large-398b"),
+                 "lm_dense_ssm_vlm": ("gemma2-2b", "rwkv6-3b",
+                                      "paligemma-3b")}
 LM_BATCH, LM_SEQ = 4, 256
 LM_HYPER = dict(mu_g=0.1, neumann_k=3, lipschitz_g=2.0, ce_chunk=256,
                 remat=True)
@@ -588,21 +641,31 @@ LM_REDUCED = dict(vocab_size=128, num_layers=2, dtype="float32")
 LM_REDUCED_HYPER = dict(mu_g=0.5, neumann_k=2, lipschitz_g=4.0, ce_chunk=16,
                         remat=False)
 LM_CARD_CPU_TOL = 1e-5
+# except where a run states its own ``card_cpu_tol``: rwkv6-3b's (2e-4).
+# Its reduced problem is ill-conditioned in exact arithmetic: in float64
+# on the CPU a relative 1e-6 change of x moves the hypergradient of layer
+# 1's bonus u by 4.2e-4 of its scale, so float32 rounding alone puts the
+# CPU's float32 steps 1.7e-5 (u) and 8.6e-6 (x) from float64 ones, and the
+# card's were 3.9e-5 from the CPU's on an H100 (every route in float32:
+# the model casts to it throughout, so a float64 run is no cure)
 # the eval step's outer CE with the bf16 flash kernel against plain
 # attention in bfloat16, relative: about 3 times the largest gap measured
 # on an H100 (3.0e-5, smollm-360m after 4 steps; 4.7e-6 and 1.1e-5 at
 # 4k's cuts); the random head keeps the CE near ln(vocab), so a looser
 # bound would pass a wrong attention output
 LM_EVAL_RTOL = 1e-4
-# Phases 4e-4h and 4k run in worker processes of this script
+# Phases 4e-4h, 4k and 4l run in worker processes of this script
 # (``--phase-worker``), one group of phases each, beside the main process's
-# 4c-4d: the first three groups take about as long each, and all are bound
-# by the host, not the card; 4k follows 4h in its worker, so that no other
-# training run's memory meets its own on the card.  A worker's consensus
-# counts start at 0 with each of its phases; the main process waits for
-# them at most PHASE_WORKER_TIMEOUT seconds from their start
-PHASE_GROUPS = (("sweep", "resilience"),
-                ("distributed", "lm", "lm_moe_mamba"))
+# 4c-4d: all are bound by the host, not the card, and no group takes
+# longer than the LM training phases, which share one worker so that no
+# two training runs' memory meets on the card; 4k comes last, so that
+# jamba's 70.7 GiB reserved, the most of any run, come after the other
+# groups' phases (an H100 host ran those in 168-250 s, the LM phases in
+# 274).  A worker's consensus counts start at 0 with each of its phases;
+# the main process waits for them at most PHASE_WORKER_TIMEOUT seconds
+# from their start
+PHASE_GROUPS = (("sweep",), ("distributed", "resilience"),
+                ("lm_dense_ssm_vlm", "lm", "lm_moe_mamba"))
 PHASE_WORKER_TIMEOUT = 800
 # the row-block kernels' shapes, (rows, m, D) and the block's first row:
 # one agent of the main path's 5, and 4 rows of the large shape's 16
@@ -670,8 +733,14 @@ FLASH_CASES = (
 SMOLLM_TRAIN = (4, 256, 256, 15, 5, 64, True, None, None, 0)
 MIXTRAL_TRAIN = (4, 256, 256, 32, 8, 128, True, 4096, None, 0)
 JAMBA_TRAIN = (4, 256, 256, 64, 8, 128, True, None, None, 0)
+# phase 4l's eval steps: gemma2-2b's 8 over 4 heads of 256 with its
+# attention softcap (its local layers' 4096-token window spans the 256
+# keys, so both layer kinds compute this); paligemma-3b's 8 over 1 of 256
+# on the tokens alone (neither package's eval step takes a prefix)
+GEMMA2_TRAIN = (4, 256, 256, 8, 4, 256, True, 4096, 50.0, 0)
+PALIGEMMA_TRAIN = (4, 256, 256, 8, 1, 256, True, None, None, 0)
 # Checked and timed: both dtypes at gemma2's global and local shapes and
-# at phase 4i's and 4j's two; bfloat16 at the eval steps' three.
+# at phase 4i's and 4j's two; bfloat16 at the eval steps' five.
 FLASH_MAIN = {
     "global": GEMMA_GLOBAL + ("bfloat16",),
     "local": GEMMA_LOCAL + ("bfloat16",),
@@ -688,6 +757,8 @@ FLASH_MAIN = {
     "smollm_train": SMOLLM_TRAIN + ("bfloat16",),
     "mixtral_train": MIXTRAL_TRAIN + ("bfloat16",),
     "jamba_train": JAMBA_TRAIN + ("bfloat16",),
+    "gemma2_train": GEMMA2_TRAIN + ("bfloat16",),
+    "paligemma_train": PALIGEMMA_TRAIN + ("bfloat16",),
 }
 # attention_blockwise (plain PyTorch: the JAX package's streaming softmax
 # over kv blocks) against the plain attention at phase 4j's two shapes in
@@ -730,7 +801,11 @@ WKV_STRONG = [(2, 37, 3, n, st, dt) for n in (8, 16, 32, 64)
 PTXAS_KERNELS = ("consensus_step_kernel", "consensus_mix_kernel",
                  "wkv6_kernel",
                  "flash_attention_f32_kernel", "flash_split_f32_kernel")
+# timed: rwkv6-3b's serving shape and phase 4l's eval step (4 x 256
+# tokens), both in bfloat16
 WKV_MAIN = (4, 1024, 40, 64, False, "bfloat16")
+WKV_TRAIN = (4, 256, 40, 64, False, "bfloat16")
+WKV_TIMED = {"main": WKV_MAIN, "rwkv6_train": WKV_TRAIN}
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 
 # Serving runs: batch, prompt tokens, greedy decode steps.
@@ -964,7 +1039,9 @@ def check_kernels(torch, ops, ref, main_matrix):
     f32, bf16 = torch.float32, torch.bfloat16
     cases = ([(m, d, f32) for m in (4, 5, 8, 16)
               for d in (123, 512, 700, 2048)]
-             + [(8, 512, bf16), MAIN_SHAPE + (f32,), LARGE_SHAPE + (f32,)])
+             + [(8, 512, bf16)]
+             + [shape + (dt,) for dt in (f32, bf16)
+                for shape in (MAIN_SHAPE, LARGE_SHAPE)])
     err = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REPLACES}
     timings = {k: {} for k in REPLACES}
     for m, d, dtype in cases:
@@ -1010,21 +1087,24 @@ def check_kernels(torch, ops, ref, main_matrix):
         if (m, d) not in (MAIN_SHAPE, LARGE_SHAPE):
             continue
         M = sym
+        # the library calls take M in the streams' dtype
+        ML = M.to(dtype)
         step = lambda: ops.consensus_step_kernel(M, X, U, P, PP, alpha=ALPHA)
         mix = lambda: ops.consensus_mix_kernel(M, X)
         plain_step = lambda: ref.consensus_step_ref(M, X, U, P, PP,
                                                     alpha=ALPHA)
         plain_mix = lambda: ref.consensus_mix_ref(M, X)
-        lib_step = lambda: (torch.addmm(U, M, X, beta=-ALPHA),
-                            torch.addmm(P - PP, M, U))
-        lib_mix = lambda: torch.matmul(M, X)
+        lib_step = lambda: (torch.addmm(U, ML, X, beta=-ALPHA),
+                            torch.addmm(P - PP, ML, U))
+        lib_mix = lambda: torch.matmul(ML, X)
+        suffix = "" if dtype == f32 else "_bf16"
         for name, fn, plain, lib in (
                 ("consensus_step", step, plain_step, lib_step),
                 ("consensus_mix", mix, plain_mix, lib_mix)):
             b, by = bound_ms(name, m, d, X.element_size())
             if (m, d) == MAIN_SHAPE:
                 # device time from graph replays, and the eager issue rate
-                timings[name]["main"] = dict(
+                timings[name]["main" + suffix] = dict(
                     shape=[m, d], ms=time_ms(torch, fn, 200, graph=True),
                     plain_ms=time_ms(torch, plain, 200, graph=True),
                     library_ms=time_ms(torch, lib, 200, graph=True),
@@ -1033,7 +1113,7 @@ def check_kernels(torch, ops, ref, main_matrix):
                     eager_library_ms=time_ms(torch, lib, 200),
                     bound_ms=b, bound_by=by)
             else:
-                timings[name]["large"] = dict(
+                timings[name]["large" + suffix] = dict(
                     shape=[m, d], ms=time_ms(torch, fn, 5),
                     plain_ms=time_ms(torch, plain, 5),
                     library_ms=time_ms(torch, lib, 5),
@@ -1574,15 +1654,17 @@ def check_blockwise(torch) -> dict:
 
 
 def check_wkv6(torch) -> dict:
-    """The WKV6 kernel against its plain version on every case; time and
-    bound at the serving shape (no library call computes WKV6)."""
+    """The WKV6 kernel against its plain version on every case; times
+    and bounds at ``WKV_TIMED``'s shapes (no library call computes
+    WKV6)."""
     from repro_torch.kernels.rwkv6 import ops, ref
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev).manual_seed(2)
     err = {"float32": 0.0, "bfloat16": 0.0}
-    timing = None
+    timings = {}
+    timed = {case: name for name, case in WKV_TIMED.items()}
     cases = ([(c, False) for c in WKV_CASES] + [(c, True) for c in WKV_STRONG]
-             + [(WKV_MAIN, False)])
+             + [(c, False) for c in WKV_TIMED.values()])
     for case, strong in cases:
         b, s, h, n, with_state, dt = case
         dtype = getattr(torch, dt)
@@ -1613,9 +1695,9 @@ def check_wkv6(torch) -> dict:
               and torch.allclose(got_state, want_state, atol=tol, rtol=tol),
               f"wkv6 {case} disagrees with its plain version beyond {tol}")
         err[dt] = max(err[dt], e)
-        if case is WKV_MAIN and not strong:
+        if case in timed and not strong:
             bound, by = wkv_bound_ms(b, s, h, n, with_state, r.element_size())
-            timing = dict(
+            timings[timed[case]] = timing = dict(
                 shape=[b, s, h, n], dtype=dt,
                 ms=time_ms(torch, lambda: ops.wkv6(r, k, v, w, u, state), 10,
                            reps=5),
@@ -1623,8 +1705,8 @@ def check_wkv6(torch) -> dict:
                                  lambda: ref.wkv6_ref(r, k, v, w, u, state),
                                  1, reps=3),
                 bound_ms=bound, bound_by=by, library_ms=None)
-            print(f"wkv6 main: {json.dumps(timing)}", flush=True)
-    return dict(err=err, timing=timing)
+            print(f"wkv6 {timed[case]}: {json.dumps(timing)}", flush=True)
+    return dict(err=err, timings=timings)
 
 
 def moe_drop_shares(torch, run, routes: list | None = None):
@@ -3382,17 +3464,63 @@ def timed_mixes(torch, dev, run):
     return out, seconds
 
 
+def lm_prefix(cfg, agents: int, rows, t: int, batch: int):
+    """A frontend's prefix embeddings for step ``t`` of the agents
+    ``rows``: (len(rows), batch, num_prefix_tokens, frontend_dim) float32,
+    ``PREFIX_SCALE`` * N(0, 1) from numpy, seeded by the agent and the
+    step (the same on the card and the CPU); None without a frontend."""
+    import numpy as np
+    if not cfg.num_prefix_tokens:
+        return None
+    return np.stack([PREFIX_SCALE * np.random.default_rng(
+        (agents, row, t)).standard_normal(
+            (batch, cfg.num_prefix_tokens, cfg.frontend_dim),
+            dtype=np.float32) for row in rows])
+
+
+def rwkv_loop_seconds(torch, cfg, dev) -> dict:
+    """The plain WKV6 token loop (``wkv6_ref``, what the gradient path
+    runs) timed alone at a training split's shape, (LM_BATCH / 2, LM_SEQ,
+    heads, N) in the config's dtype: a forward recording autograd, and a
+    forward with its backward, each the median of 3 on the host clock
+    between synchronises."""
+    from repro_torch.models.rwkv import wkv6_ref
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, dt = cfg.rwkv_head_size, getattr(torch, cfg.dtype)
+    shape = (LM_BATCH // 2, LM_SEQ, cfg.d_model // n, n)
+    r, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dt)
+               .requires_grad_(True) for _ in range(3))
+    w = (0.35 + 0.6 * torch.rand(*shape, generator=gen, device=dev)).to(dt)
+    u = (0.5 * torch.randn(shape[2], n, generator=gen, device=dev)).to(dt)
+
+    def timed(backward: bool) -> float:
+        samples = []
+        for _ in range(4):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out, _ = wkv6_ref(r, k, v, w, u)
+            if backward:
+                torch.autograd.grad(out.float().sum(), (r, k, v))
+            torch.cuda.synchronize(dev)
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples[1:])
+    return dict(shape=list(shape), dtype=cfg.dtype,
+                forward_s=timed(False), forward_backward_s=timed(True))
+
+
 def lm_worker(argv) -> int:
-    """One agent of an LM training run (phases 4h and 4k): ``chip_smoke.py
-    --lm-worker --run ARCH`` (a key of ``LM_RUNS``) with the worker
-    arguments ``launch_local.launch_workers`` gives (``--out
+    """One agent of an LM training run (phases 4h, 4k and 4l):
+    ``chip_smoke.py --lm-worker --run ARCH`` (a key of ``LM_RUNS``) with
+    the worker arguments ``launch_local.launch_workers`` gives (``--out
     DIR/result.json --worker --process-id RANK --coordinator HOST:PORT
     --go FILE``).
 
-    Joins the gloo group of the run's processes on the card, runs the
-    phase's checks on its agent (the module docstring, 4h and 4k) and
-    writes its record to ``DIR/rank<RANK>.json``; the parent gates on
-    them."""
+    Imports what its steps need (``torch._dynamo`` too, which the first
+    ``torch.utils.checkpoint`` call would import) before the go file, so
+    that the imports overlap the run before it; then joins the gloo group
+    of the run's processes on the card, runs the phase's checks on its
+    agent (the module docstring, 4h, 4k and 4l) and writes its record to
+    ``DIR/rank<RANK>.json``; the parent gates on them."""
     import argparse
     import os
 
@@ -3401,12 +3529,14 @@ def lm_worker(argv) -> int:
     # differently sized ones apart (read when torch first allocates)
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    t_import = time.perf_counter()
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenTaskStream
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch import distributed as D
     from repro_torch.launch.launch_local import _await_go
     from repro_torch.sharding.collectives import AgentMesh
@@ -3415,6 +3545,10 @@ def lm_worker(argv) -> int:
                                         make_eval_step, make_train_step)
     from repro_torch.train.svr_step import (init_svr_train_state,
                                             make_svr_train_step)
+    import_s = time.perf_counter() - t_import
+    t_import = time.perf_counter()
+    import torch._dynamo  # noqa: F401
+    dynamo_import_s = time.perf_counter() - t_import
     ap = argparse.ArgumentParser()
     for flag in ("--out", "--coordinator", "--go"):
         ap.add_argument(flag, required=True)
@@ -3439,11 +3573,18 @@ def lm_worker(argv) -> int:
     dev = mesh.device
     sync = lambda: torch.cuda.synchronize(dev)
     rec = dict(rank=rank, wire=mesh.wire, device=str(dev),
+               import_seconds=import_s, dynamo_import_seconds=dynamo_import_s,
                card_free_gb_at_start=torch.cuda.mem_get_info(dev)[0] / 2**30)
+    counts = (fa_ops.LAUNCHES, wkv_ops.LAUNCHES)
 
     def zero_counts():
-        for name in fa_ops.LAUNCHES:
-            fa_ops.LAUNCHES[name] = 0
+        for launches in counts:
+            for name in launches:
+                launches[name] = 0
+
+    def read_counts() -> dict:
+        return {name: n for launches in counts
+                for name, n in launches.items()}
 
     # -- the reduced float32 config on the card and on the CPU -------------
     t0 = time.perf_counter()
@@ -3452,6 +3593,7 @@ def lm_worker(argv) -> int:
                            hyper=BilevelHyper(**LM_REDUCED_HYPER))
     rtokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, rcfg.vocab_size, (agents, 4, 32)))
+    rprefix = lm_prefix(rcfg, agents, range(agents), 0, 4)
     host0 = init_train_state(rcfg, 0, device="cpu")
     finals = {}
     for where in ("cuda", "cpu"):
@@ -3460,43 +3602,50 @@ def lm_worker(argv) -> int:
                         torch.device("cpu"), "gloo"))
         state = tree.tree_map(lambda l: l.to(on.device) if isinstance(
             l, torch.Tensor) else l, host0)
-        step = make_train_step(rcfg, on, ricfg)
+        step = make_train_step(rcfg, on, ricfg,
+                               with_prefix=rprefix is not None)
         for _ in range(2):
-            state, _ = step(state, rtokens)
+            state, _ = step(state, rtokens, None if rprefix is None
+                            else torch.as_tensor(rprefix))
         finals[where] = tree.tree_map(lambda l: l.cpu(), (state.x, state.u))
     rec["card_vs_cpu"] = dict(
         x_gap=_rel_leaf_gap(torch, finals["cuda"][0], finals["cpu"][0]),
         u_gap=_rel_leaf_gap(torch, finals["cuda"][1], finals["cpu"][1]),
-        seconds=time.perf_counter() - t0)
+        prefix=rprefix is not None, seconds=time.perf_counter() - t0)
 
     # -- (a) INTERACT at the published widths, cut as stated -------------
     cfg = dataclasses.replace(get_config(arch), **run["cut"])
     specs = cfg.layer_pattern() * (cfg.num_layers
                                    // len(cfg.layer_pattern()))
     rec["attn_layers"] = sum(s.mixer == "attn" for s in specs)
+    rec["rwkv_layers"] = sum(s.mixer == "rwkv" for s in specs)
     rec["moe_layers"] = sum(s.ffn == "moe" for s in specs)
     icfg = InteractConfig(alpha=LM_ALPHA, beta=LM_BETA,
                           hyper=BilevelHyper(**LM_HYPER))
     stream = TokenTaskStream(cfg.vocab_size, agents, seed=7)
     batch = lambda t: stream.agent_batch(rank, t, LM_BATCH, LM_SEQ,
                                          device=dev)[None]
+    with_prefix = bool(cfg.num_prefix_tokens)
+    prefix = lambda t: (torch.as_tensor(lm_prefix(
+        cfg, agents, [rank], t, LM_BATCH), device=dev) if with_prefix
+        else None)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     state = init_train_state(cfg, 0, device=dev)
-    step = make_train_step(cfg, mesh, icfg)
+    step = make_train_step(cfg, mesh, icfg, with_prefix=with_prefix)
     sync()
     init_s = time.perf_counter() - t0
     zero_counts()
     steps, routes, dropped = [], [], []
     for t in range(run["interact_steps"]):
         t0 = time.perf_counter()
-        call = lambda: step(state, batch(t))
+        call = lambda: step(state, batch(t), prefix(t))
         if t == 0:
             # the warm-up step's moe calls: each layer's forward, its
             # recompute in the backward pass, the inner features, the cross
             # term's forward and its recompute
             call = lambda: moe_drop_shares(torch, lambda: step(
-                state, batch(0)), routes)
+                state, batch(0), prefix(0)), routes)
         out, mixes = timed_mixes(torch, dev, call)
         if t == 0:
             out, dropped = out
@@ -3507,14 +3656,15 @@ def lm_worker(argv) -> int:
         steps.append(dict(row, seconds=time.perf_counter() - t0,
                           mix_seconds=sum(mixes), mixes=len(mixes)))
     rec["interact"] = dict(
-        steps=steps, init_seconds=init_s, launches=dict(fa_ops.LAUNCHES),
+        steps=steps, init_seconds=init_s, launches=read_counts(),
+        prefix=with_prefix,
         peak_bytes=torch.cuda.max_memory_allocated(dev),
         peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
         params=sum(l.numel() for l in tree.tree_leaves(state.x)),
         head=state.y[0].numel(), digest=state_digest(torch, state),
         moe_routes=routes, moe_dropped=dropped)
 
-    # -- (c) the eval step, plain attention and the flash kernel ----------
+    # -- (c) the eval step, the plain versions and the kernels -----------
     evals = []
     for impl in ("reference", "cuda", "cuda"):
         ev = make_eval_step(cfg, mesh, dataclasses.replace(
@@ -3525,11 +3675,13 @@ def lm_worker(argv) -> int:
         sync()
         evals.append(dict(impl=impl, outer_ce=ce,
                           seconds=time.perf_counter() - t0,
-                          launches=dict(fa_ops.LAUNCHES)))
+                          launches=read_counts()))
     rec["eval"] = evals
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
+    if rec["rwkv_layers"]:
+        rec["rwkv_loop"] = rwkv_loop_seconds(torch, cfg, dev)
 
     # -- (b) SVR-INTERACT from the initial state ---------------------------
     if run["svr_steps"]:
@@ -3549,8 +3701,10 @@ def lm_worker(argv) -> int:
         finite = all(bool(torch.isfinite(l).all())
                      for l in tree.tree_leaves((state.x, state.y, state.u)))
         rec["svr"] = dict(steps=steps, state_finite=finite,
-                          launches=dict(fa_ops.LAUNCHES),
+                          launches=read_counts(),
                           peak_bytes=torch.cuda.max_memory_allocated(dev),
+                          peak_reserved_bytes=torch.cuda.max_memory_reserved(
+                              dev),
                           digest=state_digest(torch, state))
     rec["seconds"] = time.perf_counter() - t_phase
     (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
@@ -3565,11 +3719,12 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
     ranks = [json.loads((root / f"rank{r}.json").read_text())
              for r in range(run["agents"])]
     what = f"lm training {arch}"
+    tol = run.get("card_cpu_tol", LM_CARD_CPU_TOL)
     for rec in ranks:
         gap = max(rec["card_vs_cpu"]["x_gap"], rec["card_vs_cpu"]["u_gap"])
-        check(gap <= LM_CARD_CPU_TOL, f"{what} rank {rec['rank']}: the "
-              f"card is {gap:.3e} from the CPU (x and u, reduced config), "
-              f"beyond {LM_CARD_CPU_TOL}")
+        check(gap <= tol, f"{what} rank {rec['rank']}: the card is "
+              f"{gap:.3e} from the CPU (x and u, reduced config), beyond "
+              f"{tol}")
     names = ("interact", "svr") if run["svr_steps"] else ("interact",)
     for name in names:
         rows = [[{k: v for k, v in s.items() if "seconds" not in k}
@@ -3604,10 +3759,13 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
         ref, *kernel = rec["eval"]
         check(sum(ref["launches"].values()) == 0, f"{what} eval reference "
               f"launched {ref['launches']}")
+        # each cuda call: the bf16 flash kernel once an attention layer,
+        # WKV6 once an rwkv layer, nothing else
         n = rec["attn_layers"]
+        want = dict(flash_attention=n, flash_attention_tc=n,
+                    flash_attention_f32_split=0, flash_attention_f32=0,
+                    wkv6=rec["rwkv_layers"])
         for call in kernel:
-            want = dict(flash_attention=n, flash_attention_tc=n,
-                        flash_attention_f32_split=0, flash_attention_f32=0)
             check(call["launches"] == want, f"{what} eval rank "
                   f"{rec['rank']}: the cuda call launched "
                   f"{call['launches']}, not {want}")
@@ -3627,6 +3785,9 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
             for rec in ranks)
     s_per_step = per_step("interact", "seconds")
     ev = ranks[0]["eval"]
+    eval_launches = {name: sum(e["launches"][name] for rec in ranks
+                               for e in rec["eval"])
+                     for name in ev[0]["launches"]}
     summary = dict(
         arch=arch, cut=run["cut"], agents=run["agents"],
         wire=ranks[0]["wire"], card=card,
@@ -3648,19 +3809,34 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
               for i, e in enumerate(ev)},
         eval_rel_gap=max(abs(e["outer_ce"] - ev[0]["outer_ce"])
                          / abs(ev[0]["outer_ce"]) for e in ev[1:]),
-        eval_flash_launches=sum(e["launches"]["flash_attention_tc"]
-                                for rec in ranks for e in rec["eval"]),
+        eval_launches={k: n for k, n in eval_launches.items() if n},
         card_vs_cpu=[rec["card_vs_cpu"] for rec in ranks],
+        card_vs_cpu_tol=tol, prefix=ranks[0]["interact"]["prefix"],
+        import_seconds=[rec["import_seconds"] for rec in ranks],
+        dynamo_import_seconds=[rec["dynamo_import_seconds"]
+                               for rec in ranks],
         init_seconds=[rec["interact"]["init_seconds"] for rec in ranks],
         card_free_gb_at_start=[rec["card_free_gb_at_start"]
                                for rec in ranks],
         peak_gb=[dict(interact=rec["interact"]["peak_bytes"] / 2**30,
                       interact_reserved=(rec["interact"]["peak_reserved_bytes"]
                                          / 2**30),
-                      **({"svr": rec["svr"]["peak_bytes"] / 2**30}
+                      **({"svr": rec["svr"]["peak_bytes"] / 2**30,
+                          "svr_reserved": (rec["svr"]["peak_reserved_bytes"]
+                                           / 2**30)}
                          if run["svr_steps"] else {}))
                  for rec in ranks],
         worker_seconds=[rec["seconds"] for rec in ranks])
+    if "rwkv_loop" in ranks[0]:
+        # an INTERACT step runs the loop 5 times a layer: the outer loss's
+        # checkpointed forward and its recompute with the backward, the
+        # inner features (no autograd), the cross term's forward and its
+        # recompute with the backward
+        loop = dict(ranks[0]["rwkv_loop"])
+        loop["interact_step_s"] = ranks[0]["rwkv_layers"] * (
+            3 * loop["forward_s"] + 2 * loop["forward_backward_s"])
+        loop["interact_share"] = loop["interact_step_s"] / s_per_step
+        summary["rwkv_loop"] = loop
     if run["svr_steps"]:
         summary.update(
             svr_steps=ranks[0]["svr"]["steps"],
@@ -3670,38 +3846,83 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
     return summary
 
 
-def run_lm_training(torch, phase: str = "lm") -> dict:
-    """Phase 4h or 4k (see the module docstring; ``phase`` a key of
-    ``LM_PHASE_RUNS``): each run's worker processes of this script on the
-    card in turn, started through the localhost launcher's
-    ``launch_workers`` (their errors go to this script's), gated here on
-    their records."""
+def run_lm_training(torch, *phases: str, gate=None) -> dict:
+    """Phases 4h, 4k and 4l (see the module docstring; ``phases`` keys
+    of ``LM_PHASE_RUNS``, every one when none is given): the runs of each
+    phase in turn, each run's worker processes of this script on the card,
+    started through the localhost launcher's ``launch_workers`` (their
+    errors go to this script's), gated here on their records.  A run's
+    processes start while the run before it trains, import meanwhile, and
+    join their group only once that run has ended and passed its gates
+    (``launch_workers``' ``prepare``), so that no two runs use the card at
+    once; the first run's join only once ``gate()`` has returned.  Returns
+    each phase's runs, seconds (its runs' walls, each from the end of the
+    run before it or from the gate) and eval launches."""
     import shutil
+    import threading
 
     from repro_torch.launch.launch_local import launch_workers
 
-    t_phase = time.perf_counter()
     card = gpu_name_and_power_limit()
-    root = ROOT / "build" / phase
+    phases = phases or tuple(LM_PHASE_RUNS)
+    root = ROOT / "build" / "lm_training"
     shutil.rmtree(root, ignore_errors=True)
-    runs = {}
-    for arch in LM_PHASE_RUNS[phase]:
-        t0 = time.perf_counter()
-        failed = launch_workers(
+    order = [(phase, arch) for phase in phases
+             for arch in LM_PHASE_RUNS[phase]]
+    # set when a run has ended, with whether it passed
+    ended = [threading.Event() for _ in order]
+    passed = [False] * len(order)
+
+    t_go = []
+
+    def first() -> None:
+        if gate is not None:
+            gate()
+        t_go.append(time.perf_counter())
+
+    def after(i: int) -> None:
+        ended[i].wait()
+        check(passed[i], f"lm training {order[i][1]} failed: "
+              f"{order[i + 1][1]} does not start")
+
+    def launch(i: int, arch: str) -> list:
+        return launch_workers(
             str(ROOT / "chip_smoke.py"), ["--lm-worker", "--run", arch],
             LM_RUNS[arch]["agents"], str(root / arch / "result.json"),
-            LM_TIMEOUT)
-        check(not failed, f"lm training {arch}: failed workers (rank, exit "
-              f"code) {failed}; their errors are above")
-        runs[arch] = summary = lm_run_summary(arch, root / arch, card)
-        summary["wall_seconds"] = time.perf_counter() - t0
-        print(f"lm training {arch}: {json.dumps(summary)}", flush=True)
-    seconds = time.perf_counter() - t_phase
-    print(f"lm training phase {phase}: {seconds:.1f} s", flush=True)
+            LM_TIMEOUT, prepare=(lambda: after(i - 1)) if i else first)
+
+    out = {phase: dict(runs={}, seconds=0.0) for phase in phases}
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(launch, i, arch)
+                   for i, (_, arch) in enumerate(order)]
+        try:
+            for i, (phase, arch) in enumerate(order):
+                failed = futures[i].result()
+                check(not failed, f"lm training {arch}: failed workers "
+                      f"(rank, exit code) {failed}; their errors are above")
+                summary = lm_run_summary(arch, root / arch, card)
+                t_end = time.perf_counter()
+                summary["wall_seconds"] = t_end - (t_go[0] if i == 0
+                                                   else t_last)
+                t_last = t_end
+                out[phase]["runs"][arch] = summary
+                out[phase]["seconds"] += summary["wall_seconds"]
+                print(f"lm training {arch}: {json.dumps(summary)}",
+                      flush=True)
+                passed[i] = True
+                ended[i].set()
+        finally:
+            for future in futures:    # the runs not yet started
+                future.cancel()
+            for event in ended:
+                event.set()
+    for phase, rec in out.items():
+        rec["eval_launches"] = {a: r["eval_launches"]
+                                for a, r in rec["runs"].items()}
+        print(f"lm training phase {phase}: {rec['seconds']:.1f} s",
+              flush=True)
     shutil.rmtree(root, ignore_errors=True)
-    return dict(runs=runs, seconds=seconds,
-                eval_flash_launches={a: r["eval_flash_launches"]
-                                     for a, r in runs.items()})
+    return out
 
 
 def profile_steps(torch, solver, state, data, steps: int = 3) -> dict:
@@ -3756,25 +3977,37 @@ WORKER_PHASES = {
     "distributed": lambda torch, ops: {
         k: v for k, v in run_distributed(torch).items()
         if k in ("layouts", "seconds")},
-    **{phase: lambda torch, ops, phase=phase: {
-        k: v for k, v in run_lm_training(torch, phase).items()
-        if k in ("eval_flash_launches", "seconds")}
-       for phase in LM_PHASE_RUNS},
 }
 
 
 def phase_worker(argv) -> int:
-    """``--phase-worker OUT PHASE...``: runs the named phases of
+    """``--phase-worker OUT PHASE...``: imports what it needs, waits for
+    the main process's go file (``OUT.go``), then runs the named phases of
     ``WORKER_PHASES`` in turn, the consensus counts set to 0 just before
-    each, and writes what the main process reads of them to OUT as JSON.
-    The kernel libraries are the ones the main process built."""
+    each, or the LM training phases (keys of ``LM_PHASE_RUNS``, which
+    launch no consensus kernel) as one ``run_lm_training``, whose first
+    run's processes import before the go, and writes what the main
+    process reads of them to OUT as JSON.  The kernel libraries are the
+    ones the main process built."""
     out, *names = argv
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels.consensus_step import ops
+    from repro_torch.launch.launch_local import _await_go
+    gate = lambda: _await_go(out + ".go", PHASE_WORKER_TIMEOUT)
     results = {}
+    lm = [name for name in names if name in LM_PHASE_RUNS]
+    if lm:
+        results.update({phase: {k: rec[k] for k in ("eval_launches",
+                                                     "seconds")}
+                        for phase, rec in run_lm_training(
+                            torch, *lm, gate=gate).items()})
+    else:
+        gate()
     for name in names:
+        if name in lm:
+            continue
         for kernel in ops.LAUNCHES:
             ops.LAUNCHES[kernel] = 0
         results[name] = WORKER_PHASES[name](torch, ops)
@@ -3785,8 +4018,10 @@ def phase_worker(argv) -> int:
 def start_phase_workers() -> list:
     """One ``--phase-worker`` process for each group of ``PHASE_GROUPS``,
     each in a session of its own (so that ``stop_phase_workers`` stops the
-    processes it starts too), its output to a log under the git-ignored
-    ``build/phase_workers/``."""
+    processes it starts too, at the latest when this process exits), its
+    output to a log under the git-ignored ``build/phase_workers/``.  They
+    import, and wait for ``release_phase_workers``."""
+    import atexit
     import shutil
     root = ROOT / "build" / "phase_workers"
     shutil.rmtree(root, ignore_errors=True)
@@ -3800,7 +4035,14 @@ def start_phase_workers() -> list:
                  "--phase-worker", str(out), *names],
                 stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
         workers.append(dict(names=names, proc=proc, log=log, out=out))
+    atexit.register(stop_phase_workers, workers)
     return workers
+
+
+def release_phase_workers(workers: list) -> None:
+    """Lets the workers run their phases (their go files)."""
+    for w in workers:
+        Path(f"{w['out']}.go").touch()
 
 
 def finish_phase_workers(workers: list, started: float) -> dict:
@@ -3887,6 +4129,9 @@ def main() -> int:
     wkv = check_wkv6(torch)
     phase_seconds["kernels"] = time.perf_counter() - t0
     t_main = time.perf_counter()
+    # the phase workers (4e-4h, 4k, 4l) import beside 4 and 4b, and start
+    # their phases once 4b's profiles are taken
+    workers = start_phase_workers()
 
     # -- the INTERACT path: counts to 0 just before, read just after -------
     cfg = dict(algo="interact", alpha=0.3, beta=0.3)
@@ -3980,11 +4225,11 @@ def main() -> int:
     phase_seconds["main_path_algorithms_profiles"] = (
         time.perf_counter() - t_main)
 
-    # -- phases 4e-4h in worker processes (sweeps; resilience; across
-    # processes; LM training), each worker's counts set to 0 just before
-    # each of its phases and read just after, beside 4c-4d here
+    # -- phases 4e-4h, 4k and 4l in worker processes (sweeps; resilience;
+    # across processes; LM training), each worker's counts set to 0 just
+    # before each of its phases and read just after, beside 4c-4d here
     t0 = time.perf_counter()
-    workers = start_phase_workers()
+    release_phase_workers(workers)
     try:
         # -- the compressed wire and the time-varying topologies ----------
         wire = run_wire(torch, ops)
@@ -3993,7 +4238,7 @@ def main() -> int:
         byzantine = run_byzantine(torch, ops)
         phase_seconds["wire_byzantine"] = time.perf_counter() - t0
 
-        # what this process keeps cached leaves the card to phase 4k
+        # what this process keeps cached leaves the card to the LM phases
         torch.cuda.empty_cache()
         done = finish_phase_workers(workers, t0)
     finally:
@@ -4005,8 +4250,7 @@ def main() -> int:
     sweep_wrapper = sweeps["wrapper"]
     distributed = done["distributed"]
     lm_eval_launches = {arch: n for phase in LM_PHASE_RUNS
-                        for arch, n in done[phase][
-                            "eval_flash_launches"].items()}
+                        for arch, n in done[phase]["eval_launches"].items()}
 
     # -- mamba and moe serving: counts to 0 just before each model's run --
     t0 = time.perf_counter()
@@ -4071,6 +4315,8 @@ def main() -> int:
                           "M, u)" if name == "consensus_step"
                           else "matmul(M, x)"),
             shape=main["shape"], large=timings[name]["large"],
+            bfloat16={shape: timings[name][shape + "_bf16"]
+                      for shape in ("main", "large")},
             ptxas={k: v for k, v in ptxas.items() if name in k}))
     for name in REPLACES:
         main = batched_timings[name]
@@ -4196,10 +4442,12 @@ def main() -> int:
         replaces=FLASH_REPLACES, dtype="bfloat16",
         launches=serving[("gemma2-2b", "bfloat16")]["launches"][
             "flash_attention_tc"],
-        launches_lm_eval=lm_eval_launches,
+        launches_lm_eval={arch: n["flash_attention_tc"]
+                          for arch, n in lm_eval_launches.items()
+                          if "flash_attention_tc" in n},
         launches_lm_eval_from=(
-            "phases 4h and 4k: make_eval_step(attn_impl='cuda'), 2 calls "
-            "on each agent's process of each run (agents: "
+            "phases 4h, 4k and 4l: make_eval_step(attn_impl='cuda'), 2 "
+            "calls on each agent's process of each run (agents: "
             f"{ {arch: run['agents'] for arch, run in LM_RUNS.items()} }), "
             "one launch an attention layer each"),
         max_abs_err=flash["err"]["bfloat16"],
@@ -4215,11 +4463,19 @@ def main() -> int:
         **at_shapes("", ("shape", "window", "ms", "plain_ms", "bound_ms",
                          "bound_by", "library_ms", "library_call"),
                     ("jamba", "mixtral", "paligemma", "musicgen",
-                     "smollm_train", "mixtral_train", "jamba_train"))))
-    main = wkv["timing"]
+                     "smollm_train", "mixtral_train", "jamba_train",
+                     "gemma2_train", "paligemma_train"))))
+    main = wkv["timings"]["main"]
     kernels.append(dict(
         name="wkv6", route="cuda", source=WKV_SOURCE, replaces=WKV_REPLACES,
         launches=serving[("rwkv6-3b", "float32")]["launches"]["wkv6"],
+        launches_lm_eval={arch: n["wkv6"]
+                          for arch, n in lm_eval_launches.items()
+                          if "wkv6" in n},
+        launches_lm_eval_from=(
+            "phase 4l: make_eval_step(attn_impl='cuda'), 2 calls, one "
+            "launch an rwkv layer each"),
+        at_rwkv6_train=wkv["timings"]["rwkv6_train"],
         max_abs_err=wkv["err"]["float32"],
         max_abs_err_bf16=wkv["err"]["bfloat16"],
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],

@@ -6,14 +6,16 @@ Joins a gloo group of WORLD processes on the CPU and makes each run of
 the JSON list in RUNS (``{"name", "backend", "algo", "setup",
 "num_agents"}``): the port's ``run_section6`` with ``SETTINGS``, on the
 host instance pickled at ``setup`` (``(x0, y0, data)`` as numpy, the JAX
-package's) or, where it is null, on the port's ``default_setup``.  Each
-result goes to ``OUT/<name>.rank<RANK>.json``.
+package's; a run waits until the file is there) or, where it is null,
+on the port's ``default_setup``.  Each result goes to
+``OUT/<name>.rank<RANK>.json``.
 """
 from __future__ import annotations
 
 import json
 import pickle
 import sys
+import time
 from pathlib import Path
 
 # the run both packages make: tests/test_distributed.py's small settings
@@ -33,6 +35,11 @@ def main(world: int, rank: int, port: int, runs: str, out: str) -> None:
     for run in json.loads(Path(runs).read_text()):
         setup = None
         if run["setup"] is not None:
+            deadline = time.monotonic() + 300
+            while not Path(run["setup"]).exists():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{run['setup']} was not written")
+                time.sleep(0.05)
             with open(run["setup"], "rb") as f:
                 setup = pickle.load(f)
         settings = dict(SETTINGS, num_agents=run["num_agents"])

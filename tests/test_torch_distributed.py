@@ -1,14 +1,15 @@
 """The port's multi-process Section-6 run against the JAX package's.
 
-The JAX package's ``run_section6`` runs in a subprocess on 8 forced host
-devices (one process, as tests/test_distributed.py runs it) with
-``allgather`` and with ``ppermute``, at tests/test_distributed.py's small
+The JAX package's ``run_section6`` runs on 8 forced host devices (one
+process a run, as tests/test_distributed.py runs it), with ``allgather``
+and with ``ppermute`` in two subprocesses side by side, at tests/test_distributed.py's small
 settings (m = 8, n = 24 an agent, 4 steps recorded every 2, 20 inner
 metric steps); its instance ``(x0, y0, data)`` is handed to the port's
 ``run_section6`` through ``setup=`` (the port's ``default_setup`` draws
 other numbers).  The port runs in two layouts of real gloo groups on the
 CPU, one subprocess a rank, each with a timeout: ``allgather`` with 2
-processes x 4 agents and ``ppermute`` with 8 processes x 1 agent.
+processes x 4 agents (the group of 2 that runs the other algorithms
+makes it last) and ``ppermute`` with 8 processes x 1 agent.
 
 Held: measured, broadcast-priced and per-link-priced bytes exactly the
 JAX package's; the eq.-11 traces within ``TRACE_RTOL`` = steps x 2e-6
@@ -28,6 +29,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import numpy as np
@@ -57,7 +59,7 @@ JAX_KEYS = ("backend", "num_agents", "num_processes", "num_devices",
 OTHER_ALGOS = ("svr-interact", "gt-dsgd", "d-sgd")
 
 _JAX = textwrap.dedent("""
-    import json, pickle, sys
+    import json, os, pickle, sys
     import jax, numpy as np
     sys.path.insert(0, TESTS)
     import _torch_section6_worker as S
@@ -67,13 +69,13 @@ _JAX = textwrap.dedent("""
     _, x0, y0, data = default_setup(
         cfg["seed"], num_agents=cfg["num_agents"],
         n_per_agent=cfg["n_per_agent"], d_in=8, hidden=8, classes=3)
-    host = jax.tree_util.tree_map(np.asarray, (x0, y0, data))
-    with open(OUT + "/setup.pkl", "wb") as f:
-        pickle.dump(host, f)
-    results = {b: run_section6(backend=b, **cfg)
-               for b in ("allgather", "ppermute")}
-    with open(OUT + "/jax.json", "w") as f:
-        json.dump(results, f)
+    if BACKEND == "allgather":
+        host = jax.tree_util.tree_map(np.asarray, (x0, y0, data))
+        with open(OUT + "/setup.pkl.tmp", "wb") as f:
+            pickle.dump(host, f)
+        os.replace(OUT + "/setup.pkl.tmp", OUT + "/setup.pkl")
+    with open(OUT + f"/jax_{BACKEND}.json", "w") as f:
+        json.dump(run_section6(backend=BACKEND, **cfg), f)
     print("JAX_SECTION6_OK")
 """)
 
@@ -156,39 +158,67 @@ def _dense_trace(setup: Path | None, algo: str = "interact",
 OTHER_LAYOUTS = {"allgather": 2, "ppermute": 4}
 
 
+def _await_file(path: Path, proc) -> None:
+    """Wait until ``proc`` has written ``path`` (at most ``TIMEOUT`` s);
+    fail if it exits first."""
+    deadline = time.monotonic() + TIMEOUT
+    while not path.exists():
+        assert proc.poll() is None or path.exists(), (
+            f"{path} was not written: {proc.stderr.read()[-3000:]}")
+        assert time.monotonic() < deadline, f"{path}: no file in {TIMEOUT} s"
+        time.sleep(0.05)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The JAX package's two runs, the port's two layouts (every rank's
     result) and the other algorithms' groups, and the port's dense
-    traces, each made once."""
+    traces, each made once.  The port's layouts start once the JAX
+    process has written its instance, beside its runs; the dense traces
+    are made here while the groups run."""
     root = tmp_path_factory.mktemp("section6")
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    jax_proc = subprocess.Popen(
+    # one process a backend; the allgather one writes the instance first
+    jax_procs = [subprocess.Popen(
         [sys.executable, "-c",
-         f"TESTS = {str(TESTS)!r}\nOUT = {str(root)!r}\n" + _JAX],
+         f"TESTS = {str(TESTS)!r}\nOUT = {str(root)!r}\n"
+         f"BACKEND = {backend!r}\n" + _JAX],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for backend in sorted(LAYOUTS)]
     others = root / "others"
+    setup = root / "setup.pkl"
+    main = {backend: dict(name=backend, backend=backend, algo="interact",
+                          setup=str(setup),
+                          num_agents=S.SETTINGS["num_agents"])
+            for backend in LAYOUTS}
+    # a group of the same size makes its layout's run after the other
+    # algorithms' (its ranks wait for the JAX package's instance)
+    shared = {b for b in LAYOUTS if LAYOUTS[b] == OTHER_LAYOUTS[b]}
     procs = [p for backend, world in OTHER_LAYOUTS.items()
              for p in _group(world, [dict(name=f"{backend}-{algo}",
                                           backend=backend, algo=algo,
                                           setup=None, num_agents=4)
-                                     for algo in OTHER_ALGOS], others)]
-    _wait_all([jax_proc] + procs)
-    setup = root / "setup.pkl"
-    procs = [p for backend, world in LAYOUTS.items()
-             for p in _group(world, [dict(
-                 name=backend, backend=backend, algo="interact",
-                 setup=str(setup), num_agents=S.SETTINGS["num_agents"])],
-                 root / backend)]
-    _wait_all(procs)
+                                     for algo in OTHER_ALGOS]
+                             + [main[backend]] * (backend in shared),
+                             others)]
+    try:
+        _await_file(setup, jax_procs[0])
+        procs += [p for backend, world in LAYOUTS.items()
+                  if backend not in shared
+                  for p in _group(world, [main[backend]], root / backend)]
+        dense = _dense_trace(setup)
+        dense_others = {a: _dense_trace(None, a, 4) for a in OTHER_ALGOS}
+    finally:
+        _wait_all(jax_procs + procs)
     return dict(
-        jax=json.loads((root / "jax.json").read_text()),
-        port={b: _results(root / b, b, w) for b, w in LAYOUTS.items()},
+        jax={b: json.loads((root / f"jax_{b}.json").read_text())
+             for b in LAYOUTS},
+        port={b: _results(others if b in shared else root / b, b, w)
+              for b, w in LAYOUTS.items()},
         others={(b, a): _results(others, f"{b}-{a}", w)[0]
                 for b, w in OTHER_LAYOUTS.items() for a in OTHER_ALGOS},
-        dense=_dense_trace(setup),
-        dense_others={a: _dense_trace(None, a, 4) for a in OTHER_ALGOS})
+        dense=dense, dense_others=dense_others)
 
 
 def _rel(a, b) -> float:

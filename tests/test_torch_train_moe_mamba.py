@@ -1,15 +1,18 @@
-"""The INTERACT and SVR-INTERACT train steps of the MoE and hybrid models
-against the JAX package.
+"""The INTERACT and SVR-INTERACT train steps of the MoE, hybrid, dense
+and RWKV models against the JAX package.
 
 Reduced mixtral-8x7b (the moe ffn's capacity route and its aux in the
-outer loss) and jamba-1.5-large (an attention layer with a dense ffn,
-then a mamba layer with a moe ffn), as ``ArchConfig.reduced`` makes them
+outer loss), jamba-1.5-large (an attention layer with a dense ffn, then
+a mamba layer with a moe ffn), gemma2-2b (local and global attention
+layers, the attention and final softcaps) and rwkv6-3b (the WKV6
+recurrence as a token loop under autograd), as ``ArchConfig.reduced``
+makes them
 at chip_smoke.py's ``LM_REDUCED`` (vocab 128, 2 layers, float32), with
 tests/test_torch_train.py's settings (``BilevelHyper(mu_g=0.5,
 neumann_k=2, lipschitz_g=4.0, ce_chunk=16)``, alpha 0.05, beta 0.3, 4 x
 32 tokens an agent).  The port's one-agent steps run with ``remat`` on,
 as the card's runs have it, so each layer, its capacity route and its
-scan are recomputed in the backward pass; the reference's
+scan or token loop are recomputed in the backward pass; the reference's
 ``local_grads`` runs without it (one compile an arch serves every case;
 on and off give the same gradients within rounding,
 tests/test_torch_substrate.py).  The JAX ``init_train_state`` draws the
@@ -20,8 +23,8 @@ reference of tests/test_torch_train.py: the JAX ``local_grads`` and the
 mixing matrix, here in numpy.
 
 Held, relative to each leaf's max-abs scale in the reference (x and y
-within ``XY_TOL`` = 1e-5, u and v within ``UV_TOL`` = 1e-4; the metrics
-within 1e-5 relative):
+within ``XY_TOL`` = 1e-5, u and v within ``UV_TOL`` = 1e-4, rwkv6-3b's u
+and v within ``RWKV_UV_TOL`` = 5e-4; the metrics within 1e-5 relative):
 - one agent in this process (``AgentMesh.local(1)``): 2 INTERACT steps
   from the initial state, then 2 SVR-INTERACT steps with q = 3 (a
   refresh, then a recursive step) from the reference's state after 2
@@ -30,9 +33,11 @@ within 1e-5 relative):
   its settings: ``remat`` off), ``ring_mixing(2)``: 2 INTERACT steps and
   its 3 SVR-INTERACT steps;
 - ``make_eval_step`` at the initial state with ``attn_impl``
-  ``"reference"`` and ``"cuda"`` (the flash kernel's plain version on CPU
-  tensors) against the JAX ``outer_loss``, within 1e-5 relative.
-Also: chip_smoke.py's phase-4k cuts keep the published widths.
+  ``"reference"`` and ``"cuda"`` (the flash and WKV6 kernels' plain
+  versions on CPU tensors) against the JAX ``outer_loss``, within 1e-5
+  relative.
+Also: chip_smoke.py's phase-4k cuts keep the published widths, and its
+phase-4l runs train the published configs with nothing cut.
 The largest gaps are printed beside their bounds.
 """
 import collections
@@ -71,13 +76,22 @@ from repro_torch.train.svr_step import make_svr_train_step  # noqa: E402
 
 TESTS = Path(__file__).resolve().parent
 ROOT = TESTS.parent
-ARCHS = ["mixtral-8x7b", "jamba-1.5-large-398b"]
+ARCHS = ["mixtral-8x7b", "jamba-1.5-large-398b", "gemma2-2b", "rwkv6-3b"]
+# chip_smoke.py's cut runs (phase 4k) and its runs at full size (4l)
+CUT_ARCHS = ["mixtral-8x7b", "jamba-1.5-large-398b"]
+FULL_ARCHS = ["gemma2-2b", "rwkv6-3b", "paligemma-3b"]
 S = W.SETTINGS
 REDUCED = dict(vocab_size=S["vocab_size"], num_layers=S["num_layers"],
                dtype="float32")
 HYPER = dict(W.hyper_kwargs(), remat=True)
 INTERACT_STEPS, SVR_STEPS, Q = 2, 2, 3
 XY_TOL, UV_TOL, CE_RTOL = 1e-5, 1e-4, 1e-5
+# Reduced rwkv6-3b's hypergradient is ill-conditioned in exact arithmetic:
+# in float64 a relative 1e-6 change of x moves layer 1's bonus-u entry of
+# p by 4.2e-4 of its scale, and at one point the JAX package's float32 p
+# is 2.3e-5 from float64 there, the port's 5.7e-5; after two INTERACT
+# steps, whose x agree within 8.3e-6, u and p_prev differ by 1.7e-4
+RWKV_UV_TOL = 5e-4
 TIMEOUT = 240
 FIELDS = ("x", "y", "u", "v", "p_prev")
 tmap = jax.tree_util.tree_map
@@ -187,11 +201,11 @@ def _gaps(got: dict, want: dict, cfg, agent: int) -> dict:
     return gaps
 
 
-def _assert_within(gaps: dict, what: str) -> None:
+def _assert_within(gaps: dict, what: str, uv_tol: float = UV_TOL) -> None:
     print(f"{what}: largest gaps {gaps} (x, y bound {XY_TOL}; u, v bound "
-          f"{UV_TOL})")
+          f"{uv_tol})")
     assert gaps["x"] < XY_TOL and gaps["y"] < XY_TOL, gaps
-    assert gaps["u"] < UV_TOL and gaps["v"] < UV_TOL, gaps
+    assert gaps["u"] < uv_tol and gaps["v"] < uv_tol, gaps
 
 
 def _one_agent(arch: str) -> dict:
@@ -278,7 +292,8 @@ def test_one_agent_steps_match_composed_reference(runs, arch, name):
     ref_states, ref_ces = run["ref"][name]
     got = run["got"][name]
     _assert_within(_gaps(got["state"], ref_states[-1], run["cfg"], 0),
-                   f"{arch} {name}, one agent")
+                   f"{arch} {name}, one agent",
+                   RWKV_UV_TOL if arch == "rwkv6-3b" else UV_TOL)
     assert got["state"]["t"] == ref_states[-1]["t"]
     assert [m["outer_ce"] for m in got["metrics"]] == pytest.approx(
         ref_ces, rel=CE_RTOL)
@@ -328,7 +343,7 @@ WIDTHS = ("d_model", "d_ff", "num_heads", "num_kv_heads", "head_dim",
           "experts_per_token", "sliding_window", "dtype")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", CUT_ARCHS)
 def test_phase_4k_cuts_keep_published_widths(arch):
     run = _chip_smoke().LM_RUNS[arch]
     published = j_get_config(arch)
@@ -344,3 +359,28 @@ def test_phase_4k_cuts_keep_published_widths(arch):
     else:
         assert mixers == {("attn", "moe")}
         assert cut.num_experts == published.num_experts
+
+
+# each run's cuda eval call: the bf16 flash kernel once an attention
+# layer, WKV6 once an rwkv layer: the published depths
+FULL_EVAL_LAUNCHES = {"gemma2-2b": ("attn", 26), "rwkv6-3b": ("rwkv", 32),
+                      "paligemma-3b": ("attn", 18)}
+
+
+@pytest.mark.parametrize("arch", FULL_ARCHS)
+def test_phase_4l_runs_keep_published_configs(arch):
+    smoke = _chip_smoke()
+    run = smoke.LM_RUNS[arch]
+    assert arch in smoke.LM_PHASE_RUNS["lm_dense_ssm_vlm"]
+    assert run["cut"] == {}
+    cfg = dataclasses.replace(get_config(arch), **run["cut"])
+    published = j_get_config(arch)
+    for field in dataclasses.fields(published):
+        assert getattr(cfg, field.name) == getattr(published, field.name), (
+            field.name)
+    mixer, layers = FULL_EVAL_LAUNCHES[arch]
+    assert sum(s.mixer == mixer for s in cfg.layer_pattern()
+               * (cfg.num_layers // len(cfg.layer_pattern()))) == layers
+    assert run["agents"] == 1 and run["interact_steps"] >= 2
+    # neither package's SVR step takes a prefix
+    assert bool(run["svr_steps"]) == (cfg.num_prefix_tokens == 0)
