@@ -293,9 +293,33 @@
    nothing else; no train step launches a kernel (the gradient paths run
    plain attention and the plain WKV6 token loop).  rwkv6's line also
    gives the token loop (``wkv6_ref``) timed alone at a split's shape
-   and its estimated share of an INTERACT step.  In 4h, 4k and 4l each
-   run's processes import (``torch._dynamo`` too) while the run before it
-   trains, across the phases.
+   and its estimated share of an INTERACT step.  In 4h, 4k, 4l and 4m
+   each run's processes import (``torch._dynamo`` too) while the run
+   before it trains, across the phases.
+4m. LM training in the pods layout (``LM_PHASE_RUNS["lm_pods"]``, after
+   4h in the LM worker): ``make_train_step(..., agent_mode="pods")``, an
+   agent a pod of processes, its state sharded over the pod
+   (``repro_torch.sharding.partition``), on a (2, 2, 1) process mesh
+   (``launch.mesh.make_production_mesh``, ``distributed.pods_mesh``): 2
+   agents x pods of 2, 4 processes on the card over gloo staged.  (a) The
+   float32 gate: reduced mixtral-8x7b (``LM_REDUCED``) at capacity factor
+   1.0, 2 INTERACT steps as pods and, from the same state and tokens, in
+   the rows layout on each rank's ring (2 processes, whole states): each
+   rank's shards within ``PODS_XY_TOL`` (x, y) and ``PODS_UV_TOL`` (u, v,
+   p_prev) of the rows state's slices, relative to each whole leaf's
+   scale; the pod's dropped slots, a moe call at a time, equal to the
+   rows agent's, and some dropped.  (b) smollm-360m at its published
+   config, nothing cut, bf16, 4h's settings: each process's state bytes
+   exactly the partition rule's (bf16 throughout), 2 INTERACT steps (the
+   first a warm-up) and 2 SVR-INTERACT steps with q = 2, metrics finite
+   and equal on every rank, no kernel launched; s/step with the pod's
+   collectives' seconds (gathers, reduce-scatters, all-reduces) and the
+   ring mixes' seconds in it, each timed between two synchronises;
+   SVR-INTERACT's recursive and refresh steps apart; tokens/s an agent;
+   peak memory beside 4h's rows peaks in the same call; digests.  (c) The state gathered over each pod,
+   the rows ``make_eval_step`` on each pod's data-0 rank (their ring) as
+   4h's: 32 bf16 flash launches a cuda call, CE within ``LM_EVAL_RTOL``
+   of plain attention.
 4i. Mamba and MoE serving (``MOE_MAMBA_RUNS``, the cuts printed on the
    phase's first line): mixtral-8x7b at its published widths (d_model
    4096, d_ff 14336, 8 experts top 2, 32 / 8 heads of 128, a 4096-token
@@ -620,11 +644,21 @@ LM_RUNS = {
     # neither package's SVR step takes a prefix
     "paligemma-3b": dict(cut={}, agents=1, interact_steps=2, svr_steps=0,
                          q=2),
+    # 4m: the pods layout (agent_mode="pods"): smollm-360m at its published
+    # config, nothing cut, as 2 agents each a pod of 2 processes (4 on the
+    # card over gloo staged), each agent's state sharded over its pod; 4h's
+    # settings.  Its float32 gate first: reduced mixtral-8x7b at capacity
+    # factor 1.0 (slots drop) as pods against the rows layout's 2 processes
+    "smollm-360m-pods": dict(arch="smollm-360m", cut={}, agents=2, pod=2,
+                             interact_steps=2, svr_steps=2, q=2,
+                             gate="mixtral-8x7b",
+                             gate_cut=dict(capacity_factor=1.0)),
 }
 # the runs of each LM training phase, in order: no two runs' processes
 # use the card at once (a run's processes start, and import, while the run
 # before it trains, and join their group once it has ended)
 LM_PHASE_RUNS = {"lm": ("smollm-360m",),
+                 "lm_pods": ("smollm-360m-pods",),
                  "lm_moe_mamba": ("mixtral-8x7b", "jamba-1.5-large-398b"),
                  "lm_dense_ssm_vlm": ("gemma2-2b", "rwkv6-3b",
                                       "paligemma-3b")}
@@ -654,6 +688,10 @@ LM_CARD_CPU_TOL = 1e-5
 # 4k's cuts); the random head keeps the CE near ln(vocab), so a looser
 # bound would pass a wrong attention output
 LM_EVAL_RTOL = 1e-4
+# phase 4m's float32 gate, the pods layout against the rows layout on the
+# card, relative to each whole leaf's scale (tests/test_torch_pods.py's
+# bounds against the JAX package)
+PODS_XY_TOL, PODS_UV_TOL = 1e-5, 1e-4
 # Phases 4e-4h, 4k and 4l run in worker processes of this script
 # (``--phase-worker``), one group of phases each, beside the main process's
 # 4c-4d: all are bound by the host, not the card, and no group takes
@@ -665,7 +703,7 @@ LM_EVAL_RTOL = 1e-4
 # the main process waits for them at most PHASE_WORKER_TIMEOUT seconds
 # from their start
 PHASE_GROUPS = (("sweep",), ("distributed", "resilience"),
-                ("lm_dense_ssm_vlm", "lm", "lm_moe_mamba"))
+                ("lm_dense_ssm_vlm", "lm", "lm_pods", "lm_moe_mamba"))
 PHASE_WORKER_TIMEOUT = 800
 # the row-block kernels' shapes, (rows, m, D) and the block's first row:
 # one agent of the main path's 5, and 4 rows of the large shape's 16
@@ -1709,33 +1747,38 @@ def check_wkv6(torch) -> dict:
     return dict(err=err, timings=timings)
 
 
-def moe_drop_shares(torch, run, routes: list | None = None):
+def moe_drop_shares(torch, run, routes: list | None = None,
+                    counts: list | None = None):
     """``(run(), shares)``: the share of token slots each call of the moe
     ffn's capacity route dropped during ``run()``, in call order (one a
     moe layer in a forward; a recompute in the backward pass calls again),
-    from ``capacity_routing`` on the ffn's own input.  ``routes``, where
-    given, gets each call's route: a digest of its experts, positions and
-    kept slots."""
+    from ``capacity_routing`` on the ffn's own input (on a pod: the pod's
+    route, this rank's share of the slots).  ``routes``, where given,
+    gets each call's route: a digest of its experts, positions and kept
+    slots; ``counts`` each call's dropped slots."""
     import hashlib
 
     from repro_torch.models import moe as Moe
     ffn, shares = Moe.moe_ffn, []
 
     def recording(params, x, *, num_experts, top_k, capacity_factor=1.25,
-                  token_chunk=None, expert_parallel=False):
+                  token_chunk=None, expert_parallel=False, pod=None):
         check(token_chunk is None, "moe_drop_shares: chunked routing")
         with torch.no_grad():
             r = Moe.capacity_routing(params, x.reshape(-1, x.shape[-1]),
                                      num_experts=num_experts, top_k=top_k,
-                                     capacity_factor=capacity_factor)
+                                     capacity_factor=capacity_factor,
+                                     pod=pod)
         shares.append(1.0 - float(r.keep.float().mean()))
+        if counts is not None:
+            counts.append(int(r.keep.numel() - r.keep.sum()))
         if routes is not None:
             kept = torch.cat([r.experts, r.positions, r.keep.long()])
             routes.append(hashlib.sha256(
                 kept.cpu().numpy().tobytes()).hexdigest()[:16])
         return ffn(params, x, num_experts=num_experts, top_k=top_k,
                    capacity_factor=capacity_factor,
-                   expert_parallel=expert_parallel)
+                   expert_parallel=expert_parallel, pod=pod)
 
     Moe.moe_ffn = recording
     try:
@@ -3508,6 +3551,16 @@ def rwkv_loop_seconds(torch, cfg, dev) -> dict:
                 forward_s=timed(False), forward_backward_s=timed(True))
 
 
+def lm_launches(counts, zero: bool = False) -> dict:
+    """The launch counts of the wrappers' ``LAUNCHES`` dicts in ``counts``
+    (the flash and WKV6 ops'), each set to 0 first where ``zero``."""
+    if zero:
+        for launches in counts:
+            for name in launches:
+                launches[name] = 0
+    return {name: n for launches in counts for name, n in launches.items()}
+
+
 def lm_worker(argv) -> int:
     """One agent of an LM training run (phases 4h, 4k and 4l):
     ``chip_smoke.py --lm-worker --run ARCH`` (a key of ``LM_RUNS``) with
@@ -3561,9 +3614,14 @@ def lm_worker(argv) -> int:
     agents = run["agents"]
     _await_go(args.go, LM_TIMEOUT)
     # the processes share the host's cores (the CPU run, the staging)
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // agents))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // (agents * run.get("pod", 1))))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counts = (fa_ops.LAUNCHES, wkv_ops.LAUNCHES)
+    if "pod" in run:
+        return lm_pods_worker(torch, args, counts, dict(
+            import_seconds=import_s, dynamo_import_seconds=dynamo_import_s))
     tree = torch.utils._pytree
     t_phase = time.perf_counter()
     D.initialize(D.DistributedConfig(
@@ -3575,16 +3633,6 @@ def lm_worker(argv) -> int:
     rec = dict(rank=rank, wire=mesh.wire, device=str(dev),
                import_seconds=import_s, dynamo_import_seconds=dynamo_import_s,
                card_free_gb_at_start=torch.cuda.mem_get_info(dev)[0] / 2**30)
-    counts = (fa_ops.LAUNCHES, wkv_ops.LAUNCHES)
-
-    def zero_counts():
-        for launches in counts:
-            for name in launches:
-                launches[name] = 0
-
-    def read_counts() -> dict:
-        return {name: n for launches in counts
-                for name, n in launches.items()}
 
     # -- the reduced float32 config on the card and on the CPU -------------
     t0 = time.perf_counter()
@@ -3635,7 +3683,7 @@ def lm_worker(argv) -> int:
     step = make_train_step(cfg, mesh, icfg, with_prefix=with_prefix)
     sync()
     init_s = time.perf_counter() - t0
-    zero_counts()
+    lm_launches(counts, zero=True)
     steps, routes, dropped = [], [], []
     for t in range(run["interact_steps"]):
         t0 = time.perf_counter()
@@ -3656,7 +3704,7 @@ def lm_worker(argv) -> int:
         steps.append(dict(row, seconds=time.perf_counter() - t0,
                           mix_seconds=sum(mixes), mixes=len(mixes)))
     rec["interact"] = dict(
-        steps=steps, init_seconds=init_s, launches=read_counts(),
+        steps=steps, init_seconds=init_s, launches=lm_launches(counts),
         prefix=with_prefix,
         peak_bytes=torch.cuda.max_memory_allocated(dev),
         peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
@@ -3669,13 +3717,13 @@ def lm_worker(argv) -> int:
     for impl in ("reference", "cuda", "cuda"):
         ev = make_eval_step(cfg, mesh, dataclasses.replace(
             icfg, hyper=BilevelHyper(**LM_HYPER, attn_impl=impl)))
-        zero_counts()
+        lm_launches(counts, zero=True)
         t0 = time.perf_counter()
         ce = float(ev(state, batch(run["interact_steps"])))
         sync()
         evals.append(dict(impl=impl, outer_ce=ce,
                           seconds=time.perf_counter() - t0,
-                          launches=read_counts()))
+                          launches=lm_launches(counts)))
     rec["eval"] = evals
     del state, step
     gc.collect()
@@ -3688,7 +3736,7 @@ def lm_worker(argv) -> int:
         torch.cuda.reset_peak_memory_stats(dev)
         state = init_svr_train_state(cfg, 0, device=dev)
         step = make_svr_train_step(cfg, mesh, icfg, q=run["q"])
-        zero_counts()
+        lm_launches(counts, zero=True)
         steps = []
         for t in range(run["svr_steps"]):
             t0 = time.perf_counter()
@@ -3701,7 +3749,7 @@ def lm_worker(argv) -> int:
         finite = all(bool(torch.isfinite(l).all())
                      for l in tree.tree_leaves((state.x, state.y, state.u)))
         rec["svr"] = dict(steps=steps, state_finite=finite,
-                          launches=read_counts(),
+                          launches=lm_launches(counts),
                           peak_bytes=torch.cuda.max_memory_allocated(dev),
                           peak_reserved_bytes=torch.cuda.max_memory_reserved(
                               dev),
@@ -3712,22 +3760,263 @@ def lm_worker(argv) -> int:
     return 0
 
 
-def lm_run_summary(arch: str, root: Path, card: str) -> dict:
-    """Gates one LM training run on its ranks' records (``lm_worker``'s)
-    and returns its summary."""
-    run = LM_RUNS[arch]
-    ranks = [json.loads((root / f"rank{r}.json").read_text())
-             for r in range(run["agents"])]
-    what = f"lm training {arch}"
-    tol = run.get("card_cpu_tol", LM_CARD_CPU_TOL)
-    for rec in ranks:
-        gap = max(rec["card_vs_cpu"]["x_gap"], rec["card_vs_cpu"]["u_gap"])
-        check(gap <= tol, f"{what} rank {rec['rank']}: the card is "
-              f"{gap:.3e} from the CPU (x and u, reduced config), beyond "
-              f"{tol}")
+def timed_pod_collectives(torch, dev, pod, run):
+    """``(run(), calls)``: ``run()`` with each collective of the pod's
+    ``AgentMesh`` (its gathers, reduce-scatters and all-reduces: the pods
+    layout's) timed on the host clock between two synchronises: a
+    (method name, seconds) pair for each call in it."""
+    from repro_torch.sharding.collectives import AgentMesh
+    names = ("all_gather", "all_reduce", "reduce_scatter_mean")
+    plain = {name: getattr(AgentMesh, name) for name in names}
+    seconds = []    # (name, seconds) a call
+
+    def timed(name):
+        def call(self, *a, **kw):
+            if self is not pod:
+                return plain[name](self, *a, **kw)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = plain[name](self, *a, **kw)
+            torch.cuda.synchronize(dev)
+            seconds.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    for name in names:
+        setattr(AgentMesh, name, timed(name))
+    try:
+        out = run()
+    finally:
+        for name in names:
+            setattr(AgentMesh, name, plain[name])
+    return out, seconds
+
+
+def pods_state_bytes_want(cfg, pod_size: int) -> dict:
+    """A process's state bytes in the pods layout by the partition rule
+    (x, u, p_prev in x's dtype, y and v in y's) beside the rows layout's,
+    and the backbone and head values a process holds."""
+    from torch.utils import _pytree as tree
+
+    from repro_torch.sharding import partition as P
+    x, y = P.x_shapes(cfg)
+    leaves = tree.tree_leaves(x)
+    dims = P.x_shard_dims(x, pod_size)
+    per_x = sum(l.numel() // (pod_size if d is not None else 1)
+                for l, d in zip(leaves, dims))
+    per_y = y.numel() // (pod_size if P.head_shard_dim(y, pod_size)
+                          is not None else 1)
+    item = leaves[0].element_size()
+    whole_x = sum(l.numel() for l in leaves)
+    return dict(backbone_values=per_x, head_values=per_y,
+                bytes=item * (3 * per_x + 2 * per_y),
+                rows_bytes=item * (3 * whole_x + 2 * y.numel()))
+
+
+def lm_pods_worker(torch, args, counts, rec: dict) -> int:
+    """One process of phase 4m (the module docstring): rank ``RANK`` of
+    the run's (agents, pod, 1) process mesh, on the card over gloo staged.
+    (a) the float32 gate, the pods layout against the rows layout on this
+    rank's ring; (b) INTERACT at full size, timed, with its collectives;
+    (c) the eval step on the state gathered to each pod's data-0 rank;
+    then SVR-INTERACT.  ``counts``: the kernels' launch counts
+    (``lm_launches``).  Writes ``DIR/rank<RANK>.json``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenTaskStream
+    from repro_torch.launch import distributed as D
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding import partition as P
+    from repro_torch.train.bilevel_lm import BilevelHyper
+    from repro_torch.train.step import (InteractConfig, PodLayout,
+                                        init_train_state, make_eval_step,
+                                        make_train_step)
+    from repro_torch.train.svr_step import (init_svr_train_state,
+                                            make_svr_train_step)
+    rank, out_dir = args.process_id, Path(args.out).parent
+    run = LM_RUNS[args.run]
+    agents, k = run["agents"], run["pod"]
+    tree = torch.utils._pytree
+    t_phase = time.perf_counter()
+    D.initialize(D.DistributedConfig(
+        coordinator=args.coordinator, num_processes=agents * k,
+        process_id=rank, wire="gloo", device="cuda", timeout_s=LM_TIMEOUT))
+    pm = D.pods_mesh(make_production_mesh(shape=(agents, k, 1)))
+    dev = pm.device
+    sync = lambda: torch.cuda.synchronize(dev)
+    rec.update(rank=rank, agent=pm.agent, data=pm.data_index, wire=pm.wire,
+               device=str(dev),
+               card_free_gb_at_start=torch.cuda.mem_get_info(dev)[0] / 2**30)
+
+    # -- (a) the float32 gate: pods against rows on the same state ---------
+    t0 = time.perf_counter()
+    gcfg = dataclasses.replace(get_config(run["gate"]).reduced(**LM_REDUCED),
+                               **run["gate_cut"])
+    gicfg = InteractConfig(alpha=0.05, beta=0.3,
+                           hyper=BilevelHyper(**LM_REDUCED_HYPER))
+    gtokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, gcfg.vocab_size, (agents, 4, 32)))
+    finals, dropped = {}, {}
+    for layout in ("rows", "pods"):
+        pods = layout == "pods"
+        state = init_train_state(gcfg, 0, device=dev,
+                                 mesh=pm if pods else None)
+        step = (make_train_step(gcfg, pm, gicfg, agent_mode="pods") if pods
+                else make_train_step(gcfg, pm.ring, gicfg))
+        drops = []
+        for _ in range(2):
+            (state, _), _ = moe_drop_shares(
+                torch, lambda: step(state, gtokens), counts=drops)
+        finals[layout] = state
+        dropped[layout] = drops
+    # the pod's dropped slots, a call at a time, against the rows agent's
+    pod_drops = pm.pod.all_reduce(torch.tensor(dropped["pods"],
+                                               device=dev)).tolist()
+    rows = P.train_state_shards(finals["rows"], k, pm.data_index)
+    gaps = {}
+    for field in ("x", "y", "u", "v", "p_prev"):
+        gaps[field] = max(
+            float((a.float() - b.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for a, b, w in zip(tree.tree_leaves(getattr(finals["pods"],
+                                                        field)),
+                               tree.tree_leaves(getattr(rows, field)),
+                               tree.tree_leaves(getattr(finals["rows"],
+                                                        field)),
+                               strict=True))
+    rec["gate"] = dict(arch=gcfg.name, cut=run["gate_cut"], gaps=gaps,
+                       rows_dropped=dropped["rows"], pods_dropped=pod_drops,
+                       seconds=time.perf_counter() - t0)
+    del finals, rows, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) INTERACT at full size ----------------------------------------
+    cfg = dataclasses.replace(get_config(run["arch"]), **run["cut"])
+    specs = cfg.layer_pattern() * (cfg.num_layers
+                                   // len(cfg.layer_pattern()))
+    rec["attn_layers"] = sum(s.mixer == "attn" for s in specs)
+    rec["rwkv_layers"] = sum(s.mixer == "rwkv" for s in specs)
+    icfg = InteractConfig(alpha=LM_ALPHA, beta=LM_BETA,
+                          hyper=BilevelHyper(**LM_HYPER))
+    stream = TokenTaskStream(cfg.vocab_size, agents, seed=7)
+    batch = lambda t: stream.agent_batch(pm.agent, t, LM_BATCH, LM_SEQ,
+                                         device=dev)[None]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, 0, mesh=pm)
+    step = make_train_step(cfg, pm, icfg, agent_mode="pods")
+    sync()
+    init_s = time.perf_counter() - t0
+    fields = ("x", "y", "u", "v", "p_prev")
+    state_bytes = P.state_bytes([getattr(state, f) for f in fields])
+    dtypes = sorted({str(l.dtype) for f in fields
+                     for l in tree.tree_leaves(getattr(state, f))})
+
+    def timed_step(call):
+        t0 = time.perf_counter()
+        (out, pod_s), mixes = timed_mixes(
+            torch, dev, lambda: timed_pod_collectives(torch, dev, pm.pod,
+                                                      call))
+        sync()
+        by_kind = {}
+        for name, sec in pod_s:
+            by_kind[name] = by_kind.get(name, 0.0) + sec
+        return out, dict(seconds=time.perf_counter() - t0,
+                         mix_seconds=sum(mixes), mixes=len(mixes),
+                         pod_seconds=sum(by_kind.values()),
+                         pod_collectives=len(pod_s), pod_by_kind=by_kind)
+
+    lm_launches(counts, zero=True)
+    steps = []
+    for t in range(run["interact_steps"]):
+        (state, metrics), row = timed_step(lambda: step(state, batch(t)))
+        steps.append(dict({k: float(v) for k, v in metrics.items()}, **row))
+    rec["interact"] = dict(
+        steps=steps, init_seconds=init_s, launches=lm_launches(counts),
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+        state_bytes=state_bytes, dtypes=dtypes,
+        digest=state_digest(torch, state))
+
+    # -- (c) eval on the state gathered to each pod's data-0 rank ----------
+    x, y = PodLayout(cfg, pm).gather(state.x, state.y)
+    evals = []
+    if pm.data_index == 0:
+        whole = state._replace(x=x, y=y)
+        for impl in ("reference", "cuda", "cuda"):
+            ev = make_eval_step(cfg, pm.ring, dataclasses.replace(
+                icfg, hyper=BilevelHyper(**LM_HYPER, attn_impl=impl)))
+            lm_launches(counts, zero=True)
+            t0 = time.perf_counter()
+            ce = float(ev(whole, batch(run["interact_steps"])))
+            sync()
+            evals.append(dict(impl=impl, outer_ce=ce,
+                              seconds=time.perf_counter() - t0,
+                              launches=lm_launches(counts)))
+        del whole
+    rec["eval"] = evals
+    del x, y, state, step
+    pm.pod.all_reduce(torch.zeros(1, device=dev))  # the pod starts together
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- SVR-INTERACT from the initial state -------------------------------
+    if run["svr_steps"]:
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init_svr_train_state(cfg, 0, mesh=pm)
+        step = make_svr_train_step(cfg, pm, icfg, q=run["q"],
+                                   agent_mode="pods")
+        lm_launches(counts, zero=True)
+        steps = []
+        for t in range(run["svr_steps"]):
+            (state, metrics), row = timed_step(lambda: step(state, batch(t)))
+            steps.append(dict({k: float(v) for k, v in metrics.items()},
+                              **row))
+        rec["svr"] = dict(
+            steps=steps, launches=lm_launches(counts),
+            state_finite=all(bool(torch.isfinite(l).all())
+                             for l in tree.tree_leaves((state.x, state.y,
+                                                        state.u))),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            peak_reserved_bytes=torch.cuda.max_memory_reserved(dev),
+            digest=state_digest(torch, state))
+    rec["seconds"] = time.perf_counter() - t_phase
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(rec))
+    D.shutdown()
+    return 0
+
+
+def lm_per_step(ranks: list, name: str, key: str, refresh=None) -> float:
+    """The slowest rank's median of ``key`` over run ``name``'s steps: the
+    timed ones (the warm-up, the first, left out where there are more),
+    or, where ``refresh`` is given (SVR-INTERACT), every step of that
+    kind, 1.0 a refresh step and 0.0 a recursive one (the INTERACT steps
+    before have warmed the run up)."""
+    def timed(steps: list) -> list:
+        if refresh is not None:
+            return [s for s in steps if s["refresh"] == refresh]
+        return steps[1:] or steps
+    return max(statistics.median([s[key] for s in timed(rec[name]["steps"])])
+               for rec in ranks)
+
+
+def lm_gate_ranks(what: str, run: dict, ranks: list, evaluated: list
+                  ) -> None:
+    """The gates that the rows runs (``lm_run_summary``) and the pods run
+    (``lm_pods_summary``) share, on their ranks' records: each step's
+    metrics (its counts too, not its seconds) equal on every rank and
+    finite, no kernel launched in a train step, the SVR-INTERACT state
+    finite and its refresh flags every q-th step; on each rank of
+    ``evaluated``, each cuda eval call launching the bf16 flash kernel
+    once an attention layer, WKV6 once an rwkv layer and nothing else,
+    its outer CE within ``LM_EVAL_RTOL`` of the plain call's, and the CE
+    equal on those ranks."""
     names = ("interact", "svr") if run["svr_steps"] else ("interact",)
     for name in names:
-        rows = [[{k: v for k, v in s.items() if "seconds" not in k}
+        rows = [[{k: v for k, v in s.items()
+                  if "seconds" not in k and not isinstance(v, dict)}
                  for s in rec[name]["steps"]] for rec in ranks]
         check(all(r == rows[0] for r in rows), f"{what} {name}: the "
               f"ranks' metrics differ: {rows}")
@@ -3743,24 +4032,10 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
                 for t in range(run["svr_steps"])]
         check([s["refresh"] for s in ranks[0]["svr"]["steps"]] == want,
               f"{what} svr: refresh flags {ranks[0]['svr']['steps']}")
-    moe = ranks[0]["moe_layers"]
-    for rec in ranks:
-        # in call order: the outer loss's forward and its recompute (the
-        # layers in reverse), the inner features, the cross term's forward
-        # and its recompute; each recompute routes as its forward did
-        r = rec["interact"]["moe_routes"]
-        check(len(r) == 5 * moe, f"{what} rank {rec['rank']}: {len(r)} moe "
-              f"calls in the warm-up step, not 5 x {moe}")
-        passes = [r[i * moe:(i + 1) * moe] for i in range(5)]
-        check(passes[1] == passes[0][::-1] and passes[4] == passes[3][::-1],
-              f"{what} rank {rec['rank']}: a recompute in the backward "
-              f"pass routed otherwise than its forward: {passes}")
-    for rec in ranks:
+    for rec in evaluated:
         ref, *kernel = rec["eval"]
         check(sum(ref["launches"].values()) == 0, f"{what} eval reference "
               f"launched {ref['launches']}")
-        # each cuda call: the bf16 flash kernel once an attention layer,
-        # WKV6 once an rwkv layer, nothing else
         n = rec["attn_layers"]
         want = dict(flash_attention=n, flash_attention_tc=n,
                     flash_attention_f32_split=0, flash_attention_f32=0,
@@ -3775,34 +4050,32 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
                   f"outer CE {call['outer_ce']} with the flash kernel, "
                   f"{ref['outer_ce']} plain ({rel:.3e} > {LM_EVAL_RTOL})")
     check(len({json.dumps([e["outer_ce"] for e in rec["eval"]])
-               for rec in ranks}) == 1, f"{what} eval: the ranks' CE differ")
+               for rec in evaluated}) == 1,
+          f"{what} eval: the evaluating ranks' CE differ")
 
-    def per_step(name: str, key: str) -> float:
-        """The slowest rank's median over the timed steps (the warm-up
-        left out where there are more)."""
-        return max(statistics.median(
-            [s[key] for s in rec[name]["steps"][1:] or rec[name]["steps"]])
-            for rec in ranks)
-    s_per_step = per_step("interact", "seconds")
-    ev = ranks[0]["eval"]
-    eval_launches = {name: sum(e["launches"][name] for rec in ranks
+
+def lm_summary(run: dict, ranks: list, evaluated: list, card: str) -> dict:
+    """The summary keys that the rows and the pods runs share: s/step,
+    the ring mixes' seconds and tokens/s an agent (``lm_per_step``), the
+    digests, the eval calls of ``evaluated``'s first rank and the launches
+    of all of them, and each rank's import, init and worker seconds, free
+    card memory at its start and peaks."""
+    s_per_step = lm_per_step(ranks, "interact", "seconds")
+    ev = evaluated[0]["eval"]
+    digests = dict(interact=[rec["interact"]["digest"] for rec in ranks])
+    if run["svr_steps"]:
+        digests["svr"] = [rec["svr"]["digest"] for rec in ranks]
+    eval_launches = {name: sum(e["launches"][name] for rec in evaluated
                                for e in rec["eval"])
                      for name in ev[0]["launches"]}
-    summary = dict(
-        arch=arch, cut=run["cut"], agents=run["agents"],
+    return dict(
         wire=ranks[0]["wire"], card=card,
         tokens_per_agent_step=LM_BATCH * LM_SEQ,
-        params=ranks[0]["interact"]["params"],
-        head=ranks[0]["interact"]["head"],
-        attn_layers=ranks[0]["attn_layers"], moe_layers=moe,
-        interact_steps=ranks[0]["interact"]["steps"],
         interact_s_per_step=s_per_step,
-        interact_mix_s_per_step=per_step("interact", "mix_seconds"),
-        interact_step_seconds=[[s["seconds"] for s in rec["interact"]["steps"]]
-                               for rec in ranks],
+        interact_mix_s_per_step=lm_per_step(ranks, "interact",
+                                            "mix_seconds"),
         tokens_per_s_per_agent=LM_BATCH * LM_SEQ / s_per_step,
-        moe_dropped_warmup=ranks[0]["interact"]["moe_dropped"],
-        digests=dict(interact=[rec["interact"]["digest"] for rec in ranks]),
+        digests=digests,
         eval={e["impl"] + str(i): dict(outer_ce=e["outer_ce"],
                                        seconds=e["seconds"],
                                        launches=e["launches"])
@@ -3810,8 +4083,6 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
         eval_rel_gap=max(abs(e["outer_ce"] - ev[0]["outer_ce"])
                          / abs(ev[0]["outer_ce"]) for e in ev[1:]),
         eval_launches={k: n for k, n in eval_launches.items() if n},
-        card_vs_cpu=[rec["card_vs_cpu"] for rec in ranks],
-        card_vs_cpu_tol=tol, prefix=ranks[0]["interact"]["prefix"],
         import_seconds=[rec["import_seconds"] for rec in ranks],
         dynamo_import_seconds=[rec["dynamo_import_seconds"]
                                for rec in ranks],
@@ -3827,6 +4098,112 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
                          if run["svr_steps"] else {}))
                  for rec in ranks],
         worker_seconds=[rec["seconds"] for rec in ranks])
+
+
+def lm_pods_summary(name: str, root: Path, card: str,
+                    rows: dict | None = None) -> dict:
+    """Gates phase 4m on its ranks' records (``lm_pods_worker``'s) and
+    returns its summary; ``rows``: the rows layout's summary of the same
+    arch in this call (4h's), whose peaks it prints beside its own."""
+    from repro_torch.configs import get_config
+    run = LM_RUNS[name]
+    agents, k = run["agents"], run["pod"]
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(agents * k)]
+    what = f"lm training {name}"
+    # (a) the float32 gate
+    for rec in ranks:
+        g = rec["gate"]
+        check(g["gaps"]["x"] <= PODS_XY_TOL and g["gaps"]["y"] <= PODS_XY_TOL
+              and max(g["gaps"][f] for f in ("u", "v", "p_prev"))
+              <= PODS_UV_TOL, f"{what} gate rank {rec['rank']}: pods "
+              f"against rows on the card {g['gaps']}, beyond {PODS_XY_TOL} "
+              f"(x, y) / {PODS_UV_TOL} (u, v, p_prev)")
+        check(g["pods_dropped"] == g["rows_dropped"], f"{what} gate rank "
+              f"{rec['rank']}: the pod dropped {g['pods_dropped']} slots a "
+              f"moe call, the rows agent {g['rows_dropped']}")
+        check(sum(g["rows_dropped"]) > 0, f"{what} gate: no slot dropped")
+    # (b) the state bytes at full size; (c) eval on each pod's data-0 rank
+    cfg = dataclasses.replace(get_config(run["arch"]), **run["cut"])
+    want = pods_state_bytes_want(cfg, k)
+    for rec in ranks:
+        check(rec["interact"]["state_bytes"] == want["bytes"],
+              f"{what} rank {rec['rank']}: {rec['interact']['state_bytes']} "
+              f"state bytes, the rule gives {want['bytes']}")
+        check(rec["interact"]["dtypes"] == [f"torch.{cfg.dtype}"],
+              f"{what}: state dtypes {rec['interact']['dtypes']}")
+    evaluated = [rec for rec in ranks if rec["data"] == 0]
+    check(len(evaluated) == agents and all(
+        not rec["eval"] for rec in ranks if rec["data"] != 0),
+        f"{what} eval: not one data-0 rank an agent")
+    lm_gate_ranks(what, run, ranks, evaluated)
+    summary = dict(
+        arch=run["arch"], layout=f"{agents} agents x pods of {k}",
+        cut=run["cut"], agents=agents, pod=k, processes=agents * k,
+        gate=dict(arch=ranks[0]["gate"]["arch"], cut=run["gate_cut"],
+                  gaps={f: max(rec["gate"]["gaps"][f] for rec in ranks)
+                        for f in ranks[0]["gate"]["gaps"]},
+                  bounds=[PODS_XY_TOL, PODS_UV_TOL],
+                  dropped_per_call=[ranks[0]["gate"]["rows_dropped"]],
+                  seconds=max(rec["gate"]["seconds"] for rec in ranks)),
+        state_bytes_per_process=ranks[0]["interact"]["state_bytes"],
+        state_bytes_rule=want, state_dtypes=ranks[0]["interact"]["dtypes"],
+        interact_steps=[rec["interact"]["steps"] for rec in ranks],
+        interact_pod_s_per_step=lm_per_step(ranks, "interact",
+                                            "pod_seconds"),
+        interact_pod_by_kind=ranks[0]["interact"]["steps"][-1]["pod_by_kind"],
+        rows_peak_gb=None if rows is None else {
+            key: max(p[key] for p in rows["peak_gb"])
+            for key in rows["peak_gb"][0]},
+        **lm_summary(run, ranks, evaluated, card))
+    if run["svr_steps"]:
+        summary.update(
+            svr_steps=[rec["svr"]["steps"] for rec in ranks],
+            **{f"svr_{kind}_{name}_per_step": lm_per_step(
+                ranks, "svr", key, refresh=flag)
+               for kind, flag in (("recursive", 0.0), ("refresh", 1.0))
+               for name, key in (("s", "seconds"), ("pod_s", "pod_seconds"))})
+    return summary
+
+
+def lm_run_summary(arch: str, root: Path, card: str) -> dict:
+    """Gates one LM training run on its ranks' records (``lm_worker``'s)
+    and returns its summary."""
+    run = LM_RUNS[arch]
+    ranks = [json.loads((root / f"rank{r}.json").read_text())
+             for r in range(run["agents"])]
+    what = f"lm training {arch}"
+    tol = run.get("card_cpu_tol", LM_CARD_CPU_TOL)
+    for rec in ranks:
+        gap = max(rec["card_vs_cpu"]["x_gap"], rec["card_vs_cpu"]["u_gap"])
+        check(gap <= tol, f"{what} rank {rec['rank']}: the card is "
+              f"{gap:.3e} from the CPU (x and u, reduced config), beyond "
+              f"{tol}")
+    lm_gate_ranks(what, run, ranks, ranks)
+    moe = ranks[0]["moe_layers"]
+    for rec in ranks:
+        # in call order: the outer loss's forward and its recompute (the
+        # layers in reverse), the inner features, the cross term's forward
+        # and its recompute; each recompute routes as its forward did
+        r = rec["interact"]["moe_routes"]
+        check(len(r) == 5 * moe, f"{what} rank {rec['rank']}: {len(r)} moe "
+              f"calls in the warm-up step, not 5 x {moe}")
+        passes = [r[i * moe:(i + 1) * moe] for i in range(5)]
+        check(passes[1] == passes[0][::-1] and passes[4] == passes[3][::-1],
+              f"{what} rank {rec['rank']}: a recompute in the backward "
+              f"pass routed otherwise than its forward: {passes}")
+    summary = dict(
+        arch=arch, cut=run["cut"], agents=run["agents"],
+        params=ranks[0]["interact"]["params"],
+        head=ranks[0]["interact"]["head"],
+        attn_layers=ranks[0]["attn_layers"], moe_layers=moe,
+        interact_steps=ranks[0]["interact"]["steps"],
+        interact_step_seconds=[[s["seconds"] for s in rec["interact"]["steps"]]
+                               for rec in ranks],
+        moe_dropped_warmup=ranks[0]["interact"]["moe_dropped"],
+        card_vs_cpu=[rec["card_vs_cpu"] for rec in ranks],
+        card_vs_cpu_tol=tol, prefix=ranks[0]["interact"]["prefix"],
+        **lm_summary(run, ranks, ranks, card))
     if "rwkv_loop" in ranks[0]:
         # an INTERACT step runs the loop 5 times a layer: the outer loss's
         # checkpointed forward and its recompute with the backward, the
@@ -3835,14 +4212,14 @@ def lm_run_summary(arch: str, root: Path, card: str) -> dict:
         loop = dict(ranks[0]["rwkv_loop"])
         loop["interact_step_s"] = ranks[0]["rwkv_layers"] * (
             3 * loop["forward_s"] + 2 * loop["forward_backward_s"])
-        loop["interact_share"] = loop["interact_step_s"] / s_per_step
+        loop["interact_share"] = (loop["interact_step_s"]
+                                  / summary["interact_s_per_step"])
         summary["rwkv_loop"] = loop
     if run["svr_steps"]:
         summary.update(
             svr_steps=ranks[0]["svr"]["steps"],
             svr_step_seconds=[[s["seconds"] for s in rec["svr"]["steps"]]
                               for rec in ranks])
-        summary["digests"]["svr"] = [rec["svr"]["digest"] for rec in ranks]
     return summary
 
 
@@ -3886,9 +4263,11 @@ def run_lm_training(torch, *phases: str, gate=None) -> dict:
               f"{order[i + 1][1]} does not start")
 
     def launch(i: int, arch: str) -> list:
+        run = LM_RUNS[arch]
+        pod = run.get("pod")
         return launch_workers(
             str(ROOT / "chip_smoke.py"), ["--lm-worker", "--run", arch],
-            LM_RUNS[arch]["agents"], str(root / arch / "result.json"),
+            run["agents"] * (pod or 1), str(root / arch / "result.json"),
             LM_TIMEOUT, prepare=(lambda: after(i - 1)) if i else first)
 
     out = {phase: dict(runs={}, seconds=0.0) for phase in phases}
@@ -3900,7 +4279,14 @@ def run_lm_training(torch, *phases: str, gate=None) -> dict:
                 failed = futures[i].result()
                 check(not failed, f"lm training {arch}: failed workers "
                       f"(rank, exit code) {failed}; their errors are above")
-                summary = lm_run_summary(arch, root / arch, card)
+                run = LM_RUNS[arch]
+                if "pod" in run:    # beside the rows run of its arch
+                    rows = [r["runs"][run["arch"]] for r in out.values()
+                            if run["arch"] in r["runs"]]
+                    summary = lm_pods_summary(arch, root / arch, card,
+                                              rows[0] if rows else None)
+                else:
+                    summary = lm_run_summary(arch, root / arch, card)
                 t_end = time.perf_counter()
                 summary["wall_seconds"] = t_end - (t_go[0] if i == 0
                                                    else t_last)
@@ -4446,8 +4832,9 @@ def main() -> int:
                           for arch, n in lm_eval_launches.items()
                           if "flash_attention_tc" in n},
         launches_lm_eval_from=(
-            "phases 4h, 4k and 4l: make_eval_step(attn_impl='cuda'), 2 "
-            "calls on each agent's process of each run (agents: "
+            "phases 4h, 4k, 4l and 4m: make_eval_step(attn_impl='cuda'), "
+            "2 calls on each agent's process of each run (4m: on each "
+            "pod's data-0 rank; agents: "
             f"{ {arch: run['agents'] for arch, run in LM_RUNS.items()} }), "
             "one launch an attention layer each"),
         max_abs_err=flash["err"]["bfloat16"],

@@ -11,7 +11,9 @@ and stays plain PyTorch (the JAX package does it in ``jnp``); no
 consensus kernel runs here.
 
 Backend options: the legacy ``compress="int8"`` wire format quantises
-every outgoing payload; ``dp_sigma > 0`` noises the payload whenever
+every outgoing payload; ``shards`` (a ``PodShards``) marks the leaves as
+a pod's shards of its agent (the pods layout), whose int8 scale and
+noise are the whole leaf's; ``dp_sigma > 0`` noises the payload whenever
 ``mix`` is given a ``dp_key = (seed, t)`` (the noise drawn on the host
 from numpy, see the collectives module); ``impl="psum"`` is the
 all-reduce realisation of the same matrix.  The robust Byzantine rules
@@ -30,7 +32,7 @@ from repro_torch.consensus.engine import (ConsensusEngine, MeshBackendMixin,
                                           check_mesh)
 from repro_torch.consensus.ledger import StreamRecord
 from repro_torch.core.consensus import MixingSpec
-from repro_torch.sharding.collectives import (PermuteSchedule,
+from repro_torch.sharding.collectives import (PermuteSchedule, PodShards,
                                               permute_mix_tree,
                                               permute_schedule)
 
@@ -48,7 +50,7 @@ class PermuteEngine(MeshBackendMixin, ConsensusEngine):
                  compression: CompressionConfig | None = None,
                  communication_interval: int = 1,
                  byzantine: ByzantineConfig | None = None,
-                 attack_seed: int = 0):
+                 attack_seed: int = 0, shards: PodShards | None = None):
         self.schedule = (mixing if isinstance(mixing, PermuteSchedule)
                          else permute_schedule(mixing))
         self.matrix = torch.as_tensor(self.schedule.matrix,
@@ -63,6 +65,7 @@ class PermuteEngine(MeshBackendMixin, ConsensusEngine):
                 "processes, or use the allgather backend")
         self.compress = compress
         self.dp_sigma = float(dp_sigma)
+        self.shards = shards
         if impl not in ("ppermute", "psum"):
             raise ValueError(f"unknown ppermute impl {impl!r}")
         self.impl = impl
@@ -72,6 +75,12 @@ class PermuteEngine(MeshBackendMixin, ConsensusEngine):
             raise ValueError(
                 "pass either the legacy compress= wire format or a "
                 "CompressionConfig, not both")
+        if shards is not None and (self.compression.active
+                                   or self.byzantine.active):
+            raise NotImplementedError(
+                "a pod's shards mix with the legacy int8 wire and local-DP "
+                "noise only; a CompressionConfig or a Byzantine attack "
+                "would compress or corrupt each shard on its own")
         if self.byzantine.combine != "weighted":
             raise NotImplementedError(
                 f"combine rule {self.byzantine.combine!r} needs all-to-all "
@@ -91,7 +100,8 @@ class PermuteEngine(MeshBackendMixin, ConsensusEngine):
         return permute_mix_tree(
             tree, self.mesh, self.schedule, compress=self.compress,
             dp_sigma=self.dp_sigma if dp_key is not None else 0.0,
-            dp_key=dp_key, impl=self.impl, override=matrix)
+            dp_key=dp_key, impl=self.impl, override=matrix,
+            shards=self.shards)
 
     def _wire_compressor(self):
         if not self.compression.active and self.compress == "int8":

@@ -79,7 +79,7 @@ def lm_params_from_numpy(tree, cfg, device: torch.device | str) -> dict:
 
 
 def train_state_from_numpy(state, cfg, device: torch.device | str,
-                           agent: int):
+                           agent: int, pod: tuple[int, int] | None = None):
     """Agent ``agent``'s row of the JAX package's ``TrainState`` or
     ``SvrTrainState`` (numpy leaves, a leading agent axis, stacked layers)
     as the port's state of the same name, every leaf with a leading
@@ -87,7 +87,8 @@ def train_state_from_numpy(state, cfg, device: torch.device | str,
 
     The backbone fields (x, u, p_prev, x_prev) go through
     ``lm_params_from_numpy``; the heads (y, v, y_prev) carry over; ``t``
-    becomes an int.
+    becomes an int.  ``pod = (k, d)``: the pods layout's shards of rank d
+    of the agent's pod of k (``sharding.partition.train_state_shards``).
     """
     from repro_torch.train.step import TrainState
     from repro_torch.train.svr_step import SvrTrainState
@@ -105,4 +106,7 @@ def train_state_from_numpy(state, cfg, device: torch.device | str,
         else:
             row = torch.tensor(np.asarray(value)[agent], device=device)
         fields[name] = pytree.tree_map(lambda l: l[None], row)
+    if pod is not None:
+        from repro_torch.sharding.partition import train_state_shards
+        return train_state_shards(kind(**fields), *pod)
     return kind(**fields)

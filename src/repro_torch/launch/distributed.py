@@ -20,6 +20,12 @@ ranks of a process group, each rank holding a contiguous block of them
   collective, so a rank that dies cannot hang the others for ever.
 * ``agent_mesh`` — this process's ``AgentMesh`` over the initialised
   group: m / world agents a rank, from ``rank * m / world``.
+* ``pods_mesh`` — this process's ``PodsMesh`` over the initialised group
+  laid out as a (pod, data, model) ``ProcessMesh``
+  (``repro_torch.launch.mesh``): m pods of k ranks,
+  an agent a pod, the train steps' ``agent_mode="pods"``.  Every rank
+  makes every subgroup, in one order: the k rings (the ranks of one data
+  index across the pods), then the m pods.  A model axis above 1 raises.
 * ``run_section6`` — the paper's Section-6 instance stepped by the
   registry INTERACT solver on every rank's rows, in lockstep, with the
   eq.-11 metric recorded between chunks on the gathered iterates and a
@@ -45,16 +51,18 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
-from repro_torch.sharding.collectives import AgentMesh, gather_tree
+from repro_torch.sharding.collectives import AgentMesh, PodsMesh, gather_tree
 
 __all__ = [
     "AgentMesh",
     "DistributedConfig",
+    "PodsMesh",
     "agent_mesh",
     "eq11_metric",
     "gather_tree",
     "initialize",
     "initialize_from_env",
+    "pods_mesh",
     "run_section6",
     "shard_host_tree",
     "shutdown",
@@ -177,6 +185,51 @@ def agent_mesh(num_agents: int) -> AgentMesh:
             f"set to a divisor of m (python -m repro_torch.launch."
             f"launch_local)")
     return AgentMesh(m, n, dist.get_rank(), _STATE["device"], _STATE["wire"])
+
+
+def pods_mesh(mesh) -> PodsMesh:
+    """This process's ``PodsMesh`` over the initialised group.
+
+    ``mesh`` is a ``ProcessMesh`` (``repro_torch.launch.mesh.
+    make_production_mesh``) with a ``pod`` axis (m agents), a ``data``
+    axis (k ranks a pod) and, optionally, a ``model`` axis of 1.  It must
+    hold the whole group.  The subgroups are made once a shape.
+    """
+    if not _STATE:
+        raise RuntimeError(
+            "no process group: call repro_torch.launch.distributed."
+            "initialize first (launch_local.launch_workers starts the "
+            "processes)")
+    dims = mesh.shape
+    if "pod" not in dims or "data" not in dims:
+        raise ValueError(f"agent_mode='pods' needs a mesh with 'pod' and "
+                         f"'data' axes, got {mesh.axis_names}")
+    if dims.get("model", 1) != 1:
+        raise NotImplementedError(
+            f"a model axis of {dims['model']} shards each layer over "
+            "processes (tensor parallelism), which the port does not run: "
+            "it waits for ROADMAP Queue A item 10; pass a model axis of 1")
+    world = dist.get_world_size()
+    if mesh.size != world:
+        raise ValueError(f"the mesh {mesh.dims} holds {mesh.size} "
+                         f"processes, the group {world}")
+    m, k = dims["pod"], dims["data"]
+    key = ("pods", mesh.axis_names, mesh.dims)
+    if key not in _STATE:
+        at = lambda p, d: mesh.rank_of(
+            **{"pod": p, "data": d, **({"model": 0} if "model" in dims
+                                       else {})})
+        rings = [tuple(at(p, d) for p in range(m)) for d in range(k)]
+        pods = [tuple(at(p, d) for d in range(k)) for p in range(m)]
+        _STATE[key] = [(ranks, dist.new_group(list(ranks)))
+                       for ranks in rings + pods]
+    coords = mesh.coords(dist.get_rank())
+    ring_ranks, ring = _STATE[key][coords["data"]]
+    pod_ranks, pod = _STATE[key][k + coords["pod"]]
+    dev, wire = _STATE["device"], _STATE["wire"]
+    return PodsMesh(
+        ring=AgentMesh(m, m, coords["pod"], dev, wire, ring, ring_ranks),
+        pod=AgentMesh(k, k, coords["data"], dev, wire, pod, pod_ranks))
 
 
 def shard_host_tree(mesh: AgentMesh, tree, num_agents: int):

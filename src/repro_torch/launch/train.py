@@ -19,8 +19,10 @@ the card stages every payload through host memory), ``--dtype
 with ``--reduced``), ``--out`` (rank 0's
 JSON result: the logged metrics, each step's seconds, each process's
 peak device memory and the digest of its final state) and ``--timeout``.
-``--production-mesh`` (a TPU pod's mesh) raises: it waits for
-``launch/mesh.py``, ROADMAP Queue A item 10.
+``--production-mesh`` (the 16 x 16 (data, model) mesh) raises: its
+model axis (tensor parallelism) waits for ROADMAP Queue A item 10.  The
+CLI has no pods flag, as the JAX driver has none: the pods layout is
+reached through the API (``agent_mode="pods"``).
 
 Checkpoints go through ``repro_torch.checkpoint``: each process writes
 its agent's state to ``<ckpt-dir>/agent_<i>/step_<N>.npz`` every
@@ -234,9 +236,12 @@ def _check(args) -> None:
     """Refuse, before starting anything, what the arguments rule out."""
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh builds a TPU pod's device mesh; it waits "
-            "for launch/mesh.py, ROADMAP Queue A item 10.  The port runs "
-            "one agent a process on this host (--agents)")
+            "--production-mesh is the 16 x 16 (data, model) mesh: its model "
+            "axis of 16 shards each layer over processes (tensor "
+            "parallelism), which the port does not run; it waits for "
+            "ROADMAP Queue A item 10.  The port runs one agent a process "
+            "here (--agents), or an agent a pod of processes through the "
+            "API (agent_mode='pods', launch/mesh.py)")
     if args.agents < 1:
         raise SystemExit(f"--agents {args.agents}: at least one agent")
     if args.device == "cpu" and args.wire == "nccl":

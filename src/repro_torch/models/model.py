@@ -149,13 +149,15 @@ def param_count(params) -> int:
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                  positions: torch.Tensor, impl: str = "reference",
-                 cache: dict | None = None, moe_impl: str = "capacity"
+                 cache: dict | None = None, moe_impl: str = "capacity",
+                 pod=None
                  ) -> tuple[torch.Tensor, dict | None, torch.Tensor]:
     """Pre-norm residual layer.  Returns (x, new_cache, aux): the moe
     ffn's aux loss, else a float32 zero.  ``impl`` picks the no-cache
     attention and WKV6 route; the cached branches are plain, as in the
     JAX package.  A mamba layer with a cache prefills a fresh one from a
-    sequence and steps it from one token."""
+    sequence and steps it from one token.  ``pod``: x is this rank's
+    share of its pod's batch (the moe capacity route is the pod's)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
     new_cache = cache
@@ -215,7 +217,8 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, p: dict, x: torch.Tensor,
                                    top_k=cfg.experts_per_token,
                                    capacity_factor=cfg.capacity_factor,
                                    token_chunk=cfg.moe_token_chunk or None,
-                                   expert_parallel=cfg.expert_parallel)
+                                   expert_parallel=cfg.expert_parallel,
+                                   pod=pod)
         else:
             raise ValueError(f"unknown moe_impl {moe_impl!r}; known: "
                              "'capacity', 'exact'")
@@ -243,7 +246,7 @@ def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
              prefix_embed: torch.Tensor | None = None,
              impl: str = "reference", remat: bool = False,
-             moe_impl: str = "capacity"
+             moe_impl: str = "capacity", pod=None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Backbone features (batch, [prefix +] seq, d_model), and the moe
     ffns' aux loss summed over the layers in float32 (zero without a moe
@@ -251,18 +254,21 @@ def features(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     tokens.  ``impl`` routes attention and WKV6: ``"reference"``,
     ``"blockwise"`` or ``"cuda"``; ``moe_impl`` the moe ffn:
     ``"capacity"`` or ``"exact"``.  ``remat`` recomputes each layer in
-    the backward pass (a no-op where autograd is not recording)."""
+    the backward pass (a no-op where autograd is not recording).
+    ``pod`` (an ``AgentMesh`` of a pod's ranks): the batch is this rank's
+    share of the pod's, and each capacity route is the pod's batch's
+    (``moe_ffn``); every other layer is per token."""
     x = _embed(cfg, params, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(_layer_specs(cfg), params["layers"]):
         if remat and torch.is_grad_enabled():
             x, a = checkpoint(lambda h, spec=spec, p=p: _apply_layer(
-                cfg, spec, p, h, positions, impl, moe_impl=moe_impl)[::2],
-                x, use_reentrant=False)
+                cfg, spec, p, h, positions, impl, moe_impl=moe_impl,
+                pod=pod)[::2], x, use_reentrant=False)
         else:
             x, _, a = _apply_layer(cfg, spec, p, x, positions, impl,
-                                   moe_impl=moe_impl)
+                                   moe_impl=moe_impl, pod=pod)
         aux = aux + a
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return x, aux

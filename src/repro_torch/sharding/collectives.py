@@ -38,6 +38,18 @@ gloo on CPU tensors, or, chosen explicitly, gloo on CUDA tensors staged
 through host memory (device to host, the collective, host to device),
 labelled ``gloo-staged``.  A mesh of one process with no process group
 (``AgentMesh.local``) ships nothing: its gather is the identity.
+
+Groups.  An ``AgentMesh`` runs on the default group, or on an explicit
+subgroup (``group``, with ``group_ranks`` the global rank of each of its
+ranks: a permute's peers are global ranks).  The pods layout
+(``PodsMesh``) gives each process two: its *ring*, the ranks with its
+data index across the pods (one agent each: the permutes and the
+metrics), and its *pod*, the k ranks of its agent (the gathers,
+reduce-scatters and all-reduces of the agent's shards).  With the int8
+wire or local-DP noise a sharded leaf's mix needs the whole leaf's
+scale and noise: ``PodShards`` tells the permute rounds each leaf's
+whole shape and split (the scale is the pod's all-reduced max, the noise
+is drawn at the whole shape and sliced).
 """
 from __future__ import annotations
 
@@ -49,9 +61,11 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from repro_torch.sharding.partition import leaf_paths
+
 __all__ = [
     "AgentMesh", "DP_TAG", "PERMUTE_BUCKET_BYTES", "PermuteSchedule",
-    "PermuteWeights",
+    "PermuteWeights", "PodShards", "PodsMesh",
     "dequantize_int8", "dp_noise", "gather_tree",
     "permute_mix_leaf", "permute_mix_tree", "permute_schedule",
     "quantize_int8", "ring_mix_leaf", "ring_mix_tree",
@@ -82,8 +96,10 @@ class AgentMesh:
       wire:       ``"nccl"``, ``"gloo"``, ``"gloo-staged"`` (gloo on CUDA
                   tensors through host memory) or ``"local"`` (one process,
                   no group: nothing crosses a wire).
-
-    The collectives run on the default process group.
+      group:      the process group of the collectives (None: the default
+                  group); ``world_size`` and ``rank`` are within it.
+      group_ranks: the global rank of each of its ranks (None: the
+                  identity).
     """
 
     num_agents: int
@@ -91,6 +107,8 @@ class AgentMesh:
     rank: int
     device: torch.device
     wire: str
+    group: object = None
+    group_ranks: tuple[int, ...] | None = None
 
     @classmethod
     def local(cls, num_agents: int, device: torch.device | str
@@ -108,6 +126,10 @@ class AgentMesh:
         """The global slot of this process's first agent."""
         return self.rank * self.local_agents
 
+    def global_rank(self, rank: int) -> int:
+        """The global rank of this mesh's rank ``rank``."""
+        return rank if self.group_ranks is None else self.group_ranks[rank]
+
     # -- the wire -----------------------------------------------------------
 
     def _out(self, t: torch.Tensor) -> torch.Tensor:
@@ -124,16 +146,30 @@ class AgentMesh:
         src = self._out(x.contiguous())
         out = src.new_empty((self.world_size * src.shape[0],)
                             + tuple(src.shape[1:]))
-        _ALL_GATHER(out, src)
+        _ALL_GATHER(out, src, group=self.group)
         return self._back(out)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum over processes of ``x`` (a new tensor)."""
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the max) over processes of ``x`` (a new
+        tensor)."""
         if self.wire == "local":
             return x.clone()
         buf = self._out(x.contiguous().clone())
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
         return self._back(buf)
+
+    def reduce_scatter_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """Row ``rank`` of the mean over processes of ``x`` (world, ...),
+        summed in float32 and returned in ``x``'s dtype: an all-reduce of
+        the whole stack, of which the row is kept, so each process moves
+        ``world`` rows of float32."""
+        if self.wire == "local":
+            return x[0].clone()
+        buf = x.to("cpu" if self.wire == "gloo-staged" else x.device,
+                   torch.float32, copy=True).contiguous()
+        dist.all_reduce(buf, group=self.group)
+        return buf[self.rank].div_(self.world_size).to(self.device, x.dtype)
 
     def permute(self, tensors: list[torch.Tensor], offset: int
                 ) -> list[torch.Tensor]:
@@ -143,10 +179,10 @@ class AgentMesh:
             return [t.clone() for t in tensors]
         src = [self._out(t.contiguous()) for t in tensors]
         bufs = [torch.empty_like(t) for t in src]
-        to = (self.rank - offset) % self.world_size
-        frm = (self.rank + offset) % self.world_size
-        ops = [dist.P2POp(dist.isend, t, to) for t in src]
-        ops += [dist.P2POp(dist.irecv, b, frm) for b in bufs]
+        to = self.global_rank((self.rank - offset) % self.world_size)
+        frm = self.global_rank((self.rank + offset) % self.world_size)
+        ops = [dist.P2POp(dist.isend, t, to, self.group) for t in src]
+        ops += [dist.P2POp(dist.irecv, b, frm, self.group) for b in bufs]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return [self._back(b) for b in bufs]
@@ -156,7 +192,7 @@ class AgentMesh:
         if self.wire == "local":
             return [obj]
         out = [None] * self.world_size
-        dist.all_gather_object(out, obj)
+        dist.all_gather_object(out, obj, group=self.group)
         return out
 
     def broadcast_object(self, obj, src: int = 0):
@@ -164,8 +200,63 @@ class AgentMesh:
         if self.wire == "local":
             return obj
         box = [obj]
-        dist.broadcast_object_list(box, src=src)
+        dist.broadcast_object_list(box, src=self.global_rank(src),
+                                   group=self.group)
         return box[0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PodsMesh:
+    """Where this process sits in the pods layout: m agents, each a pod of
+    k processes that shards the agent's state over its ``data`` axis.
+
+    Attributes:
+      ring: this process's ring, an ``AgentMesh`` of the m ranks with its
+            data index (one agent a process; its rank is the agent).
+      pod:  this process's pod, an ``AgentMesh`` of its agent's k ranks
+            (its rank is the data index).
+    """
+
+    ring: AgentMesh
+    pod: AgentMesh
+
+    @property
+    def agent(self) -> int:
+        return self.ring.rank
+
+    @property
+    def pod_size(self) -> int:
+        return self.pod.world_size
+
+    @property
+    def data_index(self) -> int:
+        return self.pod.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.ring.device
+
+    @property
+    def wire(self) -> str:
+        return self.ring.wire
+
+
+class PodShards(NamedTuple):
+    """How a backbone tree's leaves split over a pod, by key path
+    (``sharding.partition.leaf_paths``): ``dims[path]`` is the dim of the
+    leaf's (1, ...) form that the pod shards (None: whole on every rank),
+    ``shapes[path]`` its whole (1, ...) shape."""
+
+    pod: AgentMesh
+    dims: dict
+    shapes: dict
+
+    def leaves(self, tree) -> list:
+        """Per leaf of ``tree``: ``(pod, whole shape, dim)``, or None for
+        a leaf kept whole."""
+        return [None if self.dims[p] is None
+                else (self.pod, self.shapes[p], self.dims[p])
+                for p in leaf_paths(tree)]
 
 
 def gather_tree(mesh: AgentMesh, tree):
@@ -183,11 +274,16 @@ def gather_tree(mesh: AgentMesh, tree):
          .contiguous() for p, l in zip(parts, leaves)], spec)
 
 
-def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, pod: AgentMesh | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 quantisation: one float32 scale, max|x| /
-    127 (at least 1e-12), the rounded quotient clipped to [-127, 127]."""
+    127 (at least 1e-12), the rounded quotient clipped to [-127, 127].
+    ``x`` a shard of a leaf split over ``pod``: the whole leaf's max."""
     x32 = x.to(torch.float32)
-    scale = torch.clamp(x32.abs().max() / 127.0, min=1e-12)
+    amax = x32.abs().max()
+    if pod is not None:
+        amax = pod.all_reduce(amax.reshape(1), op="max")[0]
+    scale = torch.clamp(amax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(x32 / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -275,9 +371,11 @@ def dp_noise(dp_key, leaf_index: int, slot: int, shape) -> np.ndarray:
 
 
 def _outgoing_payload(x, slot: int, dp_sigma: float, dp_key,
-                      leaf_index: int = 0):
+                      leaf_index: int = 0, shard=None):
     """What agent ``slot`` shares of its (1, ...) leaf: the leaf, or with
-    ``dp_sigma > 0`` the leaf plus ``dp_sigma`` times its noise.
+    ``dp_sigma > 0`` the leaf plus ``dp_sigma`` times its noise.  ``x`` a
+    shard (``shard = (pod, whole shape, dim)``): the whole leaf's noise,
+    sliced to the shard.
 
     ``dp_sigma > 0`` without a ``dp_key`` raises: a caller that wants a
     clean combine passes ``dp_sigma=0`` itself; skipping the noise
@@ -285,8 +383,13 @@ def _outgoing_payload(x, slot: int, dp_sigma: float, dp_key,
     if dp_sigma > 0.0:
         if dp_key is None:
             raise ValueError("dp_sigma requires dp_key")
-        noise = torch.from_numpy(
-            dp_noise(dp_key, leaf_index, slot, x.shape)).to(x.device)
+        noise = torch.from_numpy(dp_noise(
+            dp_key, leaf_index, slot, x.shape if shard is None
+            else shard[1])).to(x.device)
+        if shard is not None:
+            pod, _, dim = shard
+            size = x.shape[dim]
+            noise = noise.narrow(dim, pod.rank * size, size)
         return (x.to(torch.float32) + dp_sigma * noise).to(x.dtype)
     return x
 
@@ -300,7 +403,7 @@ def _self_weights(schedule: PermuteSchedule, override, device):
 
 def _ppermute_mix(x, mesh: AgentMesh, schedule: PermuteSchedule, i: int,
                   compress, dp_sigma, dp_key, leaf_index=0, payload=None,
-                  override=None):
+                  override=None, shard=None):
     """Per-offset cyclic-shift rounds: the wire-frugal realisation.
 
     ``payload`` (when given) replaces ``x`` as the outgoing value (the
@@ -308,6 +411,8 @@ def _ppermute_mix(x, mesh: AgentMesh, schedule: PermuteSchedule, i: int,
     legacy ``compress`` quantisation is skipped for it).  The accumulator
     is seeded with the *clean* local x either way.  ``override`` (a
     ``PermuteWeights``) replaces the schedule's weights for this round.
+    ``shard = (pod, whole shape, dim)`` marks ``x`` as a shard of a leaf
+    split over a pod (the scale and the noise are the whole leaf's).
     """
     self_w = _self_weights(schedule, override, x.device)[i]
     acc = self_w * x.to(torch.float32)
@@ -315,9 +420,10 @@ def _ppermute_mix(x, mesh: AgentMesh, schedule: PermuteSchedule, i: int,
         return acc.to(x.dtype)
 
     payload = _outgoing_payload(x if payload is None else payload, i,
-                                dp_sigma, dp_key, leaf_index)
+                                dp_sigma, dp_key, leaf_index, shard)
     if compress == "int8":
-        q, scale = quantize_int8(payload)
+        q, scale = quantize_int8(payload, None if shard is None
+                                 else shard[0])
         sent = [q, scale.reshape(1)]
     else:
         sent = [payload]
@@ -336,15 +442,16 @@ def _ppermute_mix(x, mesh: AgentMesh, schedule: PermuteSchedule, i: int,
 
 def _psum_mix(x, mesh: AgentMesh, schedule: PermuteSchedule, i: int,
               compress, dp_sigma, dp_key, leaf_index=0, payload=None,
-              override=None):
+              override=None, shard=None):
     """All-reduce realisation: agent j contributes ``M[:, j] (x) sent_j``
     and every agent keeps its own row of the sum, then swaps the shared
     payload's self term for its clean value: ``mix(payload) + M_ii (x -
     payload)``, the same matrix as the permute rounds."""
     payload = _outgoing_payload(x if payload is None else payload, i,
-                                dp_sigma, dp_key, leaf_index)
+                                dp_sigma, dp_key, leaf_index, shard)
     if compress == "int8":
-        sent = dequantize_int8(*quantize_int8(payload))
+        sent = dequantize_int8(*quantize_int8(
+            payload, None if shard is None else shard[0]))
     else:
         sent = payload.to(torch.float32)
 
@@ -364,20 +471,22 @@ def permute_mix_leaf(x: torch.Tensor, mesh: AgentMesh,
                      dp_sigma: float = 0.0, dp_key=None,
                      impl: str = "ppermute", leaf_index: int = 0,
                      payload: torch.Tensor | None = None,
-                     override: PermuteWeights | None = None) -> torch.Tensor:
+                     override: PermuteWeights | None = None,
+                     shard=None) -> torch.Tensor:
     """One consensus combine of this process's (1, ...) leaf.
 
     ``compress="int8"`` sends int8 payloads and a scale; ``dp_sigma > 0``
     with ``dp_key = (seed, t)`` noises the outgoing payload (the local
     copy mixes clean); ``impl`` is ``"ppermute"`` (per-offset rounds) or
     ``"psum"`` (one all-reduce); ``payload`` overrides the outgoing value;
-    ``override`` is the round's ``PermuteWeights``.  Needs one agent a
-    process (the agent's index is the rank).
+    ``override`` is the round's ``PermuteWeights``; ``shard = (pod, whole
+    shape, dim)`` marks ``x`` as a pod's shard (``PodShards.leaf``).
+    Needs one agent a process (the agent's index is the rank).
     """
     _check_one_agent(mesh, schedule)
     mix = _psum_mix if impl == "psum" else _ppermute_mix
     return mix(x, mesh, schedule, mesh.row0, compress, dp_sigma, dp_key,
-               leaf_index, payload, override)
+               leaf_index, payload, override, shard)
 
 
 def _check_one_agent(mesh: AgentMesh, schedule: PermuteSchedule) -> None:
@@ -423,11 +532,14 @@ def _ppermute_mix_bucket(xs, mesh: AgentMesh, schedule: PermuteSchedule,
 def permute_mix_tree(tree, mesh: AgentMesh, schedule: PermuteSchedule,
                      compress: str | None = None, dp_sigma: float = 0.0,
                      dp_key=None, impl: str = "ppermute", payload_tree=None,
-                     override: PermuteWeights | None = None):
+                     override: PermuteWeights | None = None,
+                     shards: PodShards | None = None):
     """``permute_mix_leaf`` on every leaf, each its own payload and noise
     stream (``leaf_index`` in leaf order).  Plain permute rounds (no
     int8, no noise, no substituted payload) ship the leaves in buckets
-    (``PERMUTE_BUCKET_BYTES``), with the same result."""
+    (``PERMUTE_BUCKET_BYTES``), with the same result.  ``shards``: the
+    leaves are shards of a pod's agent (the pods layout); mixing is
+    elementwise, so each shard mixes with its peers' like shards."""
     leaves, spec = pytree.tree_flatten(tree)
     if (impl == "ppermute" and compress is None and dp_sigma == 0.0
             and payload_tree is None):
@@ -441,10 +553,14 @@ def permute_mix_tree(tree, mesh: AgentMesh, schedule: PermuteSchedule,
         return pytree.tree_unflatten(mixed, spec)
     payloads = (pytree.tree_leaves(payload_tree) if payload_tree is not None
                 else [None] * len(leaves))
+    split = (shards.leaves(tree) if shards is not None
+             else [None] * len(leaves))
     mixed = [permute_mix_leaf(leaf, mesh, schedule, compress=compress,
                               dp_sigma=dp_sigma, dp_key=dp_key, impl=impl,
-                              leaf_index=k, payload=pl, override=override)
-             for k, (leaf, pl) in enumerate(zip(leaves, payloads))]
+                              leaf_index=k, payload=pl, override=override,
+                              shard=sh)
+             for k, (leaf, pl, sh) in enumerate(zip(leaves, payloads,
+                                                    split))]
     return pytree.tree_unflatten(mixed, spec)
 
 

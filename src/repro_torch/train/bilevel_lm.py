@@ -41,11 +41,25 @@ the JAX package, ``local_grads`` accumulates no microbatches when a
 prefix is given.  ``attn_impl="blockwise"`` runs the streaming-softmax
 attention, which recomputes each kv block in the backward pass.
 
+The pods layout (``pod``, an ``AgentMesh`` of the agent's pod: the
+train steps' ``agent_mode="pods"``).  Each rank of the pod holds the
+whole backbone and head (gathered by the step) and a contiguous share
+of each split, and computes the gradients of its share's losses; what
+is linear in the batch is the pod's mean of the ranks' values: the CE
+values, grad_x f and the cross term (the step reduce-scatters p), and
+v = grad_y g (each rank's carries the ridge's mu y once, so the mean
+keeps it once).  What is not linear is made pod-wide here: grad_y f is
+all-reduced before the Neumann series, and each head-space HVP
+all-reduces its CE part and adds mu T once; the moe ffns route the
+pod's batch (``models/moe.py``).  Microbatches with a moe ffn on a pod
+raise: a rank's microbatches are not the pod's.
+
 Refused, each naming what it waits for: ``attn_impl="cuda"`` on a
 gradient path (neither package has a backward kernel for flash attention
 or WKV6; forward-only calls under ``torch.no_grad`` run it, as the eval
-step does), and ``seq_shard`` and ``batch_shard`` (XLA residual-stream
-layouts).
+step does), ``seq_shard`` (the model axis: tensor parallelism) and
+``batch_shard`` outside the pods layout, which always splits an agent's
+batch over its pod.
 ``unroll_scans`` is accepted and changes nothing: the port's loops are
 Python loops.
 """
@@ -77,21 +91,27 @@ class BilevelHyper:
     ce_chunk: int = DEFAULT_CE_CHUNK
     remat: bool = True
     attn_impl: str = "reference"  # or "blockwise"; "cuda" forward only
-    seq_shard: bool = False   # XLA layout: refused
-    batch_shard: bool = False  # XLA layout: refused
+    seq_shard: bool = False   # the model axis: refused
+    batch_shard: bool = False  # agent_mode="pods" only (it always is)
     microbatch: int = 1        # gradient-accumulation microbatches
     unroll_scans: bool = False  # accepted; the port's loops are Python
 
 
-def check_hyper(hyper: BilevelHyper, differentiate: bool) -> None:
+def check_hyper(hyper: BilevelHyper, differentiate: bool,
+                pods: bool = False) -> None:
     """Raise for what the port cannot run; ``differentiate`` marks a
-    gradient path, which refuses the forward-only kernels."""
-    if hyper.seq_shard or hyper.batch_shard:
+    gradient path, which refuses the forward-only kernels, ``pods`` the
+    pods layout, the only one that takes ``batch_shard``."""
+    if hyper.seq_shard:
         raise NotImplementedError(
-            "BilevelHyper.seq_shard / batch_shard shard the residual stream "
-            "over XLA mesh axes; the port's agents hold whole models and "
-            "this layout waits for ROADMAP Queue A item 10 "
-            "(sharding/partition.py)")
+            "BilevelHyper.seq_shard shards the residual stream over the "
+            "model axis (tensor parallelism), which the port does not run: "
+            "it waits for ROADMAP Queue A item 10")
+    if hyper.batch_shard and not pods:
+        raise ValueError(
+            "BilevelHyper.batch_shard splits an agent's batch over its "
+            "pod's data axis: it needs agent_mode='pods' (make_train_step "
+            "on a PodsMesh); the rows layout holds one agent a process")
     if hyper.attn_impl not in IMPLS:
         raise ValueError(f"unknown attn_impl {hyper.attn_impl!r}; the port "
                          f"has {IMPLS}")
@@ -139,28 +159,36 @@ def chunked_ce(cfg: ArchConfig, head: torch.Tensor, feats: torch.Tensor,
     return total / n
 
 
-def _backbone(cfg: ArchConfig, x, tokens, prefix, hyper: BilevelHyper):
-    check_hyper(hyper, differentiate=torch.is_grad_enabled())
+def _backbone(cfg: ArchConfig, x, tokens, prefix, hyper: BilevelHyper,
+              pod=None):
+    check_hyper(hyper, differentiate=torch.is_grad_enabled(),
+                pods=pod is not None)
     return M.features(cfg, x, tokens, prefix_embed=prefix,
-                      impl=hyper.attn_impl, remat=hyper.remat)
+                      impl=hyper.attn_impl, remat=hyper.remat, pod=pod)
+
+
+def _pod_mean(pod, t: torch.Tensor) -> torch.Tensor:
+    """The pod's mean of ``t``, summed in float32, in ``t``'s dtype."""
+    return (pod.all_reduce(t.to(torch.float32).reshape(-1))
+            .div_(pod.world_size).reshape(t.shape).to(t.dtype))
 
 
 def inner_loss(cfg: ArchConfig, hyper: BilevelHyper, x, y, tokens,
-               prefix=None) -> torch.Tensor:
-    feats, _aux = _backbone(cfg, x, tokens, prefix, hyper)
+               prefix=None, pod=None) -> torch.Tensor:
+    feats, _aux = _backbone(cfg, x, tokens, prefix, hyper, pod)
     return (chunked_ce(cfg, y, feats, tokens, hyper.ce_chunk)
             + ridge(y, hyper.mu_g))
 
 
 def outer_loss(cfg: ArchConfig, hyper: BilevelHyper, x, y, tokens,
-               prefix=None) -> torch.Tensor:
-    feats, aux = _backbone(cfg, x, tokens, prefix, hyper)
+               prefix=None, pod=None) -> torch.Tensor:
+    feats, aux = _backbone(cfg, x, tokens, prefix, hyper, pod)
     ce = chunked_ce(cfg, y, feats, tokens, hyper.ce_chunk)
     return ce + cfg.router_aux_weight * aux
 
 
 def _linearize_head(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
-                    labels):
+                    labels, pod=None):
     """``(v, hvp)``: v = grad_y g at the cached features, and ``hvp(T) =
     H_yy(g) T``, the head gradient linearized once at y in closed form.
 
@@ -180,7 +208,9 @@ def _linearize_head(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
     more than an 80 GB card has left beside jamba-1.5-large's training
     state at its 8192 x 65,536 head, and outlive the call until a garbage
     collection; this one holds the chunks' residuals and two float32
-    heads.
+    heads.  ``pod``: the features are this rank's share of its pod's;
+    v is this rank's (the step takes the pod's mean), and ``hvp`` is the
+    pod's: its CE part all-reduced, mu T added once.
     """
     ft, lt = _next_token_pairs(feats, labels)
     n = ft.shape[0]
@@ -199,7 +229,9 @@ def _linearize_head(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
         chunks.append((fc, p, tau, g))
 
     def hvp(t: torch.Tensor) -> torch.Tensor:
-        out = t.to(torch.float32, copy=True).mul_(hyper.mu_g)
+        out = (t.to(torch.float32, copy=True).mul_(hyper.mu_g)
+               if pod is None else
+               torch.zeros(t.shape, dtype=torch.float32, device=t.device))
         for fc, p, tau, g in chunks:
             dr = (fc @ t).float()
             dl = dr if cap is None else (1 - tau * tau) * dr
@@ -208,12 +240,15 @@ def _linearize_head(cfg: ArchConfig, hyper: BilevelHyper, y, feats,
                 dg = (dg * (1 - tau * tau)
                       - 2 * g * tau * (1 - tau * tau) * dr / cap)
             out.addmm_(fc.float().T, dg)
+        if pod is not None:
+            out = pod.all_reduce(out).div_(pod.world_size).add_(
+                t.to(torch.float32), alpha=hyper.mu_g)
         return out.to(t.dtype)
 
     return v.to(y.dtype), hvp
 
 
-def _neumann_head(cfg, hyper: BilevelHyper, y, feats, labels, b):
+def _neumann_head(cfg, hyper: BilevelHyper, y, feats, labels, b, pod=None):
     """``(z, v)``: z = [H_yy g]^{-1} b by the K-term Neumann series in
     head space, v = grad_y g at the cached features.
 
@@ -222,7 +257,7 @@ def _neumann_head(cfg, hyper: BilevelHyper, y, feats, labels, b):
     through ``neumann_truncated_apply(skip_last=True)``: K - 1
     head-space HVPs.
     """
-    v, hvp = _linearize_head(cfg, hyper, y, feats, labels)
+    v, hvp = _linearize_head(cfg, hyper, y, feats, labels, pod)
     z, _count = neumann_truncated_apply(hvp, b, hyper.neumann_k,
                                         hyper.lipschitz_g, skip_last=True)
     return z, v
@@ -239,11 +274,11 @@ def _head_logits_and_tangent(cfg: ArchConfig, y, z, fc):
 
 
 def _inner_directional(cfg: ArchConfig, hyper: BilevelHyper, x, y, z,
-                       tokens, prefix=None) -> torch.Tensor:
+                       tokens, prefix=None, pod=None) -> torch.Tensor:
     """d/de g(x, y + e z) at e = 0, differentiable in x: per chunk
     ``softmax(l) . dl - dl[gold]``, summed over tokens over n, plus
     ``mu <y, z>``."""
-    feats, _ = _backbone(cfg, x, tokens, prefix, hyper)
+    feats, _ = _backbone(cfg, x, tokens, prefix, hyper, pod)
     ft, lt = _next_token_pairs(feats, tokens)
     n = ft.shape[0]
     total = torch.zeros((), dtype=torch.float32, device=ft.device)
@@ -294,7 +329,7 @@ def _accum_grads(loss_of_tokens, args, tokens, k, argnums):
 
 def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
                 inner_tokens, outer_tokens, prefix_inner=None,
-                prefix_outer=None):
+                prefix_outer=None, pod=None):
     """(p, v, outer_ce): the paper's eqs. (8)-(9) for the LM problem.
 
     p = grad_x f - H_xy(g) [H_yy(g)]^{-1} grad_y f     (hypergradient)
@@ -304,41 +339,53 @@ def local_grads(cfg: ArchConfig, hyper: BilevelHyper, x, y,
     head, the token splits (b, s), the prefixes their splits' frontend
     embeddings (b, prefix, frontend_dim) or None.  Microbatches are
     accumulated only where no prefix is given, as in the JAX package.
+    ``pod``: the token splits are this rank's shares of its pod's (module
+    docstring); p and v are then this rank's, outer_ce the pod's.
     Raises before it computes anything on what ``check_hyper`` refuses.
     """
-    check_hyper(hyper, differentiate=True)
+    check_hyper(hyper, differentiate=True, pods=pod is not None)
     k = hyper.microbatch
     use_mb = (k > 1 and prefix_outer is None and prefix_inner is None
               and outer_tokens.shape[0] % k == 0
               and inner_tokens.shape[0] % k == 0)
+    if (use_mb and pod is not None
+            and any(s.ffn == "moe" for s in cfg.layer_pattern())):
+        raise NotImplementedError(
+            "microbatches of a moe model on a pod: each rank's microbatch "
+            "would route its own tokens, not the pod's microbatch")
 
     # --- outer: grad wrt both x and y (one fwd+bwd through the backbone).
     if use_mb:
         outer_val, (gx_f, gy_f) = _accum_grads(
-            lambda xp, yh, toks: outer_loss(cfg, hyper, xp, yh, toks),
+            lambda xp, yh, toks: outer_loss(cfg, hyper, xp, yh, toks,
+                                            pod=pod),
             (x, y), outer_tokens, k, (0, 1))
     else:
         outer_val, (gx_f, gy_f) = _value_and_grad(
             lambda xp, yh: outer_loss(cfg, hyper, xp, yh, outer_tokens,
-                                      prefix_outer),
+                                      prefix_outer, pod),
             (x, y), (0, 1))
+    if pod is not None:
+        gy_f = _pod_mean(pod, gy_f)
+        outer_val = _pod_mean(pod, outer_val)
 
     # --- inner features, computed once and reused by the head-space HVPs.
     y = y.detach()
     with torch.no_grad():
         feats_in, _ = _backbone(cfg, x, inner_tokens, prefix_inner,
-                                hyper)
-    z, v = _neumann_head(cfg, hyper, y, feats_in, inner_tokens, gy_f)
+                                hyper, pod)
+    z, v = _neumann_head(cfg, hyper, y, feats_in, inner_tokens, gy_f, pod)
 
     # --- cross term H_xy(g) z = grad_x d/de g(x, y + e z)  (one fwd+bwd).
     if use_mb:
         _, (gx_cross,) = _accum_grads(
-            lambda xp, toks: _inner_directional(cfg, hyper, xp, y, z, toks),
+            lambda xp, toks: _inner_directional(cfg, hyper, xp, y, z, toks,
+                                                pod=pod),
             (x,), inner_tokens, k, (0,))
     else:
         _, (gx_cross,) = _value_and_grad(
             lambda xp: _inner_directional(cfg, hyper, xp, y, z,
-                                          inner_tokens, prefix_inner),
+                                          inner_tokens, prefix_inner, pod),
             (x,), (0,))
 
     # p in grad_x f's own buffers: no third backbone-sized tree at the peak

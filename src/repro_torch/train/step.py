@@ -23,10 +23,23 @@ The metrics are averaged over the group (one all-reduce), as ``pmean``
 averages them over the agent axis.  Stepping is eager.  With a frontend
 (``with_prefix=True``) the step takes each agent's prefix embeddings
 beside its tokens and splits them into inner and outer halves as it
-splits the tokens.  What the JAX package's runtime does through XLA's
-partitioner raises, naming the ROADMAP item it waits for:
-``agent_mode="pods"`` (FSDP within an agent); ``train_state_specs`` (XLA
-partition specs) has no counterpart.
+splits the tokens.
+
+The pods layout (``agent_mode="pods"``, on a ``PodsMesh`` from
+``repro_torch.launch.distributed.pods_mesh``): an agent is a pod of k
+processes, its whole INTERACT state (x, y, u, v, p_prev) sharded over
+the pod by ``repro_torch.sharding.partition`` (``init_train_state(...,
+mesh=)`` gives each rank its shards, bit for bit the whole state's
+slices).  A step runs Step 1 on the shards, mixing each shard with the
+like shards of the other pods over the rank's ring (mixing is
+elementwise); gathers the agent's x and y over the pod once; runs Step 2
+on this rank's share of the agent's batch (rank d of the pod takes the
+d-th of k equal parts of each split, so the per-agent batch must divide
+by 2k), with the pod's means (``bilevel_lm``); reduce-scatters p and v
+to the shards; and runs Step 3 on the shards.  It computes what the rows
+layout computes for the same m agents on the same tokens, up to the
+order of the reductions.  ``grad_norm`` counts a leaf kept whole on
+every rank once.  This slice gathers whole trees, not a layer at a time.
 """
 from __future__ import annotations
 
@@ -41,11 +54,12 @@ from repro_torch.core.consensus import MixingSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.base import ArchConfig
-from repro_torch.sharding.collectives import AgentMesh
+from repro_torch.sharding import partition as P
+from repro_torch.sharding.collectives import AgentMesh, PodShards, PodsMesh
 from repro_torch.train.bilevel_lm import (BilevelHyper, check_hyper,
                                           local_grads, outer_loss)
 
-__all__ = ["TrainState", "InteractConfig", "init_train_state",
+__all__ = ["TrainState", "InteractConfig", "PodLayout", "init_train_state",
            "make_train_step", "make_eval_step"]
 
 
@@ -149,11 +163,13 @@ class InteractConfig:
             return cfg
         return cls.from_solver_config(cfg, hyper=hyper)
 
-    def consensus_engine(self, m: int, mesh: AgentMesh):
+    def consensus_engine(self, m: int, mesh: AgentMesh,
+                         shards: PodShards | None = None):
         """The ``ppermute`` engine of this config on ``mesh``, its
-        per-offset permute rounds.  The JAX package falls back to its
-        psum realisation only where an old JAX cannot lower permutes
-        beside an auto model axis; an ``AgentMesh`` has no model axis.
+        per-offset permute rounds (``shards``: the leaves are a pod's
+        shards).  The JAX package falls back to its psum realisation only
+        where an old JAX cannot lower permutes beside an auto model axis;
+        an ``AgentMesh`` has no model axis.
         """
         if self.consensus_backend != "ppermute":
             raise ValueError(
@@ -162,7 +178,7 @@ class InteractConfig:
                 "cuda and allgather serve the solvers)")
         return make_engine("ppermute", self.mixing_spec(m), mesh.device,
                            mesh=mesh, compress=self.consensus_compress,
-                           dp_sigma=self.dp_sigma)
+                           dp_sigma=self.dp_sigma, shards=shards)
 
 
 def _zeros_like_tree(tree):
@@ -178,16 +194,25 @@ def _unsqueeze(tree):
 
 
 def init_train_state(cfg: ArchConfig, seed: int = 0,
-                     device: str | torch.device | None = None) -> TrainState:
+                     device: str | torch.device | None = None,
+                     mesh: PodsMesh | None = None) -> TrainState:
     """This process's initial state, every leaf with a leading agent dim
     of 1: every agent starts from the same (x0, y0), drawn from ``seed``
     (every process of a run passes the same one), as in Algorithm 1; u,
     v and p_prev start at zero (the first step's tracking difference
-    makes u_1 = p_1).  On the card unless ``device="cpu"``."""
+    makes u_1 = p_1).  On the card unless ``device="cpu"``.  With a
+    ``PodsMesh`` (the pods layout), this rank's shards of that state (on
+    the mesh's device unless ``device`` is given)."""
+    if mesh is not None and device is None:
+        device = mesh.device
     params = M.init_params(cfg, seed, with_head=True,
                            device=resolve_device(device))
     y = params.pop("head")[None]
     x = _unsqueeze(params)
+    if mesh is not None:
+        k, d = mesh.pod_size, mesh.data_index
+        x = P.shard_tree(x, P.x_shard_dims(x, k), k, d)
+        y = P.shard_leaf(y, P.head_shard_dim(y, k), k, d)
     return TrainState(x=x, y=y, u=_zeros_like_tree(x),
                       v=torch.zeros_like(y), p_prev=_zeros_like_tree(x), t=0)
 
@@ -208,13 +233,68 @@ def _local_tokens(mesh: AgentMesh, tokens: torch.Tensor, ndim: int = 3
     return tokens[0].to(mesh.device)
 
 
-def _split(tokens: torch.Tensor | None):
+def _split(tokens: torch.Tensor | None, pod: AgentMesh | None = None):
     """The first half of the batch is the inner split, the second the
-    outer split (``(None, None)`` for no prefix)."""
+    outer split (``(None, None)`` for no prefix).  ``pod``: this rank's
+    share of each, the d-th of k equal parts; raises unless the batch
+    divides by 2k."""
     if tokens is None:
         return None, None
     half = tokens.shape[0] // 2
-    return tokens[:half], tokens[half:]
+    if pod is None:
+        return tokens[:half], tokens[half:]
+    k, d = pod.world_size, pod.rank
+    if tokens.shape[0] % (2 * k):
+        raise ValueError(
+            f"a per-agent batch of {tokens.shape[0]} does not split into "
+            f"inner and outer halves over a pod of {k}: it must divide by "
+            f"{2 * k}")
+    c = half // k
+    return (tokens[d * c:(d + 1) * c],
+            tokens[half + d * c:half + (d + 1) * c])
+
+
+class PodLayout:
+    """The pods layout of a config on a ``PodsMesh``: the split dim of
+    each backbone leaf, by key path, and of the head
+    (``repro_torch.sharding.partition``, from a shape-only init), and the
+    pod's gathers and reduce-scatters of the state's trees."""
+
+    def __init__(self, cfg: ArchConfig, mesh: PodsMesh):
+        x, y = P.x_shapes(cfg)
+        k = mesh.pod_size
+        paths = P.leaf_paths(x)
+        self.pod = mesh.pod
+        self.x_shards = PodShards(
+            mesh.pod, dict(zip(paths, P.x_shard_dims(x, k))),
+            {p: tuple(l.shape) for p, l in zip(paths,
+                                                pytree.tree_leaves(x))})
+        self.y_dims = (P.head_shard_dim(y, k),)
+
+    def x_dims(self, tree) -> tuple:
+        return tuple(self.x_shards.dims[p] for p in P.leaf_paths(tree))
+
+    def gather(self, x, y):
+        """The agent's whole (x, y) from this rank's shards."""
+        return (P.gather_tree(x, self.x_dims(x), self.pod),
+                P.gather_tree(y, self.y_dims, self.pod))
+
+    def scatter(self, p, v):
+        """This rank's shards of the pod's mean of the ranks' (p, v)."""
+        return (P.reduce_scatter_tree(p, self.x_dims(p), self.pod),
+                P.reduce_scatter_tree(v, self.y_dims, self.pod))
+
+    def sq_norm(self, tree) -> torch.Tensor:
+        """The agent's squared norm of a backbone tree of shards: the
+        shards' sums over the pod, each whole leaf once."""
+        leaves = pytree.tree_leaves(tree)
+        dims = self.x_dims(tree)
+        sq = lambda ls: sum((torch.sum(torch.square(l.to(torch.float32)))
+                             for l in ls), torch.zeros(
+            (), dtype=torch.float32, device=leaves[0].device))
+        split = sq([l for l, d in zip(leaves, dims) if d is not None])
+        whole = sq([l for l, d in zip(leaves, dims) if d is None])
+        return self.pod.all_reduce(split.reshape(1))[0] + whole
 
 
 def pmean(mesh: AgentMesh, *values: torch.Tensor) -> torch.Tensor:
@@ -223,19 +303,27 @@ def pmean(mesh: AgentMesh, *values: torch.Tensor) -> torch.Tensor:
     return mesh.all_reduce(stacked) / mesh.world_size
 
 
-def _check_rows(mesh: AgentMesh, agent_mode: str) -> None:
+def _check_layout(mesh, agent_mode: str) -> AgentMesh:
+    """The mesh of the agents' ring: ``mesh`` itself (rows, one agent a
+    process) or a ``PodsMesh``'s ring (pods); raises on a mismatch."""
     if agent_mode == "pods":
-        raise NotImplementedError(
-            "agent_mode='pods' shards each agent's state over a pod's data "
-            "axis (FSDP within an agent); it waits with "
-            "sharding/partition.py, ROADMAP Queue A item 10")
+        if not isinstance(mesh, PodsMesh):
+            raise ValueError(
+                "agent_mode='pods' runs on a PodsMesh (repro_torch.launch."
+                "distributed.pods_mesh over a (pod, data, model) process "
+                f"mesh), not on a {type(mesh).__name__}")
+        return mesh.ring
     if agent_mode != "rows":
         raise ValueError(f"unknown agent_mode {agent_mode!r}")
+    if isinstance(mesh, PodsMesh):
+        raise ValueError("a PodsMesh holds an agent on a pod of processes: "
+                         "pass agent_mode='pods'")
     if mesh.local_agents != 1:
         raise ValueError(
             f"the train step runs one agent a process, but the mesh puts "
             f"{mesh.local_agents} agents on each of its {mesh.world_size} "
             f"processes: launch {mesh.num_agents} processes")
+    return mesh
 
 
 def make_train_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig,
@@ -244,33 +332,43 @@ def make_train_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig,
 
     ``icfg`` may be an ``InteractConfig`` or a ``SolverConfig`` (coerced
     via ``from_solver_config``).  ``mesh`` is this process's
-    ``AgentMesh`` (one agent a process).  ``tokens``: the global (m,
-    per_agent_batch, seq) batch or this process's (1, b, s) row; the
+    ``AgentMesh`` (one agent a process), or with ``agent_mode="pods"``
+    its ``PodsMesh`` (the module docstring).  ``tokens``: the global (m,
+    per_agent_batch, seq) batch or this agent's (1, b, s) row; the
     first half of the agent's batch is the inner split, the second the
     outer split.  ``prefix``: a frontend's embeddings, the global (m, b,
-    prefix, frontend_dim) batch or this process's row, split as the
+    prefix, frontend_dim) batch or this agent's row, split as the
     tokens are (``with_prefix`` mirrors the JAX signature: the step takes
     a prefix either way).  ``metrics``: ``outer_ce`` and ``grad_norm``
     (of the tracked gradient u), 0-dim float32 tensors averaged over the
-    group.
+    agents.
     """
     icfg = InteractConfig.coerce(icfg)
-    _check_rows(mesh, agent_mode)
+    ring = _check_layout(mesh, agent_mode)
     hyper = icfg.hyper
-    check_hyper(hyper, differentiate=True)
-    engine = icfg.consensus_engine(mesh.num_agents, mesh)
+    check_hyper(hyper, differentiate=True, pods=agent_mode == "pods")
+    lay = PodLayout(cfg, mesh) if agent_mode == "pods" else None
+    pod = None if lay is None else lay.pod
+    engine = icfg.consensus_engine(ring.num_agents, ring,
+                                   None if lay is None else lay.x_shards)
 
     def step(state: TrainState, tokens, prefix=None):
-        inner_t, outer_t = _split(_local_tokens(mesh, tokens))
+        inner_t, outer_t = _split(_local_tokens(ring, tokens), pod)
         pre_in, pre_out = _split(None if prefix is None
-                                 else _local_tokens(mesh, prefix, ndim=4))
+                                 else _local_tokens(ring, prefix, ndim=4),
+                                 pod)
         dp_key = (0, state.t) if icfg.dp_sigma > 0 else None
 
         def grads_fn(x_new, y_new):
             # ---- Step 2: local gradients at the new iterate -------------
+            if lay is not None:
+                x_new, y_new = lay.gather(x_new, y_new)
             p_new, v_new, outer_ce = local_grads(
                 cfg, hyper, _squeeze(x_new), y_new[0], inner_t, outer_t,
-                prefix_inner=pre_in, prefix_outer=pre_out)
+                prefix_inner=pre_in, prefix_outer=pre_out, pod=pod)
+            if lay is not None:
+                return (*lay.scatter(_unsqueeze(p_new), v_new[None]),
+                        outer_ce)
             return _unsqueeze(p_new), v_new[None], outer_ce
 
         # Steps 1-3 through the shared step-core on the ppermute engine.
@@ -280,9 +378,10 @@ def make_train_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig,
                 engine, state.x, state.y, state.u, state.v, state.p_prev,
                 icfg.alpha, icfg.beta, grads_fn, t=state.t, dp_key=dp_key))
 
-        gsq = sum(torch.sum(torch.square(l.to(torch.float32)))
-                  for l in pytree.tree_leaves(u_new))
-        mean_ce, mean_gsq = pmean(mesh, outer_ce, gsq)
+        gsq = (sum(torch.sum(torch.square(l.to(torch.float32)))
+                   for l in pytree.tree_leaves(u_new))
+               if lay is None else lay.sq_norm(u_new))
+        mean_ce, mean_gsq = pmean(ring, outer_ce, gsq)
         new_state = TrainState(x=x_new, y=y_new, u=u_new, v=v_new,
                                p_prev=p_new, t=state.t + 1)
         return new_state, {"outer_ce": mean_ce,
@@ -300,7 +399,7 @@ def make_eval_step(cfg: ArchConfig, mesh: AgentMesh, icfg: InteractConfig):
     kernel on the card, once a layer.
     """
     icfg = InteractConfig.coerce(icfg)
-    _check_rows(mesh, "rows")
+    _check_layout(mesh, "rows")
     hyper = icfg.hyper
     check_hyper(hyper, differentiate=False)
 

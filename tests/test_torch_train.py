@@ -27,7 +27,8 @@ Held, relative to each leaf's max-abs scale in the reference:
   mean of the JAX ``outer_loss`` within 1e-5 relative.
 The largest gaps are printed beside their bounds.  Also here: the
 config's fields and defaults and its ``SolverConfig`` round trip, every
-option the port refuses (each names its ROADMAP item), and the driver:
+option the port refuses (each names its ROADMAP item, or, for
+``batch_shard``, the pods layout it needs), and the driver:
 8 steps checkpointed every 4, rerun to 12, bit for bit the uninterrupted
 12-step run.
 """
@@ -298,31 +299,32 @@ def _lg_call(hyper):
     return lambda: local_grads(cfg, hyper, x, state.y[0], toks[:2], toks[2:])
 
 
+# each refused option, the error it raises and the words it names (the
+# pods layout is tests/test_torch_pods.py's; batch_shard belongs to it)
 REFUSED = {
-    "agent_mode_pods": (lambda cfg: make_train_step(
-        cfg, _mesh(), InteractConfig(), agent_mode="pods"), "item 10"),
-    "svr_agent_mode_pods": (lambda cfg: make_svr_train_step(
-        cfg, _mesh(), InteractConfig(), q=2, agent_mode="pods"), "item 10"),
     "seq_shard": (lambda cfg: make_train_step(cfg, _mesh(), InteractConfig(
-        hyper=BilevelHyper(seq_shard=True))), "item 10"),
+        hyper=BilevelHyper(seq_shard=True))), NotImplementedError,
+        "item 10"),
     "batch_shard": (lambda cfg: make_eval_step(cfg, _mesh(), InteractConfig(
-        hyper=BilevelHyper(batch_shard=True))), "item 10"),
+        hyper=BilevelHyper(batch_shard=True))), ValueError,
+        "agent_mode='pods'"),
     "attn_cuda_train_step": (lambda cfg: make_train_step(
         cfg, _mesh(), InteractConfig(hyper=BilevelHyper(attn_impl="cuda"))),
-        "no backward kernel"),
+        NotImplementedError, "no backward kernel"),
     "attn_cuda_local_grads": (lambda cfg: _lg_call(
-        BilevelHyper(attn_impl="cuda"))(), "no backward kernel"),
+        BilevelHyper(attn_impl="cuda"))(), NotImplementedError,
+        "no backward kernel"),
     "production_mesh": (lambda cfg: driver.main(
         ["--reduced", "--device", "cpu", "--wire", "gloo",
-         "--production-mesh"]), "item 10"),
+         "--production-mesh"]), NotImplementedError, "item 10"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refused_options_name_their_roadmap_item(name):
     _, cfg = _configs()
-    entry, words = REFUSED[name]
-    with pytest.raises(NotImplementedError, match=words):
+    entry, error, words = REFUSED[name]
+    with pytest.raises(error, match=words):
         entry(cfg)
 
 
